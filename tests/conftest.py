@@ -22,6 +22,11 @@ def pytest_configure(config):
         "markers",
         "slow: full simulation sweeps / large cohorts; skipped unless --runslow",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (the port's hand-written kernels); "
+        "skips inside the test where torch.cuda.is_available() is False",
+    )
 
 
 def pytest_collection_modifyitems(config, items):
