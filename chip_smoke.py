@@ -3,14 +3,22 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written CUDA kernels from the sources in this
-checkout, holds each against its plain PyTorch version on the card,
-drives the main path — ASO-Fed through the cohort engine on
-``lstm_regression`` at the paper LSTM's registered width (hidden 64) —
-and checks that the main path went through every kernel and that the
-card's trajectory agrees with the CPU's.  Prints one JSON line per phase,
-then a ``{"kernels": [...]}`` line, the card's name and power limit, and
-as the last line ``{"ok": true, "device": {...}}``.  Any failure exits
-non-zero before that line; without a CUDA card it exits non-zero at once.
+checkout, holds each against its plain PyTorch version on the card, and
+drives the port's two paths through the cohort engine on
+``lstm_regression`` at the paper LSTM's registered width (hidden 64):
+
+* ``main_path``: ASO-Fed with the sequential fold, which runs the
+  feature-pass kernel (K1) once per folded arrival;
+* ``assoc_path``: FedAsync with the associative fold, which runs the
+  linear-recurrence kernel (K2) once per carrier leaf per tick.
+
+Each path is driven with the launch counts set to 0 just before it and
+read just after.  Then the card's trajectories are held against the
+CPU's for every ported strategy, and the associative fold against the
+sequential one on the card.  Prints one JSON line per phase, then a
+``{"kernels": [...]}`` line, the card's name and power limit, and as the
+last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
+before that line; without a CUDA card it exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -42,9 +50,29 @@ FEATURE_SHAPES = [(8, 256), (32, 32), (9, 32), (8, 32), (100, 33), (9, 129),
 # rows reach |out| of 8-32, where one fp32 ulp is already 1e-6 to 4e-6:
 # an absolute 1e-6 would demand bitwise-equal reductions.
 TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}
+# linear recurrence (K2) cases: (shape, a broadcast over C).  The main
+# path's carrier leaves at its S=64 bucket (paper LSTM at hidden 64:
+# w_x, w_h, b, fc_w, fc_b), tests/test_kernels.py's grid, S=1 and a
+# prime S, the CNN's fc_w at S=256, and a long Mamba-like scan.
+SCAN_MAIN = [(1, 64, 2048), (1, 64, 16384), (1, 64, 256), (1, 64, 64),
+             (1, 64, 1)]
+SCAN_CASES = ([(s, True) for s in SCAN_MAIN]
+              + [(s, False) for s in [(2, 64, 32), (1, 128, 16), (2, 100, 8),
+                                      (1, 256, 128), (2, 32, 4)]]
+              + [((1, 1, 2048), True), ((1, 13, 2048), True),
+                 ((1, 256, 62720), True), ((4, 4096, 1024), False)])
+# per unit of the output's largest magnitude (at least 1): with a up to
+# 0.999 the state reaches |h| of 10-30
+SCAN_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # identical main-path runs, each with its own launch count check: the
 # spread of iters/s within one call on one card
 MAIN_PATH_REPEATS = 5
+ASSOC_PATH_REPEATS = 3
+# the main path's shape (see _main_path_run)
+MAIN_CLIENTS, MAIN_HIDDEN, MAIN_T = 256, 64, 512
+# carrier leaves of the paper LSTM (w_x, w_h, b, fc_w, fc_b): K2 launches
+# per associative tick
+LSTM_LEAVES = 5
 # engine-vs-oracle tolerance of the repo's tests (tests/test_sim_engine.py)
 TRAJ_ATOL, TRAJ_RTOL = 3e-4, 3e-3
 
@@ -117,6 +145,18 @@ def feature_bound(rows: int, cols: int, itemsize: int):
                                                            "operations")
 
 
+def scan_bound(a: torch.Tensor, b: torch.Tensor):
+    """(bound_ms, bound_by) of the recurrence: a and b read once, h and
+    h_last written once, over HBM bandwidth, against one multiply and one
+    add per element of b in fp32 (bf16 inputs are computed in fp32)."""
+    B, S, C = b.shape
+    nbytes = (a.numel() + 2 * b.numel() + B * C) * b.element_size()
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * b.numel() / FP32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
 def phase_build():
     from repro_torch.kernels import build
 
@@ -176,46 +216,134 @@ def phase_kernel_vs_plain():
     return rows_out
 
 
-def _main_path_run(T: int, stats: dict, telemetry=None):
+def _scan_case(a, b, check_tol: float):
+    """Kernel vs plain version on (a, b); returns the case record."""
+    from repro_torch.kernels.linear_scan.kernel import linear_scan_kernel
+    from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+
+    h, h_last = linear_scan_kernel(a, b)
+    want, want_last = linear_scan_ref(a, b)
+    torch.cuda.synchronize()
+    err = max(float((h.float() - want.float()).abs().max()),
+              float((h_last.float() - want_last.float()).abs().max()))
+    tol = check_tol * max(1.0, float(want.float().abs().max()))
+    if not (h.dtype == b.dtype and err < tol):
+        raise AssertionError(
+            f"linear_scan kernel disagrees with its plain version at "
+            f"{tuple(b.shape)} {b.dtype} (a {tuple(a.shape)}): max abs "
+            f"err {err} (tolerance {tol})")
+    kern = lambda: linear_scan_kernel(a, b)  # noqa: E731
+    plain = lambda: linear_scan_ref(a, b)  # noqa: E731
+    S = b.shape[1]
+    bound_ms, bound_by = scan_bound(a, b)
+    return {"phase": "kernel_vs_plain", "kernel": "linear_scan",
+            "shape": list(b.shape), "a_shape": list(a.shape),
+            "dtype": str(b.dtype), "max_abs_err": err, "tolerance": tol,
+            "ms": device_ms(kern), "call_ms": call_ms(kern),
+            # the plain loop issues 2 S + 1 ops a call: fewer per graph
+            "plain_ms": device_ms(plain, reps=max(1, min(100, 1000 // S))),
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_scan_vs_plain():
+    from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+
+    rng = np.random.default_rng(0)
+    rows_out = {}
+    for shape, bcast in SCAN_CASES:
+        B, S, C = shape
+        a_np = rng.uniform(0.5, 0.999, (B, S, 1 if bcast else C))
+        b_np = rng.standard_normal(shape)
+        for dtype in (torch.float32, torch.bfloat16):
+            a = torch.tensor(a_np, dtype=torch.float32,
+                             device="cuda").to(dtype)
+            b = torch.tensor(b_np, dtype=torch.float32,
+                             device="cuda").to(dtype)
+            rec = _scan_case(a, b, SCAN_TOL[dtype])
+            emit(rec)
+            rows_out[(shape, dtype, "uniform")] = rec
+    # a = 1, what the fedbuff, fedavg and ASO-Fed(-F) folds feed it: the
+    # recurrence is then a prefix sum, and torch.cumsum along S is the
+    # library yardstick (timed here, used nowhere in the port)
+    for shape in SCAN_MAIN:
+        B, S, C = shape
+        a = torch.ones((B, S, 1), dtype=torch.float32, device="cuda")
+        b = torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                         device="cuda")
+        rec = _scan_case(a, b, SCAN_TOL[torch.float32])
+        lib = lambda: torch.cumsum(b, dim=1)  # noqa: E731
+        lib_err = float((lib() - linear_scan_ref(a, b)[0]).abs().max())
+        rec.update(case="a=1", library="torch.cumsum along S",
+                   library_ms=device_ms(lib), library_max_abs_err=lib_err)
+        emit(rec)
+        rows_out[(shape, torch.float32, "ones")] = rec
+    return rows_out
+
+
+def _main_path_run(T: int, stats: dict, alg: str = "asofed",
+                   trace=None, **cfg_kw):
+    """One run at the main path's shape: lstm_regression at hidden
+    MAIN_HIDDEN, MAIN_CLIENTS clients, batch 32, E=2, window 32, seed 0."""
     from repro_torch.core.algorithms import get_strategy
     from repro_torch.sim.engine import run_strategy
     from repro_torch.sim.workloads import get_workload
 
     wl = get_workload("lstm_regression")
-    cfg_model, model = wl.build(hidden=64)
-    clients = wl.make_clients(256, seed=0)
+    cfg_model, model = wl.build(hidden=MAIN_HIDDEN)
+    clients = wl.make_clients(MAIN_CLIENTS, seed=0)
     cfg = wl.run_config(T=T, batch_size=32, local_epochs=2,
-                        eval_every=256, window=32, seed=0)
+                        eval_every=256, window=32, seed=0, **cfg_kw)
     t0 = time.perf_counter()
-    hist = run_strategy(get_strategy("asofed"), model, cfg_model, clients,
-                        cfg, stats=stats, telemetry=telemetry)
+    hist = run_strategy(get_strategy(alg), model, cfg_model, clients,
+                        cfg, stats=stats, trace=trace)
     return hist, time.perf_counter() - t0, cfg_model
 
 
-def phase_main_path():
+def _reset_launches():
     from repro_torch.kernels.feature_attention.kernel import (
         feature_attention_kernel)
+    from repro_torch.kernels.linear_scan.kernel import linear_scan_kernel
 
+    feature_attention_kernel.launches = 0
+    linear_scan_kernel.launches = 0
+
+
+def _launches():
+    """(K1, K2) launches since the last reset."""
+    from repro_torch.kernels.feature_attention.kernel import (
+        feature_attention_kernel)
+    from repro_torch.kernels.linear_scan.kernel import linear_scan_kernel
+
+    return feature_attention_kernel.launches, linear_scan_kernel.launches
+
+
+def _finite(hist):
+    if not all(math.isfinite(v) for h in hist for v in h.metrics.values()):
+        raise AssertionError(f"non-finite eval metrics: {hist}")
+
+
+def phase_main_path():
     _main_path_run(64, {})  # warm-up: cuBLAS / cuDNN handles, allocator
     rates = []
     for _ in range(MAIN_PATH_REPEATS):
         stats = {}
-        feature_attention_kernel.launches = 0
-        hist, wall, cfg_model = _main_path_run(512, stats)
-        launches = feature_attention_kernel.launches
-        if launches != stats["iters"] or stats["iters"] != 512:
+        _reset_launches()
+        hist, wall, cfg_model = _main_path_run(MAIN_T, stats)
+        launches, scan_launches = _launches()
+        if launches != stats["iters"] or stats["iters"] != MAIN_T \
+                or scan_launches != 0:
             raise AssertionError(
                 f"main path: {launches} feature-kernel launches for "
-                f"{stats['iters']} folded arrivals (expected one per fold)")
-        if not all(math.isfinite(v) for h in hist
-                   for v in h.metrics.values()):
-            raise AssertionError(f"non-finite eval metrics: {hist}")
+                f"{stats['iters']} folded arrivals (expected one per fold) "
+                f"and {scan_launches} linear-scan launches (expected 0 on "
+                "the sequential fold)")
+        _finite(hist)
         rates.append(stats["iters"] / wall)
         final = hist[-1].metrics
         emit({"phase": "main_path", "workload": "lstm_regression",
               "hidden": cfg_model.hidden,
-              "in_features": cfg_model.in_features, "clients": 256,
-              "T": 512, "batch_size": 32, "local_epochs": 2, "window": 32,
+              "in_features": cfg_model.in_features, "clients": MAIN_CLIENTS,
+              "T": MAIN_T, "batch_size": 32, "local_epochs": 2, "window": 32,
               "iters": stats["iters"], "ticks": stats["ticks"],
               "windows": stats["windows"], "wall_s": wall,
               "iters_per_s": rates[-1], "device_s": stats["device_s"],
@@ -231,14 +359,79 @@ def phase_main_path():
     return launches
 
 
-def phase_profile():
+def phase_assoc_path():
+    """FedAsync with the associative fold at the main path's shape: K2
+    once per carrier leaf per tick, K1 never.  Then the same run with the
+    sequential fold, both traced, for the rates side by side and the
+    largest weight difference along the trace."""
+    _main_path_run(64, {}, "fedasync", fold_mode="associative")  # warm-up
+    rates = []
+    for _ in range(ASSOC_PATH_REPEATS):
+        stats = {}
+        _reset_launches()
+        hist, wall, cfg_model = _main_path_run(MAIN_T, stats, "fedasync",
+                                               fold_mode="associative")
+        k1, launches = _launches()
+        if stats["fold_mode"] != "associative" or k1 != 0 \
+                or launches != stats["ticks"] * LSTM_LEAVES \
+                or stats["iters"] != MAIN_T:
+            raise AssertionError(
+                f"assoc path: {launches} linear-scan launches for "
+                f"{stats['ticks']} ticks (expected {LSTM_LEAVES} a tick) "
+                f"and {k1} feature-kernel launches (expected 0); "
+                f"fold_mode={stats['fold_mode']}, iters={stats['iters']}")
+        _finite(hist)
+        rates.append(stats["iters"] / wall)
+        emit({"phase": "assoc_path", "strategy": "fedasync",
+              "fold_mode": "associative", "workload": "lstm_regression",
+              "hidden": cfg_model.hidden, "clients": MAIN_CLIENTS, "T": MAIN_T,
+              "batch_size": 32, "local_epochs": 2, "window": 32,
+              "iters": stats["iters"], "ticks": stats["ticks"],
+              "wall_s": wall, "iters_per_s": rates[-1],
+              "device_s": stats["device_s"],
+              "host_build_s": stats["host_build_s"],
+              "peak_device_bytes": stats["peak_device_bytes"],
+              "scan_kernel_launches": launches,
+              "feature_kernel_launches": k1,
+              "smape": hist[-1].metrics["smape"]})
+    traces, finals, seq_rate = {}, {}, None
+    for mode in ("sequential", "associative"):
+        stats, tr = {}, []
+        hist, wall, _ = _main_path_run(MAIN_T, stats, "fedasync", trace=tr,
+                                       fold_mode=mode)
+        _finite(hist)
+        traces[mode], finals[mode] = tr, hist[-1].metrics["smape"]
+        if mode == "sequential":
+            seq_rate = stats["iters"] / wall
+            seq_device_s = stats["device_s"]
+    seq = dict(traces["sequential"])
+    diff = max(float(np.abs(w[k] - seq[t][k]).max())
+               for t, w in traces["associative"] if t in seq for k in w)
+    rel = abs(finals["associative"] - finals["sequential"]) / abs(
+        finals["sequential"])
+    if not (math.isfinite(diff) and rel < 1e-2):
+        raise AssertionError(
+            f"assoc path: final smape {finals['associative']} vs "
+            f"sequential {finals['sequential']} (relative {rel}), largest "
+            f"weight difference {diff}")
+    q1, med, q3 = np.percentile(rates, [25, 50, 75])
+    emit({"phase": "assoc_vs_seq", "strategy": "fedasync",
+          "assoc_iters_per_s": rates, "assoc_median": med,
+          "assoc_iqr": q3 - q1, "seq_iters_per_s": seq_rate,
+          "seq_device_s": seq_device_s,
+          "max_abs_weight_diff": diff, "smape_assoc": finals["associative"],
+          "smape_seq": finals["sequential"], "smape_rel_diff": rel})
+    return launches
+
+
+def phase_profile(alg: str = "asofed", **cfg_kw):
     """Device time by kernel over one main-path run (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
     stats = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall, _ = _main_path_run(512, stats)
+        _, wall, _ = _main_path_run(MAIN_T, stats, alg, **cfg_kw)
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) is not None
               and "CUDA" in str(e.device_type)]
@@ -247,14 +440,26 @@ def phase_profile():
     per = sorted(((e.key, getattr(e, key, 0.0) / 1e3, e.count)
                   for e in events), key=lambda r: -r[1])
     dev_ms = sum(r[1] for r in per)
-    emit({"phase": "profile", "wall_s": wall,
+    emit({"phase": "profile", "strategy": alg, **cfg_kw, "wall_s": wall,
           "device_busy_ms": dev_ms if per else "not measured",
           "device_idle_share": (1.0 - dev_ms / 1e3 / wall) if per
           else "not measured",
-          "top_kernels_ms": [[k, ms, n] for k, ms, n in per[:12]]})
+          "top_kernels_ms": [[k, ms, n] for k, ms, n in per[:12]],
+          # the port's own kernels, wherever they rank
+          "port_kernels_ms": [[k, ms, n] for k, ms, n in per
+                              if "feature_attention_rows" in k
+                              or "linear_scan_channels" in k]})
 
 
-def _small_run(name: str, T: int, device: str):
+# the affine strategies at small width: (strategy, config overrides, T)
+AFFINE = [("fedasync", {}, 60), ("fedbuff", {"buffer_size": 3}, 60),
+          ("asofed", {"feature_learning": False}, 60),
+          ("fedavg", {"participation": 0.6}, 10),
+          ("fedprox", {"participation": 0.6}, 10)]
+
+
+def _small_run(name: str, T: int, device: str, alg: str = "asofed",
+               **cfg_kw):
     from repro_torch.core.algorithms import get_strategy
     from repro_torch.sim.engine import run_strategy
     from repro_torch.sim.workloads import get_workload
@@ -262,35 +467,58 @@ def _small_run(name: str, T: int, device: str):
     wl = get_workload(name)
     cfg_model, model = wl.build(hidden=12)
     cfg = wl.run_config(T=T, batch_size=8, local_epochs=2, eta=0.02,
-                        eval_every=30, seed=0)
+                        eval_every=30, seed=0, **cfg_kw)
     trace = []
-    hist = run_strategy(get_strategy("asofed"), model, cfg_model,
+    hist = run_strategy(get_strategy(alg), model, cfg_model,
                         wl.make_clients(5, n_per=60, seed=0), cfg,
                         device=device, trace=trace)
     return hist, trace
 
 
+def _compare(tr_a, tr_b, tag: str) -> float:
+    """Max abs difference of two traces with the same tick boundaries;
+    raises beyond the engine tolerance (against ``tr_b``)."""
+    if [t for t, _ in tr_a] != [t for t, _ in tr_b] or not tr_a:
+        raise AssertionError(f"{tag}: tick boundaries differ")
+    worst = 0.0
+    for (t, wa), (_, wb) in zip(tr_a, tr_b):
+        for k in wa:
+            d = np.abs(wa[k] - wb[k])
+            worst = max(worst, float(d.max()))
+            excess = d - (TRAJ_ATOL + TRAJ_RTOL * np.abs(wb[k]))
+            if not np.all(np.isfinite(wa[k])) or excess.max() > 0:
+                raise AssertionError(
+                    f"{tag}: trajectories differ at t={t} in {k}: max abs "
+                    f"diff {float(d.max())}")
+    return worst
+
+
 def phase_card_vs_cpu():
-    for name, T in [("lstm_regression", 60), ("cnn_classification", 30),
-                    ("lstm_multilabel", 60)]:
-        _, tr_gpu = _small_run(name, T, "cuda")
-        _, tr_cpu = _small_run(name, T, "cpu")
-        if [t for t, _ in tr_gpu] != [t for t, _ in tr_cpu]:
-            raise AssertionError(f"{name}: tick boundaries differ")
-        worst, worst_rel = 0.0, 0.0
-        for (t, wg), (_, wc) in zip(tr_gpu, tr_cpu):
-            for k in wg:
-                d = np.abs(wg[k] - wc[k])
-                worst = max(worst, float(d.max()))
-                excess = d - (TRAJ_ATOL + TRAJ_RTOL * np.abs(wc[k]))
-                worst_rel = max(worst_rel, float(excess.max()))
-                if not np.all(np.isfinite(wg[k])) or excess.max() > 0:
-                    raise AssertionError(
-                        f"{name}: card and CPU trajectories differ at "
-                        f"t={t} in {k}: max abs diff {float(d.max())}")
-        emit({"phase": "card_vs_cpu", "workload": name, "T": T,
-              "ticks": len(tr_gpu), "max_abs_diff": worst,
+    runs = [("lstm_regression", 60, "asofed", {}),
+            ("cnn_classification", 30, "asofed", {}),
+            ("lstm_multilabel", 60, "asofed", {})]
+    runs += [("lstm_regression", T, alg, {**over,
+                                          "fold_mode": "associative"})
+             for alg, over, T in AFFINE]
+    runs += [("cnn_classification", 30, "fedasync",
+              {"fold_mode": "associative"})]
+    for name, T, alg, kw in runs:
+        _, tr_gpu = _small_run(name, T, "cuda", alg, **kw)
+        _, tr_cpu = _small_run(name, T, "cpu", alg, **kw)
+        worst = _compare(tr_gpu, tr_cpu, f"{alg} {name} card vs CPU")
+        emit({"phase": "card_vs_cpu", "workload": name, "strategy": alg,
+              **kw, "T": T, "ticks": len(tr_gpu), "max_abs_diff": worst,
               "atol": TRAJ_ATOL, "rtol": TRAJ_RTOL})
+    # the associative fold (K2) against the sequential one, on the card
+    for alg, over, T in AFFINE:
+        _, tr_par = _small_run("lstm_regression", T, "cuda", alg,
+                               fold_mode="associative", **over)
+        _, tr_seq = _small_run("lstm_regression", T, "cuda", alg,
+                               fold_mode="sequential", **over)
+        worst = _compare(tr_par, tr_seq, f"{alg} associative vs sequential")
+        emit({"phase": "assoc_vs_seq_small", "workload": "lstm_regression",
+              "strategy": alg, **over, "T": T, "ticks": len(tr_par),
+              "max_abs_diff": worst, "atol": TRAJ_ATOL, "rtol": TRAJ_RTOL})
 
 
 def main() -> int:
@@ -313,10 +541,17 @@ def main() -> int:
           "float32_matmul_precision": torch.get_float32_matmul_precision()})
     phase_build()
     kv = phase_kernel_vs_plain()
+    sv = phase_scan_vs_plain()
     launches = phase_main_path()
     phase_profile()
+    scan_launches = phase_assoc_path()
+    phase_profile("fedasync", fold_mode="associative")
     phase_card_vs_cpu()
     main_rec = kv[((8, 256), torch.float32, True)]
+    # K2 at the main path's largest leaf (w_h), a = 1: the case with a
+    # library yardstick (torch.cumsum); the kernel's time does not depend
+    # on the values of a
+    scan_rec = sv[((1, 64, 16384), torch.float32, "ones")]
     emit({"kernels": [{
         "name": "feature_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/feature_attention/csrc/"
@@ -325,7 +560,15 @@ def main() -> int:
         "launches": launches, "max_abs_err": main_rec["max_abs_err"],
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-        "library_ms": None}]})
+        "library_ms": None}, {
+        "name": "linear_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
+        "replaces": "src/repro/kernels/linear_scan/kernel.py:56",
+        "launches": scan_launches, "max_abs_err": scan_rec["max_abs_err"],
+        "ms": scan_rec["ms"], "plain_ms": scan_rec["plain_ms"],
+        "bound_ms": scan_rec["bound_ms"], "bound_by": scan_rec["bound_by"],
+        "library_ms": scan_rec["library_ms"],
+        "library": scan_rec["library"], "shape": scan_rec["shape"]}]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

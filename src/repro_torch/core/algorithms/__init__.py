@@ -1,17 +1,25 @@
 """Algorithm strategy objects for the port's cohort engine.
 
-This slice of the port carries ASO-Fed only; the other strategies of
-``repro.core.algorithms`` are still to port.
+The port carries ASO-Fed, FedAsync, FedBuff, FedAvg and FedProx; the
+Local / Global sweep baselines of ``repro.core.algorithms`` are still to
+port.
 """
 from __future__ import annotations
 
 from typing import Dict, Type
 
 from repro_torch.core.algorithms.asofed import AsoFedStrategy
+from repro_torch.core.algorithms.fedasync import FedAsyncStrategy
+from repro_torch.core.algorithms.fedavg import FedAvgStrategy, FedProxStrategy
+from repro_torch.core.algorithms.fedbuff import FedBuffStrategy
 from repro_torch.sim.engine import Strategy
 
 STRATEGIES: Dict[str, Type[Strategy]] = {
     "asofed": AsoFedStrategy,
+    "fedasync": FedAsyncStrategy,
+    "fedbuff": FedBuffStrategy,
+    "fedavg": FedAvgStrategy,
+    "fedprox": FedProxStrategy,
 }
 
 
@@ -23,4 +31,6 @@ def get_strategy(name: str) -> Strategy:
     return STRATEGIES[name]()
 
 
-__all__ = ["Strategy", "STRATEGIES", "get_strategy", "AsoFedStrategy"]
+__all__ = ["Strategy", "STRATEGIES", "get_strategy", "AsoFedStrategy",
+           "FedAsyncStrategy", "FedBuffStrategy", "FedAvgStrategy",
+           "FedProxStrategy"]

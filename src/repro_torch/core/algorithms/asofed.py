@@ -4,7 +4,9 @@ Local rule: the Eq. (7)-(11) online update (surrogate grad averaged over E
 minibatches, decay-corrected direction, dynamic step multiplier), for a
 whole cohort at once.  Fold rule: the Eq. (4) sequential server recurrence
 followed by the Eq. (5)-(6) feature pass, one arrival at a time; each
-client downloads the central model as of its own fold.
+client downloads the central model as of its own fold.  Without the
+feature pass (ASO-Fed(-F)) the fold is affine and also runs as one
+prefix scan per tick (``build_fold_affine``).
 """
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.common.pytree import tree_axpy, tree_sub
+from repro_torch.common.pytree import bcast_rows, tree_axpy, tree_map, tree_sub
 from repro_torch.core import client as client_lib
 from repro_torch.core.algorithms.common import avg_surrogate_grad
 from repro_torch.core.feature_learning import apply_feature_learning
@@ -77,9 +79,9 @@ class AsoFedStrategy(Strategy):
 
     def build_fold(self, model, cfg_model, cfg):
         def fold(server, delta, idx, n_vis, t_arr):
-            # one arrival: idx / n_vis / t_arr are 1-element tensors, so
-            # the count update and the weight stay on the device
-            n = server["n"].index_copy(0, idx, n_vis)
+            # one arrival: idx / n_vis / t_arr are 0-d tensors, so the
+            # count update and the weight stay on the device
+            n = server["n"].index_copy(0, idx.reshape(1), n_vis.reshape(1))
             weight = n_vis / torch.clamp(n.sum(), min=1e-9)  # n'_k / N'
             w = tree_axpy(-weight, delta, server["w"])  # Eq. (4)
             if cfg.feature_learning:
@@ -89,6 +91,40 @@ class AsoFedStrategy(Strategy):
             return {"w": w, "n": n}, w
 
         return fold
+
+    def build_fold_affine(self, model, cfg_model, cfg):
+        # Eq. (4) alone is affine in w with a = 1 (a weighted-delta
+        # subtraction); the Eq. (5)-(6) feature pass is NOT affine, so
+        # ASO-Fed only qualifies with feature_learning off (ASO-Fed(-F))
+        if cfg.feature_learning:
+            return None
+
+        def carrier(server):
+            return server["w"]
+
+        def coeffs(server, delta, idx, n_vis, t_arr, mask):
+            m32 = mask.to(torch.float32)
+            n0 = server["n"]
+            n_old = n0.index_select(0, idx)
+            # tick clients are pairwise distinct, so each fold's count
+            # update is a pure replacement: the running total N'_s after
+            # fold s is sum(n0) plus the cumulative masked increments
+            # (inclusive: the sequential fold counts its own client)
+            Ns = n0.sum() + torch.cumsum(m32 * (n_vis - n_old), dim=0)
+            weight = torch.where(mask, n_vis / torch.clamp(Ns, min=1e-9),
+                                 0.0)
+            b = tree_map(lambda d: bcast_rows(-weight, d) * d, delta)
+            # the post-tick count vector.  Every padded slot targets the
+            # scratch row and writes back that row's own old value, and
+            # real slots are pairwise distinct, so the repeated scratch
+            # index is harmless whatever order the writes land in
+            n_new = n0.index_put((idx,), torch.where(mask, n_vis, n_old))
+            return torch.ones_like(weight), b, n_new
+
+        def unfold(server, h, n_new, delta, idx, n_vis, t_arr, mask):
+            return {"w": tree_map(lambda x: x[-1], h), "n": n_new}, h
+
+        return carrier, coeffs, unfold
 
     def build_merge(self, model, cfg):
         def merge(st, w_received):

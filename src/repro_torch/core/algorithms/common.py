@@ -1,6 +1,9 @@
 """Shared local-work primitives for the algorithm strategies."""
 from __future__ import annotations
 
+import torch
+
+from repro_torch.common.pytree import tree_axpy
 from repro_torch.core import client as client_lib
 
 
@@ -26,5 +29,37 @@ def avg_surrogate_grad(model, cfg):
             {"x": x, "y": y, "task": cfg.task}, cfg.lam,
         )
         return g, loss
+
+    return fn
+
+
+def sgd_epochs(model, cfg, mu: float = 0.0):
+    """E minibatch prox-SGD steps (FedAvg mu=0 / FedProx mu>0 / FedAsync),
+    for a whole cohort at once.
+
+    ``fn(params, anchor, xs, ys) -> (params', train_loss)`` with params
+    and anchor stacked over the cohort axis P, ``xs`` of shape (P, E, B,
+    ...) and ``train_loss`` (P,): the mean of the E per-step losses, each
+    taken before its update, as ``repro.core.algorithms.common.
+    sgd_epochs`` reports it.  Each step takes every client's gradient
+    from one backward pass of the summed per-client losses (the clients
+    share no parameter).
+    """
+
+    def fn(params, anchor, xs, ys):
+        p = params
+        losses = []
+        for e in range(xs.shape[1]):
+            leaf = {k: v.detach().requires_grad_(True) for k, v in p.items()}
+            with torch.enable_grad():
+                loss, _ = model.loss(leaf, {"x": xs[:, e], "y": ys[:, e],
+                                            "task": cfg.task})
+                grads = torch.autograd.grad(loss.sum(), list(leaf.values()))
+            g = dict(zip(leaf, grads))
+            if mu > 0.0:
+                g = {k: g[k] + mu * (p[k] - anchor[k]) for k in g}
+            p = tree_axpy(-cfg.eta, g, p)
+            losses.append(loss.detach())
+        return p, torch.stack(losses).mean(dim=0)
 
     return fn

@@ -20,10 +20,7 @@ from typing import Callable, Dict, Tuple, Union
 
 import torch
 
-from repro_torch.common.pytree import Tree, tree_zeros_like
-
-_TREES = ("params", "server_params", "h", "v")
-_SCALARS = ("delay_sum", "rounds", "n_samples")
+from repro_torch.common.pytree import Tree, tree_repeat, tree_zeros_like
 
 
 @dataclasses.dataclass
@@ -39,26 +36,6 @@ class ClientState:
     n_samples: torch.Tensor  # n'_k — current local data size (online growth)
 
 
-def state_tree(st: ClientState) -> Tree:
-    """The state as one flat ``{"field.leaf" | "field": tensor}`` tree
-    (the same tensor objects), for the ``common.pytree`` helpers."""
-    out = {f"{f}.{k}": v for f in _TREES for k, v in getattr(st, f).items()}
-    out.update({f: getattr(st, f) for f in _SCALARS})
-    return out
-
-
-def state_from_tree(tree: Tree) -> ClientState:
-    """Inverse of :func:`state_tree`."""
-    kw = {f: {} for f in _TREES}
-    for key, v in tree.items():
-        f, _, leaf = key.partition(".")
-        if leaf:
-            kw[f][leaf] = v
-        else:
-            kw[f] = v
-    return ClientState(**kw)
-
-
 def init_client_state(params: Tree,
                       n_samples: Union[float, torch.Tensor] = 0.0
                       ) -> ClientState:
@@ -68,8 +45,7 @@ def init_client_state(params: Tree,
     any_leaf = next(iter(params.values()))
     if isinstance(n_samples, torch.Tensor) and n_samples.dim() == 1:
         R = n_samples.shape[0]
-        params = {k: v.unsqueeze(0).expand((R,) + v.shape).clone()
-                  for k, v in params.items()}
+        params = tree_repeat(params, R)
         n = n_samples.to(device=any_leaf.device, dtype=torch.float32)
         zero = torch.zeros(R, dtype=torch.float32, device=any_leaf.device)
     else:

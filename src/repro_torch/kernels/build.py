@@ -32,6 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 SOURCES: Dict[str, str] = {
     "feature_attention": os.path.join(
         "kernels", "feature_attention", "csrc", "feature_attention.cu"),
+    "linear_scan": os.path.join(
+        "kernels", "linear_scan", "csrc", "linear_scan.cu"),
 }
 
 _LOCK = threading.Lock()

@@ -1,21 +1,22 @@
-"""Cohort engine of the port: ``run_strategy`` for the async schedule.
+"""Cohort engine of the port: ``run_strategy``.
 
-Counterpart of ``repro.sim.engine`` for the first slice of the port: the
-asynchronous schedule with the sequential server fold, the stacked
-client state resident on the device, the identity state and upload
-codecs, no faults or admission guards, one device.  The host layer —
-scheduler, streams, staging buffers, prefetch thread, telemetry log —
-is the JAX package's, copied unchanged, so both engines replay the same
-arrival stream draw for draw; the device side is plain PyTorch plus the
-hand-written CUDA feature-pass kernel.
+Counterpart of ``repro.sim.engine`` for the part the port covers: the
+asynchronous and synchronous schedules, the sequential and associative
+server folds, the stacked client state resident on the device, the
+identity state and upload codecs, no faults or admission guards, one
+device.  The host layer — schedulers, streams, staging buffers, prefetch
+thread, telemetry log — is the JAX package's, copied unchanged, so both
+engines replay the same arrival stream draw for draw; the device side is
+plain PyTorch plus the hand-written CUDA kernels (the feature pass and
+the fold's linear recurrence).
 
-The engine drains the scheduler in **ticks** (maximal runs of pending
-arrivals with pairwise-distinct clients) grouped into **windows** of
-``RunConfig.window`` ticks: the producer stages a whole window in one
+The async engine drains the scheduler in **ticks** (maximal runs of
+pending arrivals with pairwise-distinct clients) grouped into **windows**
+of ``RunConfig.window`` ticks: the producer stages a whole window in one
 block and transfers it once; the consumer runs the window's ticks in
 order (``repro_torch.sim.compile``), each at the shape bucket it would
 ride alone, so window size and prefetch never change a bit of the
-trajectory.
+trajectory.  The sync engine runs one tick per round (FedAvg/FedProx).
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``): with no card present ``run_strategy`` raises instead
@@ -32,13 +33,13 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.client import state_tree
+from repro_torch.common.pytree import tree_leaves, tree_stack
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.sim import compile as compile_lib
 from repro_torch.sim.evaluation import Evaluator
 from repro_torch.sim.prefetch import TickBuilder, TickPrefetcher, bucket_size
 from repro_torch.sim.profiles import SimClient
-from repro_torch.sim.scheduler import AsyncScheduler
+from repro_torch.sim.scheduler import AsyncScheduler, SyncScheduler
 from repro_torch.sim.telemetry import TelemetryLog, split_at_evals
 from repro_torch.sim.traces import utilization as availability_utilization
 from repro_torch.sim.workloads import resolve_eval_report
@@ -70,13 +71,13 @@ class RunConfig:
     dynamic_lr: bool = True  # ASO-Fed(-D) when False
     dropout_frac: float = 0.0  # Fig. 4: fraction permanently dropped
     periodic_dropout: float = 0.0  # Fig. 5: per-iteration skip probability
-    # FedAvg / FedProx (strategies not ported yet)
+    # FedAvg / FedProx
     participation: float = 0.2
     prox_mu: float = 0.0
-    # FedAsync (not ported yet)
+    # FedAsync
     fedasync_alpha: float = 0.6
     fedasync_staleness_exp: float = 0.5
-    # FedBuff (not ported yet)
+    # FedBuff
     buffer_size: int = 8
     fedbuff_lr: float = 1.0
     # engine
@@ -98,8 +99,10 @@ class RunConfig:
     # feature pass: None = the device decides (CUDA kernel on the card,
     # plain version on the CPU); True / False must agree with the device
     feature_kernel: Optional[bool] = None
-    # server fold: only "sequential" in this slice; `fold_kernel` belongs
-    # to the associative fold (still to port)
+    # server fold: "sequential" (arrival order) | "associative" (one
+    # prefix scan per tick, for affine folds) | "auto" (associative on
+    # the card when the strategy allows it).  `fold_kernel`: as
+    # `feature_kernel`, for the fold's linear-recurrence kernel
     fold_mode: str = "sequential"
     fold_kernel: Optional[bool] = None
     # upload compression: only "identity" in this slice
@@ -135,23 +138,40 @@ class Strategy:
       over a client-stacked state; ``telemetry`` maps each name in
       :meth:`telemetry_slots` to a (P,) tensor
     * fold(server, upload, idx, n_vis, t_arr) -> (server', received)
-      for ONE arrival (``idx``/``n_vis``/``t_arr`` are 1-element tensors)
+      for ONE arrival (``idx``/``n_vis``/``t_arr`` are 0-d tensors)
     * merge(state, received) -> state   (post-fold download, stacked)
+    * finalize(server) -> server        (sync barrier, e.g. FedAvg average)
     """
 
     name: str = "base"
-    schedule: str = "async"  # only "async" is ported
+    schedule: str = "async"  # "async" | "sync" ("sweep" is not ported)
+    uses_dropout: bool = True
+    pooled: bool = False  # Global baseline (not ported): pooled data
+    # whether build_fold_affine stays exact under duplicate / rejected
+    # arrivals (the chaos layer, not ported yet)
+    fold_affine_supports_faults: bool = True
 
     def telemetry_slots(self, cfg: RunConfig) -> Tuple[str, ...]:
         return ("train_loss",)
+
+    def server_telemetry_slots(self, cfg: RunConfig) -> Tuple[str, ...]:
+        """Post-fold server scalars appended to the telemetry row after
+        the engine's ``folds_per_tick`` slot (fedbuff's buffer fill)."""
+        return ()
+
+    def build_server_telemetry(self, model, cfg: RunConfig):
+        """``server -> {slot: scalar}``, required exactly when
+        :meth:`server_telemetry_slots` is non-empty."""
+        return None
 
     def init_client(self, model, cfg: RunConfig, w0,
                     client: Optional[SimClient]):
         raise NotImplementedError
 
     def build_init_client(self, model, cfg: RunConfig):
-        """``(w0, n0 of shape (R,)) -> stacked client state`` of R rows."""
-        raise NotImplementedError
+        """Optional ``(w0, n0 of shape (R,)) -> stacked client state`` of
+        R rows; None stacks :meth:`init_client` per client instead."""
+        return None
 
     def init_server(self, model, cfg_model, cfg: RunConfig, w0,
                     clients: Sequence[SimClient],
@@ -164,8 +184,26 @@ class Strategy:
     def build_fold(self, model, cfg_model, cfg: RunConfig):
         return None
 
+    def build_fold_affine(self, model, cfg_model, cfg: RunConfig):
+        """Optional parallel form of :meth:`build_fold` for a fold that
+        is affine in the server state: None declines, else ``(carrier,
+        coeffs, unfold)`` as in ``repro.sim.engine.Strategy``:
+
+        * ``carrier(server) -> h0``: the affine part of the server state;
+        * ``coeffs(server, uploads, idx, n_vis, t_arr, mask) -> (a, b,
+          aux)``: ``a`` of shape (P,), ``b`` a tree of ``(P, ...)``
+          leaves matching the carrier; masked slots MUST be identities
+          (a=1, b=0);
+        * ``unfold(server, h, aux, uploads, idx, n_vis, t_arr, mask) ->
+          (server', received)`` from the inclusive prefix states ``h``.
+        """
+        return None
+
     def build_merge(self, model, cfg: RunConfig):
         return lambda state, received: state
+
+    def build_finalize(self, model, cfg: RunConfig):
+        return None
 
     def server_broadcast(self, server):
         return server
@@ -199,10 +237,9 @@ def _check_slice(strategy: Strategy, cfg: RunConfig,
         raise ValueError(
             f"{knob}={value!r} is not ported yet (the port runs {accepted})")
 
-    if strategy.schedule != "async":
-        refuse("strategy.schedule", strategy.schedule, "'async' strategies")
-    if cfg.fold_mode != "sequential":
-        refuse("fold_mode", cfg.fold_mode, "fold_mode='sequential'")
+    if strategy.schedule not in ("async", "sync"):
+        refuse("strategy.schedule", strategy.schedule,
+               "'async' and 'sync' strategies")
     if cfg.state_residency != "device":
         refuse("state_residency", cfg.state_residency,
                "state_residency='device'")
@@ -268,6 +305,9 @@ def run_strategy(
     _check_slice(strategy, cfg, clients, mesh=mesh,
                  checkpoint_path=checkpoint_path, resume_from=resume_from)
     dev = resolve_device(device)
+    # fail fast on the fold mode, before any state is built
+    associative = compile_lib.resolve_fold_affine(
+        strategy, model, cfg_model, cfg, dev) is not None
     eval_report = resolve_eval_report(cfg)
     E, B = cfg.local_epochs, cfg.batch_size
     max_cohort = max_cohort if max_cohort is not None else cfg.max_cohort
@@ -281,27 +321,47 @@ def run_strategy(
     upload_bytes = float(sum(v.numel() * v.element_size()
                              for v in w0.values()))
     client_slots = tuple(strategy.telemetry_slots(cfg))
-    slots = client_slots + ("folds_per_tick",)
+    server_slots = tuple(strategy.server_telemetry_slots(cfg))
+    # the engine-owned fold-depth slot rides between the two blocks
+    slots = client_slots + ("folds_per_tick",) + server_slots
+    drop = cfg.dropout_frac if strategy.uses_dropout else 0.0
+    skip = cfg.periodic_dropout if strategy.uses_dropout else 0.0
 
-    sched = AsyncScheduler(
-        clients, seed=cfg.seed, dropout_frac=cfg.dropout_frac,
-        skip_prob=cfg.periodic_dropout, init_work=B, round_work=E * B,
-        sim_time_budget=cfg.sim_time_budget, upload_bytes=upload_bytes,
-    )
-    active = sched.active
-    pad = max(1, min(max_cohort or len(active), max(len(active), 1)))
+    windowed = strategy.schedule == "async"
+    if windowed:
+        sched = AsyncScheduler(
+            clients, seed=cfg.seed, dropout_frac=drop, skip_prob=skip,
+            init_work=B, round_work=E * B,
+            sim_time_budget=cfg.sim_time_budget, upload_bytes=upload_bytes,
+        )
+        active = sched.active
+        pad = max(1, min(max_cohort or len(active), max(len(active), 1)))
+    else:
+        sched = SyncScheduler(
+            clients, seed=cfg.seed, dropout_frac=drop, skip_prob=skip,
+            participation=cfg.participation, round_work=E * B,
+            upload_bytes=upload_bytes,
+        )
+        active = sched.active
+        pad = sched.m
     scratch = K  # index of the scratch row targeted by padded slots
 
     def _n0(c: SimClient) -> float:
         return float(c.stream.visible(0))
 
-    n0s = np.array([_n0(c) for c in clients] + [_n0(clients[0])],
-                   np.float32)
-    stacked = strategy.build_init_client(model, cfg)(
-        w0, torch.tensor(n0s, device=dev))
+    init_batched = strategy.build_init_client(model, cfg)
+    if init_batched is not None:
+        n0s = np.array([_n0(c) for c in clients] + [_n0(clients[0])],
+                       np.float32)
+        stacked = init_batched(w0, torch.tensor(n0s, device=dev))
+    else:
+        stacked = tree_stack(
+            [strategy.init_client(model, cfg, w0, c)
+             for c in clients + [clients[0]]])
     server = strategy.init_server(model, cfg_model, cfg, w0, clients, active)
-    run_window = compile_lib.window_fn(strategy, model, cfg_model, cfg,
-                                       client_slots)
+    run_block = compile_lib.window_fn(strategy, model, cfg_model, cfg,
+                                      client_slots, server_slots, dev,
+                                      windowed=windowed)
     evaluator = Evaluator(model, clients, eval_report, dev) \
         if cfg.eval_every > 0 else None
     telem = telemetry if telemetry is not None else TelemetryLog(slots)
@@ -319,10 +379,10 @@ def run_strategy(
 
     builder = TickBuilder(
         by_id=by_id, batch_size=B, local_epochs=E, scratch=scratch, pad=pad,
-        pooled=False, transfer=transfer,
+        pooled=strategy.pooled, transfer=transfer,
     )
     stacked_state_bytes = sum(
-        x.numel() * x.element_size() for x in state_tree(stacked).values())
+        x.numel() * x.element_size() for x in tree_leaves(stacked))
     on_card = dev.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
@@ -332,6 +392,7 @@ def run_strategy(
     device_s = 0.0
     eval_s = 0.0
     n_ticks, n_windows, t, sim_time = 0, 0, 0, 0.0
+    n_uploads = 0  # folded arrivals of the sync schedule
     t0 = time.perf_counter()
 
     def record(t: int, sim_time: float):
@@ -347,7 +408,7 @@ def run_strategy(
         nonlocal stacked, server, device_s, n_ticks, n_windows
         d0 = time.perf_counter()
         with torch.no_grad():
-            stacked, server, tel = run_window(stacked, server, pt)
+            stacked, server, tel = run_block(stacked, server, pt)
         if on_card:
             torch.cuda.synchronize(dev)
         telem.append(pt, tel)
@@ -355,84 +416,115 @@ def run_strategy(
         n_ticks += pt.n_ticks
         n_windows += 1
 
-    # a client with an empty local split can never train: its arrivals
-    # are dropped so fabricated zero batches are never folded in
-    trainable = {c.cid for c in active if c.stream.n > 0}
-    try:  # affinity respects container/cgroup CPU limits
-        ncpu = len(os.sched_getaffinity(0))
-    except AttributeError:
-        ncpu = os.cpu_count() or 1
-    use_prefetch = (prefetch if prefetch is not None
-                    else cfg.prefetch if cfg.prefetch is not None
-                    else on_card or ncpu >= 4)
+    def snapshot():
+        return (t, {k: v.cpu().numpy()
+                    for k, v in strategy.eval_params(server).items()})
 
-    def produce():
-        """Pop + filter + build each window (worker thread when
-        prefetching) — the JAX engine's producer, without the checkpoint
-        snapshot: same peek/commit speculation, same split of a window
-        into same-bucket runs and power-of-two chunks, so every tick
-        keeps the bucket a ``window=1`` run gives it."""
-        tp = 0
-        kept_count = lambda tk: sum(  # noqa: E731
-            a.cid in trainable for a in tk)
-        while tp < cfg.T:
-            ticks = sched.peek_window(W, pad, total_limit=cfg.T - tp,
-                                      count=kept_count)
-            if not ticks:
-                sched.commit()
-                break  # drained or over the simulated-time budget
-            kept = [[a for a in tk if a.cid in trainable] for tk in ticks]
-            kept = [tk for tk in kept if tk]
-            sched.commit()
-            if not kept:
-                continue  # window held only empty-split clients
-            if cfg.eval_align and W > 1 and cfg.eval_every > 0:
-                segments = split_at_evals(kept, tp, cfg.eval_every,
+    use_prefetch = False
+    if windowed:
+        # a client with an empty local split can never train: its
+        # arrivals are dropped so fabricated zero batches are never folded
+        trainable = {c.cid for c in active if c.stream.n > 0}
+        try:  # affinity respects container/cgroup CPU limits
+            ncpu = len(os.sched_getaffinity(0))
+        except AttributeError:
+            ncpu = os.cpu_count() or 1
+        use_prefetch = (prefetch if prefetch is not None
+                        else cfg.prefetch if cfg.prefetch is not None
+                        else on_card or ncpu >= 4)
+
+        def produce():
+            """Pop + filter + build each window (worker thread when
+            prefetching) — the JAX engine's producer, without the
+            checkpoint snapshot: same peek/commit speculation, same split
+            of a window into same-bucket runs and power-of-two chunks, so
+            every tick keeps the bucket a ``window=1`` run gives it."""
+            tp = 0
+            kept_count = lambda tk: sum(  # noqa: E731
+                a.cid in trainable for a in tk)
+            while tp < cfg.T:
+                ticks = sched.peek_window(W, pad, total_limit=cfg.T - tp,
                                           count=kept_count)
-            else:
-                segments = [kept]
-            for seg in segments:
-                groups: List[Tuple[int, List]] = []
-                for tk in seg:
-                    b = bucket_size(len(tk), pad)
-                    if groups and groups[-1][0] == b:
-                        groups[-1][1].append(tk)
-                    else:
-                        groups.append((b, [tk]))
-                for _, g in groups:
-                    i = 0
-                    while i < len(g):
-                        n = 1 << ((len(g) - i).bit_length() - 1)
-                        chunk = g[i:i + n]
-                        i += n
-                        pt = builder.build_window(
-                            chunk, t_start=tp, window=W,
-                            sim_time=chunk[-1][-1].time)
-                        tp = pt.t_end
-                        yield pt
+                if not ticks:
+                    sched.commit()
+                    break  # drained or over the simulated-time budget
+                kept = [[a for a in tk if a.cid in trainable]
+                        for tk in ticks]
+                kept = [tk for tk in kept if tk]
+                sched.commit()
+                if not kept:
+                    continue  # window held only empty-split clients
+                if cfg.eval_align and W > 1 and cfg.eval_every > 0:
+                    segments = split_at_evals(kept, tp, cfg.eval_every,
+                                              count=kept_count)
+                else:
+                    segments = [kept]
+                for seg in segments:
+                    groups: List[Tuple[int, List]] = []
+                    for tk in seg:
+                        b = bucket_size(len(tk), pad)
+                        if groups and groups[-1][0] == b:
+                            groups[-1][1].append(tk)
+                        else:
+                            groups.append((b, [tk]))
+                    for _, g in groups:
+                        i = 0
+                        while i < len(g):
+                            n = 1 << ((len(g) - i).bit_length() - 1)
+                            chunk = g[i:i + n]
+                            i += n
+                            pt = builder.build_window(
+                                chunk, t_start=tp, window=W,
+                                sim_time=chunk[-1][-1].time)
+                            tp = pt.t_end
+                            yield pt
 
-    if not trainable:
-        source = iter(())
-    elif use_prefetch:
-        source = TickPrefetcher(produce(), depth=1)
+        if not trainable:
+            source = iter(())
+        elif use_prefetch:
+            source = TickPrefetcher(produce(), depth=1)
+        else:
+            source = produce()
+        next_eval = cfg.eval_every if cfg.eval_every > 0 else cfg.T + 1
+        try:
+            for pt in source:
+                dispatch(pt)
+                t = pt.t_end
+                sim_time = pt.sim_time
+                if trace is not None:
+                    trace.append(snapshot())
+                if t >= next_eval or t >= cfg.T:
+                    record(t, sim_time)
+                    while next_eval <= t:
+                        next_eval += cfg.eval_every
+        finally:
+            if isinstance(source, TickPrefetcher):
+                source.close()
     else:
-        source = produce()
-    next_eval = cfg.eval_every if cfg.eval_every > 0 else cfg.T + 1
-    try:
-        for pt in source:
+        for t in range(1, cfg.T + 1):
+            if cfg.sim_time_budget and sim_time > cfg.sim_time_budget:
+                break
+            arrivals, round_time = sched.next_round(now=sim_time)
+            if not arrivals:
+                if not np.isfinite(round_time):
+                    break  # fleet retired: no trace ever rejoins
+                # every participant skipped (round_time 0), or the whole
+                # fleet is off-window: the barrier still waits out the gap
+                # to the earliest rejoin edge
+                sim_time += round_time
+                continue
+            # advance=False: a sync round's telemetry stamp is the round
+            # index t itself, matching the eval history points
+            pt = builder.build(arrivals, [t] * len(arrivals), sim_time,
+                               advance=False)
             dispatch(pt)
-            t = pt.t_end
-            sim_time = pt.sim_time
+            n_uploads += len(arrivals)
+            sim_time = sim_time + round_time
             if trace is not None:
-                trace.append((t, {k: v.cpu().numpy() for k, v in
-                                  strategy.eval_params(server).items()}))
-            if t >= next_eval or t >= cfg.T:
+                trace.append(snapshot())
+            if (cfg.eval_every > 0 and t % cfg.eval_every == 0) \
+                    or t == cfg.T:
                 record(t, sim_time)
-                while next_eval <= t:
-                    next_eval += cfg.eval_every
-    finally:
-        if isinstance(source, TickPrefetcher):
-            source.close()
 
     e0 = time.perf_counter()
     for (te, ste, we, preds) in pending_evals:
@@ -445,8 +537,10 @@ def run_strategy(
             ticks=n_ticks, windows=n_windows, iters=t, sim_time=sim_time,
             host_build_s=round(builder.host_build_s, 6),
             device_s=round(device_s, 6), eval_s=round(eval_s, 6),
-            prefetch=bool(use_prefetch), devices=1, window=W,
+            prefetch=bool(use_prefetch), devices=1,
+            window=W if windowed else 1,
             device=str(dev), state_dtype="fp32", state_residency="device",
+            fold_mode="associative" if associative else "sequential",
             stacked_state_bytes=int(stacked_state_bytes),
             # the allocator's peak on the card (0: not measured on the CPU)
             peak_device_bytes=int(torch.cuda.max_memory_allocated(dev))
@@ -455,11 +549,12 @@ def run_strategy(
             staleness_max=int(builder.staleness.max),
             availability_utilization=round(
                 availability_utilization(active, sim_time), 4),
-            deferred_arrivals=int(sched.deferred),
-            retired_clients=int(sched.retired),
+            deferred_arrivals=int(getattr(sched, "deferred", 0)),
+            retired_clients=int(getattr(sched, "retired", 0)),
             upload_codec="identity",
             upload_bytes=upload_bytes,
-            upload_bytes_total=upload_bytes * t,
+            # async iterations each fold exactly one upload
+            upload_bytes_total=upload_bytes * (t if windowed else n_uploads),
         )
         for k, v in telem.summary().items():
             stats[k] = round(v, 6) if isinstance(v, float) else v

@@ -197,7 +197,7 @@ def test_seeded_init_is_reproducible():
 
 @pytest.mark.parametrize("cfg_kw,run_kw,knob", [
     (dict(fold_mode="associative"), {}, "fold_mode"),
-    (dict(fold_mode="auto"), {}, "fold_mode"),
+    (dict(upload_codec="quantized_delta"), {}, "upload_codec"),
     (dict(state_residency="host"), {}, "state_residency"),
     (dict(state_dtype="bf16"), {}, "state_dtype"),
     (dict(upload_codec="topk_sparse"), {}, "upload_codec"),
@@ -223,11 +223,11 @@ def test_faults_and_other_schedules_raise():
     with pytest.raises(ValueError, match="faults"):
         run_strategy(get_strategy("asofed"), model, cfg_model, clients,
                      _cfg(wl, 4), device="cpu")
-    sync = get_strategy("asofed")
-    sync.schedule = "sync"
-    with pytest.raises(ValueError, match="schedule"):
-        run_strategy(sync, model, cfg_model,
+    sweep = get_strategy("asofed")
+    sweep.schedule = "sweep"
+    with pytest.raises(ValueError, match="schedule='sweep'"):
+        run_strategy(sweep, model, cfg_model,
                      wl.make_clients(3, n_per=20, seed=0), _cfg(wl, 4),
                      device="cpu")
     with pytest.raises(KeyError, match="not ported"):
-        get_strategy("fedavg")
+        get_strategy("local")
