@@ -4,24 +4,31 @@
 
 Builds the port's hand-written CUDA kernels from the sources in this
 checkout, holds each against its plain PyTorch version on the card, and
-drives the port's two paths through the cohort engine on
-``lstm_regression`` at the paper LSTM's registered width (hidden 64):
+drives the port's paths through its entry points:
 
-* ``main_path``: ASO-Fed with the sequential fold, which runs the
+* ``main_path``: ASO-Fed with the sequential fold on ``lstm_regression``
+  at the paper LSTM's registered width (hidden 64), which runs the
   feature-pass kernel (K1) once per folded arrival;
-* ``assoc_path``: FedAsync with the associative fold, which runs the
-  linear-recurrence kernel (K2) once per carrier leaf per tick.
+* ``assoc_path``: FedAsync with the associative fold on the same
+  workload, which runs the linear-recurrence kernel (K2) once per
+  carrier leaf per tick;
+* ``serve_path``: ``repro_torch.launch.serve.serve`` on TinyLlama-1.1B
+  at its full width and depth (random weights from seed 0), batch 8,
+  prompt 2016, 32 greedy tokens, which runs the flash-attention kernel
+  (K3) once per layer of the prefill.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Then the card's trajectories are held against the
-CPU's for every ported strategy, and the associative fold against the
-sequential one on the card.  Prints one JSON line per phase, then a
+CPU's for every ported strategy, the associative fold against the
+sequential one on the card, and the card's prefill and teacher-forced
+decode logits against the CPU's.  Prints one JSON line per phase, then a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before that line; without a CUDA card it exits non-zero at once.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -36,10 +43,11 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and fp32 FLOP/s
-# outside the tensor cores
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, fp32 FLOP/s
+# outside the tensor cores, bf16 FLOP/s on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 # fp32 operations per element of the feature pass: |w|, max, sub, exp,
 # sum, w*w + sum, divide, scale by w, out*out + sum, rescale
 FEATURE_OPS_PER_ELEM = 12
@@ -302,10 +310,13 @@ def _main_path_run(T: int, stats: dict, alg: str = "asofed",
 def _reset_launches():
     from repro_torch.kernels.feature_attention.kernel import (
         feature_attention_kernel)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_kernel)
     from repro_torch.kernels.linear_scan.kernel import linear_scan_kernel
 
     feature_attention_kernel.launches = 0
     linear_scan_kernel.launches = 0
+    flash_attention_kernel.launches = 0
 
 
 def _launches():
@@ -315,6 +326,14 @@ def _launches():
     from repro_torch.kernels.linear_scan.kernel import linear_scan_kernel
 
     return feature_attention_kernel.launches, linear_scan_kernel.launches
+
+
+def _flash_launches() -> int:
+    """K3 launches since the last reset."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_kernel)
+
+    return flash_attention_kernel.launches
 
 
 def _finite(hist):
@@ -424,14 +443,17 @@ def phase_assoc_path():
     return launches
 
 
-def phase_profile(alg: str = "asofed", **cfg_kw):
-    """Device time by kernel over one main-path run (torch.profiler)."""
+def _device_profile(run):
+    """Run ``run()`` under torch.profiler: (its result, wall seconds,
+    [(kernel, device ms, launches)] by device time)."""
     from torch.profiler import ProfilerActivity, profile
 
-    stats = {}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, wall, _ = _main_path_run(MAIN_T, stats, alg, **cfg_kw)
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
               if getattr(e, "device_type", None) is not None
               and "CUDA" in str(e.device_type)]
@@ -439,16 +461,28 @@ def phase_profile(alg: str = "asofed", **cfg_kw):
         events[0], "self_device_time_total") else "self_cuda_time_total"
     per = sorted(((e.key, getattr(e, key, 0.0) / 1e3, e.count)
                   for e in events), key=lambda r: -r[1])
+    return out, wall, per
+
+
+def _profile_record(per, wall: float, names) -> dict:
     dev_ms = sum(r[1] for r in per)
+    return {"device_busy_ms": dev_ms if per else "not measured",
+            "device_idle_share": (1.0 - dev_ms / 1e3 / wall) if per
+            else "not measured",
+            "top_kernels_ms": [[k, ms, n] for k, ms, n in per[:12]],
+            # the port's own kernels, wherever they rank
+            "port_kernels_ms": [[k, ms, n] for k, ms, n in per
+                                if any(name in k for name in names)]}
+
+
+def phase_profile(alg: str = "asofed", **cfg_kw):
+    """Device time by kernel over one main-path run (torch.profiler)."""
+    stats = {}
+    (_, wall, _), _, per = _device_profile(
+        lambda: _main_path_run(MAIN_T, stats, alg, **cfg_kw))
     emit({"phase": "profile", "strategy": alg, **cfg_kw, "wall_s": wall,
-          "device_busy_ms": dev_ms if per else "not measured",
-          "device_idle_share": (1.0 - dev_ms / 1e3 / wall) if per
-          else "not measured",
-          "top_kernels_ms": [[k, ms, n] for k, ms, n in per[:12]],
-          # the port's own kernels, wherever they rank
-          "port_kernels_ms": [[k, ms, n] for k, ms, n in per
-                              if "feature_attention_rows" in k
-                              or "linear_scan_channels" in k]})
+          **_profile_record(per, wall, ("feature_attention_rows",
+                                        "linear_scan_channels"))})
 
 
 # the affine strategies at small width: (strategy, config overrides, T)
@@ -521,6 +555,356 @@ def phase_card_vs_cpu():
               "max_abs_diff": worst, "atol": TRAJ_ATOL, "rtol": TRAJ_RTOL})
 
 
+# ---------------------------------------------------------------------------
+# The dense transformer's serve path (K3)
+# ---------------------------------------------------------------------------
+
+# the card every phase below runs on
+DEV = "cuda"
+SERVE_ARCH = "tinyllama-1.1b"
+# prompt + generated = 2048, TinyLlama's whole context
+SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 2016, 32
+SERVE_REPEATS = 3
+# K3 vs its plain version: max abs error per unit of the output's largest
+# magnitude (at least 1), tests/test_kernels.py's bounds.  The online and
+# the dense softmax sum in different orders; bf16 outputs round once.
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# (name, B, Sq, Skv, KV, G, hd, causal, window); the first five are
+# tests/test_kernels.py's CASES
+FLASH_CASES = [
+    ("grid0", 2, 128, 128, 2, 2, 64, True, 0),
+    ("grid1", 1, 256, 256, 1, 4, 32, True, 64),
+    ("grid2", 2, 64, 64, 4, 1, 64, False, 0),
+    ("grid3", 1, 128, 128, 2, 4, 128, True, 32),
+    ("grid4", 1, 512, 512, 1, 1, 64, True, 128),
+    ("main", SERVE_B, SERVE_PROMPT, SERVE_PROMPT, 4, 8, 64, True, 0),
+    ("ragged", 2, 100, 100, 4, 8, 64, True, 0),
+    ("window", 2, SERVE_PROMPT, SERVE_PROMPT, 4, 8, 64, True, 512),
+    ("hd128", 2, 512, 512, 4, 8, 128, True, 0),
+]
+# card vs CPU under teacher forcing: 5e-3 per unit of max |logits|, the
+# JAX package's own prefill-vs-forward bound
+# (tests/test_decode_consistency.py)
+SERVE_TOL = 5e-3
+FORCED_PROMPT, FORCED_STEPS = 64, 4
+
+
+def flash_bound(q, k, q_pos, k_pos, causal: bool, window: int):
+    """(bound_ms, bound_by) of one attention call on these inputs: the
+    unmasked (query, key) pairs of this data at 4 hd FLOPs each (QK and
+    PV) over the peak rate of the input type, against q, k, v and the
+    output read or written once over HBM bandwidth."""
+    B, Sq, KV, G, hd = q.shape
+    qp = q_pos.to(torch.int64)[:, :, None]
+    kp = k_pos.to(torch.int64)[:, None, :]
+    mask = torch.ones((1, 1, 1), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kp <= qp)
+    if window > 0:
+        mask = mask & ((qp - kp) < window)
+    pairs = int(mask.expand(B, Sq, k.shape[1]).sum()) * KV * G
+    peak = FP32_OPS_PER_S if q.dtype == torch.float32 else BF16_OPS_PER_S
+    ops_ms = 4 * hd * pairs / peak * 1e3
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() \
+        + (q_pos.numel() + k_pos.numel()) * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                             "bytes")
+
+
+def _flash_case(name, q, k, v, q_pos, k_pos, causal, window, contiguous,
+                timed: bool = False):
+    """K3 against its plain version on the card; returns the record."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_kernel)
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    kw = dict(q_positions=q_pos, k_positions=k_pos, causal=causal,
+              window=window, contiguous=contiguous)
+    B, Sq, KV, G, hd = q.shape
+
+    def plain():  # the ref through the kernel layout, as on the CPU
+        from repro_torch.kernels.flash_attention.ref import (
+            flash_attention_ref)
+        o = flash_attention_ref(
+            q.permute(0, 2, 3, 1, 4).reshape(B, KV * G, Sq, hd),
+            k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), q_pos, k_pos,
+            causal=causal, window=window)
+        return o.reshape(B, KV, G, Sq, hd).permute(0, 3, 1, 2, 4)
+
+    got = flash_attention(q, k, v, **kw)
+    want = plain()
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    tol = FLASH_TOL[q.dtype] * max(1.0, float(want.float().abs().max()))
+    if not (got.dtype == q.dtype and got.shape == q.shape and err <= tol):
+        raise AssertionError(
+            f"flash_attention kernel disagrees with its plain version in "
+            f"case {name} {q.dtype}: max abs err {err} (tolerance {tol})")
+    bound_ms, bound_by = flash_bound(q, k, q_pos, k_pos, causal, window)
+    rec = {"phase": "flash_vs_plain", "kernel": "flash_attention",
+           "case": name, "B": B, "Sq": Sq, "Skv": k.shape[1], "KV": KV,
+           "G": G, "hd": hd, "causal": causal, "window": window,
+           "contiguous": contiguous, "dtype": str(q.dtype),
+           "max_abs_err": err, "tolerance": tol,
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    if timed:
+        kern = lambda: flash_attention_kernel(  # noqa: E731
+            q, k, v, q_pos, k_pos, causal=causal, window=window,
+            contiguous=contiguous)
+        qs = q.permute(0, 2, 3, 1, 4).reshape(B, KV * G, Sq, hd).contiguous()
+        ks = k.permute(0, 2, 1, 3).contiguous()
+        vs = v.permute(0, 2, 1, 3).contiguous()
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib = lambda: sdpa(qs, ks, vs, is_causal=True,  # noqa: E731
+                           enable_gqa=True)
+        try:  # a yardstick only: the port never calls it
+            lib_out = lib().reshape(B, KV, G, Sq, hd).permute(0, 3, 1, 2, 4)
+            lib_ms = device_ms(lib, reps=10)
+            lib_err = float((lib_out.float() - want.float()).abs().max())
+        except RuntimeError as e:
+            lib_ms, lib_err = None, f"not measured: {e}"[:300]
+        ms = device_ms(kern, reps=10)
+        rec.update(
+            ms=ms, call_ms=call_ms(kern, reps=10),
+            plain_ms=device_ms(plain, reps=2), library_ms=lib_ms,
+            library="torch.nn.functional.scaled_dot_product_attention "
+                    "(enable_gqa, is_causal)",
+            library_max_abs_err=lib_err, bound_share=bound_ms / ms,
+            ptxas=[ln.strip() for ln in build.BUILD_LOG.get(
+                "flash_attention", (0.0, ""))[1].splitlines()
+                if "registers" in ln or "spill" in ln or "smem" in ln])
+    emit(rec)
+    return rec
+
+
+def _arange_pos(B: int, S: int) -> torch.Tensor:
+    return torch.arange(S, dtype=torch.int32,
+                        device=DEV).expand(B, S).contiguous()
+
+
+def phase_flash_vs_plain(layer0_qkv):
+    """K3 against its plain version, fp32 and bf16: the JAX grid, the
+    main-path shape with N(0, 1) inputs and with the serve run's own
+    layer-0 q/k/v, a ragged length, a window, hd 128, and a decode-like
+    non-contiguous case over a padded cache."""
+    from repro_torch.models.decode import INT_SENTINEL
+
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, B, Sq, Skv, KV, G, hd, causal, window in FLASH_CASES:
+            def draw(*shape):
+                return torch.randn(shape, generator=gen, device=DEV,
+                                   dtype=torch.float32).to(dtype)
+            q, k, v = draw(B, Sq, KV, G, hd), draw(B, Skv, KV, hd), draw(
+                B, Skv, KV, hd)
+            out[(name, dtype)] = _flash_case(
+                name, q, k, v, _arange_pos(B, Sq), _arange_pos(B, Skv),
+                causal, window, True, timed=name == "main")
+            del q, k, v
+        q, k, v = (t.to(dtype) for t in layer0_qkv)
+        out[("main_model", dtype)] = _flash_case(
+            "main_model_qkv", q, k, v, _arange_pos(SERVE_B, SERVE_PROMPT),
+            _arange_pos(SERVE_B, SERVE_PROMPT), True, 0, True,
+            timed=dtype == torch.float32)
+        del q, k, v
+        # 64 queries at positions 1000..1063 over a 2048-slot cache whose
+        # slots past 1063 are unwritten (INT_SENTINEL), not contiguous
+        B, Sq, Skv, KV, G, hd = 2, 64, 2048, 4, 8, 64
+        q = torch.randn((B, Sq, KV, G, hd), generator=gen, device=DEV
+                        ).to(dtype)
+        k = torch.randn((B, Skv, KV, hd), generator=gen, device=DEV
+                        ).to(dtype)
+        v = torch.randn((B, Skv, KV, hd), generator=gen, device=DEV
+                        ).to(dtype)
+        q_pos = (1000 + torch.arange(Sq, device=DEV, dtype=torch.int32)
+                 ).expand(B, Sq).contiguous()
+        k_pos = torch.arange(Skv, device=DEV, dtype=torch.int32)
+        k_pos = torch.where(k_pos < 1000 + Sq, k_pos,
+                            torch.full_like(k_pos, INT_SENTINEL))
+        for window in (0, 256):
+            out[(f"padded_cache_w{window}", dtype)] = _flash_case(
+                f"padded_cache_w{window}", q, k, v, q_pos,
+                k_pos.expand(B, Skv).contiguous(), True, window, False)
+    return out
+
+
+def _serve_setup():
+    """TinyLlama-1.1B at full width and depth, random weights from seed
+    0 on the card, and the serve batch's prompt tokens."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, make_batch
+
+    cfg = get_arch(SERVE_ARCH)
+    model = build_model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0),
+                        device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    tokens = make_batch(cfg, SERVE_B, SERVE_PROMPT, seed=0,
+                        device=DEV)["tokens"]
+    return cfg, model, params, tokens, init_s
+
+
+def _layer0_qkv(cfg, params, tokens):
+    """Layer 0's rotated q (B, S, KV, G, hd), k and v for the prompt."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import layer
+
+    B, S = tokens.shape
+    with torch.no_grad():
+        p = layer(params["blocks"], 0)
+        h = L.apply_norm(cfg.norm, p["ln1"], L.embed(params["embed"],
+                                                     tokens))
+        q, k, v = attn._project_qkv(p["attn"], h, cfg)
+        pos = _arange_pos(B, S)
+        q, k = attn._apply_rope(cfg, q, k, pos, pos)
+    KV = cfg.n_kv_heads
+    return (q.reshape(B, S, KV, cfg.n_heads // KV, cfg.head_dim).contiguous(),
+            k.contiguous(), v.contiguous())
+
+
+def _serve_once(model, params, tokens):
+    from repro_torch.launch.serve import serve
+
+    with torch.no_grad():
+        return serve(model, params, tokens, SERVE_GEN, temperature=0.0,
+                     device=DEV)
+
+
+def phase_serve_path(cfg, model, params, tokens, init_s: float):
+    """serve() at full width and depth: K3 once per layer of the
+    prefill, never in decode; the rates of SERVE_REPEATS runs; then one
+    profiled run."""
+    _serve_once(model, params, tokens)  # warm-up: cuBLAS, allocator
+    runs = []
+    for _ in range(SERVE_REPEATS):
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches()
+        gen, stats = _serve_once(model, params, tokens)
+        k1, k2 = _launches()
+        k3 = _flash_launches()
+        if not (k3 == cfg.n_layers and stats["k3_launches"] == cfg.n_layers
+                and stats["k3_decode_launches"] == 0 and k1 == 0
+                and k2 == 0):
+            raise AssertionError(
+                f"serve path: {k3} flash-attention launches ("
+                f"{stats['k3_launches']} in the prefill, "
+                f"{stats['k3_decode_launches']} in decode; expected "
+                f"{cfg.n_layers} and 0), K1 {k1}, K2 {k2}")
+        if not stats["finite_logits"] or tuple(gen.shape) != (
+                SERVE_B, SERVE_GEN + 1):
+            raise AssertionError(f"serve path: non-finite logits or "
+                                 f"tokens of shape {tuple(gen.shape)}")
+        rec = {"phase": "serve_path", "arch": cfg.name,
+               "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+               "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+               "batch": SERVE_B, "prompt_len": SERVE_PROMPT,
+               "gen": SERVE_GEN, "max_len": SERVE_PROMPT + SERVE_GEN,
+               "temperature": 0.0, "dtype": "float32", **stats,
+               "prefill_tokens_per_s": SERVE_B * SERVE_PROMPT
+               / stats["prefill_s"],
+               "peak_device_bytes": torch.cuda.max_memory_allocated(),
+               "flash_attention_launches": k3, "init_s": init_s,
+               "first_request_tokens": gen[0, :8].tolist()}
+        emit(rec)
+        runs.append(rec)
+
+    def spread(key):
+        vals = [r[key] for r in runs]
+        q1, med, q3 = np.percentile(vals, [25, 50, 75])
+        return {key: vals, f"{key}_median": med, f"{key}_iqr": q3 - q1}
+
+    emit({"phase": "serve_path_spread", "runs": len(runs),
+          **spread("prefill_s"), **spread("ttft_s"),
+          **spread("tokens_per_s")})
+    (_, stats), wall, per = _device_profile(
+        lambda: _serve_once(model, params, tokens))
+    emit({"phase": "serve_profile", "arch": cfg.name, "wall_s": wall,
+          "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+          **_profile_record(per, wall, ("flash_attention_fwd",))})
+    return runs[-1]["flash_attention_launches"]
+
+
+def _teacher_forced(model, params, tokens, device: str):
+    """Prefill the first FORCED_PROMPT tokens, then FORCED_STEPS decode
+    steps fed the next tokens: ([logits per step], cache) on the CPU."""
+    tokens = tokens.to(device)
+    B = tokens.shape[0]
+    with torch.no_grad():
+        logits, cache = model.prefill(
+            params, {"tokens": tokens[:, :FORCED_PROMPT]},
+            max_len=FORCED_PROMPT + FORCED_STEPS)
+        out = [logits.cpu()]
+        for i in range(FORCED_STEPS):
+            idx = torch.full((B,), FORCED_PROMPT + i, dtype=torch.int32,
+                             device=device)
+            logits, cache = model.decode_step(
+                params, cache,
+                tokens[:, FORCED_PROMPT + i:FORCED_PROMPT + i + 1], idx)
+            out.append(logits.cpu())
+    return out, {k: t.cpu() for k, t in cache["kv"].items()}
+
+
+def phase_serve_card_vs_cpu():
+    """The port on the card against the port on the CPU: prefill logits,
+    every teacher-forced decode step's logits and the KV cache, at full
+    width with the depth cut to 2 layers, and on the reduced config."""
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, make_batch
+
+    full = get_arch(SERVE_ARCH)
+    for tag, cfg in (("full_width_2_layers",
+                      dataclasses.replace(full, n_layers=2)),
+                     ("reduced", full.reduced())):
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=DEV).manual_seed(0),
+                            device=DEV)
+        params_cpu = tree_map(lambda t: t.cpu(), params)
+        tokens = make_batch(cfg, 2, FORCED_PROMPT + FORCED_STEPS, seed=1,
+                            device="cpu")["tokens"]
+        _reset_launches()
+        got, cache_gpu = _teacher_forced(model, params, tokens, DEV)
+        k3 = _flash_launches()
+        want, cache_cpu = _teacher_forced(model, params_cpu, tokens, "cpu")
+        if k3 != cfg.n_layers:
+            raise AssertionError(f"{tag}: {k3} K3 launches in the card's "
+                                 f"prefill, expected {cfg.n_layers}")
+        errs = []
+        for step, (g, w) in enumerate(zip(got, want)):
+            rel = float((g - w).abs().max()) / float(w.abs().max())
+            errs.append(rel)
+            if not (torch.isfinite(g).all() and rel <= SERVE_TOL):
+                raise AssertionError(
+                    f"serve card vs CPU ({tag}): logits of step {step} "
+                    f"differ by {rel} per unit of max |logits| "
+                    f"(tolerance {SERVE_TOL})")
+        cache_errs = {}
+        for name in ("k", "v"):
+            w = cache_cpu[name]
+            cache_errs[name] = float((cache_gpu[name] - w).abs().max()) \
+                / float(w.abs().max())
+        if max(cache_errs.values()) > SERVE_TOL or not torch.equal(
+                cache_gpu["pos"], cache_cpu["pos"]):
+            raise AssertionError(
+                f"serve card vs CPU ({tag}): KV cache differs: "
+                f"{cache_errs}, pos equal: "
+                f"{torch.equal(cache_gpu['pos'], cache_cpu['pos'])}")
+        emit({"phase": "serve_card_vs_cpu", "case": tag, "arch": cfg.name,
+              "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+              "batch": 2, "prompt_len": FORCED_PROMPT,
+              "forced_steps": FORCED_STEPS,
+              "logits_rel_err_per_step": errs,
+              "cache_rel_err": cache_errs, "tolerance": SERVE_TOL,
+              "flash_attention_launches": k3})
+        del params, params_cpu
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -547,11 +931,18 @@ def main() -> int:
     scan_launches = phase_assoc_path()
     phase_profile("fedasync", fold_mode="associative")
     phase_card_vs_cpu()
+    cfg, model, params, tokens, init_s = _serve_setup()
+    fv = phase_flash_vs_plain(_layer0_qkv(cfg, params, tokens))
+    flash_launches = phase_serve_path(cfg, model, params, tokens, init_s)
+    del model, params, tokens
+    phase_serve_card_vs_cpu()
     main_rec = kv[((8, 256), torch.float32, True)]
     # K2 at the main path's largest leaf (w_h), a = 1: the case with a
     # library yardstick (torch.cumsum); the kernel's time does not depend
     # on the values of a
     scan_rec = sv[((1, 64, 16384), torch.float32, "ones")]
+    # K3 at the serve path's shape, fp32, N(0, 1) inputs
+    flash_rec = fv[("main", torch.float32)]
     emit({"kernels": [{
         "name": "feature_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/feature_attention/csrc/"
@@ -560,7 +951,9 @@ def main() -> int:
         "launches": launches, "max_abs_err": main_rec["max_abs_err"],
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None,
+        "launches_by_path": {"main_path": launches, "assoc_path": 0,
+                             "serve_path": 0}}, {
         "name": "linear_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
         "replaces": "src/repro/kernels/linear_scan/kernel.py:56",
@@ -568,7 +961,24 @@ def main() -> int:
         "ms": scan_rec["ms"], "plain_ms": scan_rec["plain_ms"],
         "bound_ms": scan_rec["bound_ms"], "bound_by": scan_rec["bound_by"],
         "library_ms": scan_rec["library_ms"],
-        "library": scan_rec["library"], "shape": scan_rec["shape"]}]})
+        "library": scan_rec["library"], "shape": scan_rec["shape"],
+        "launches_by_path": {"main_path": 0, "assoc_path": scan_launches,
+                             "serve_path": 0}}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:95",
+        "launches": flash_launches,
+        "max_abs_err": flash_rec["max_abs_err"],
+        "ms": flash_rec["ms"], "plain_ms": flash_rec["plain_ms"],
+        "bound_ms": flash_rec["bound_ms"],
+        "bound_by": flash_rec["bound_by"],
+        "library_ms": flash_rec["library_ms"],
+        "library": flash_rec["library"],
+        "shape": [flash_rec[k] for k in ("B", "Sq", "Skv", "KV", "G",
+                                         "hd")],
+        "launches_by_path": {"main_path": 0, "assoc_path": 0,
+                             "serve_path": flash_launches}}]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

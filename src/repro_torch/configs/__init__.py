@@ -1,7 +1,9 @@
 """Architecture configs.  Importing this package registers every arch."""
 from repro_torch.configs.base import ARCHS, ModelConfig, get_arch
 
-# Register the paper's architectures (import side effect).
+# Register the architectures (import side effect).
 from repro_torch.configs import paper_models  # noqa: F401,E402
+from repro_torch.configs import qwen2_0_5b  # noqa: F401,E402
+from repro_torch.configs import tinyllama_1_1b  # noqa: F401,E402
 
 __all__ = ["ARCHS", "ModelConfig", "get_arch"]

@@ -1,36 +1,53 @@
-"""Model facade for the paper-scale families (``lstm`` and ``cnn``).
+"""Model facade: the paper-scale families (``lstm``, ``cnn``) and the
+dense transformer trunk (``dense``).
 
 Mirrors ``repro.models.model.Model``: ``init`` / ``loss`` / ``predict``
-over plain ``dict[str, Tensor]`` parameters in the JAX layouts.  ``loss``
-and ``predict`` accept single or client-stacked parameters (see
-``paper_nets``); a stacked loss is one value per client.
+over plain parameter dicts in the JAX layouts, plus ``prefill`` /
+``decode_step`` / ``init_cache`` for serving the dense trunk.  The paper
+models' ``loss`` and ``predict`` accept single or client-stacked
+parameters (see ``paper_nets``); a stacked loss is one value per client.
+Entry points run on the CUDA card unless given ``device="cpu"``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch.common.device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import decode as dec
 from repro_torch.models import paper_nets as pn
+from repro_torch.models import transformer as tf
+from repro_torch.models.spec import init_params
+
+PAPER_FAMILIES = ("lstm", "cnn")
 
 
 @dataclasses.dataclass
 class Model:
     cfg: ModelConfig
-    spec: pn.Spec
+    spec: Any  # pn.Spec (paper models) | ParamDef tree (transformer)
 
-    def init(self, generator: torch.Generator, device="cpu"
-             ) -> Dict[str, torch.Tensor]:
-        """Draw parameters with the JAX package's rule (``models/spec.py``):
-        ``fan_in`` leaves are N(0, 1) / sqrt(shape[-2]) (shape[-1] for
-        vectors), ``zeros`` leaves are zero.  Leaves are drawn in sorted
-        key order from ``generator`` on the CPU, then moved to ``device``,
-        so one seed gives the same weights on every device.  (The values
-        differ from ``jax.random``'s; to start from the JAX package's
-        weights use ``repro_torch.models.convert.params_from_numpy``.)"""
+    def init(self, generator: torch.Generator, device=None,
+             dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
+        """Draw parameters with the JAX package's rules
+        (``models/spec.py``) on ``device`` (``None``: the CUDA card).
+
+        Paper models: ``fan_in`` leaves are N(0, 1) / sqrt(shape[-2])
+        (shape[-1] for vectors), ``zeros`` leaves are zero, drawn in
+        sorted key order from a CPU ``generator``, in fp32.  Transformer:
+        ``repro_torch.models.spec.init_params`` (drawn on the generator's
+        device, in ``dtype``).  One seed gives the same weights on every
+        device; the values differ from ``jax.random``'s (to start from
+        the JAX package's weights use
+        ``repro_torch.models.convert.params_from_numpy``)."""
+        dev = resolve_device(device)
+        if self.cfg.family not in PAPER_FAMILIES:
+            return init_params(self.spec, generator, dtype, dev)
         out = {}
         for name in sorted(self.spec):
             shape, init = self.spec[name]
@@ -43,10 +60,14 @@ class Model:
                                     max(fan_in, 1))
             else:
                 raise ValueError(f"unknown init {init!r}")
-            out[name] = v.to(device)
+            out[name] = v.to(dev)
         return out
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+        if self.cfg.family not in PAPER_FAMILIES:
+            raise NotImplementedError(
+                "the transformer's training loss belongs to the training "
+                "slice of the port; this slice serves it")
         pred = self.predict(params, batch)
         task = batch.get("task", "regression")
         if self.cfg.family == "cnn" or task == "classification":
@@ -62,18 +83,44 @@ class Model:
             return pn.lstm_forward(params, batch["x"])
         if self.cfg.family == "cnn":
             return pn.cnn_forward(params, batch["x"])
-        raise ValueError(f"unsupported model family {self.cfg.family!r}")
+        return tf.logits_fn(params, self.cfg, batch)
+
+    # -- serving (dense trunk) -------------------------------------------
+    def prefill(self, params, batch, max_len: Optional[int] = None):
+        """(last-token logits (B, V), cache); one K3 launch per layer on
+        the card."""
+        return dec.prefill(params, self.cfg, batch, max_len)
+
+    def decode_step(self, params, cache, tokens, cur_index):
+        """(logits (B, V), cache); writes the new K/V into ``cache``."""
+        return dec.decode_step(params, self.cfg, cache, tokens, cur_index)
+
+    def init_cache(self, batch_size: int, max_len: int,
+                   dtype=torch.bfloat16, device=None):
+        return dec.init_cache(self.cfg, batch_size, max_len, dtype,
+                              resolve_device(device))
 
 
-def build_spec(cfg: ModelConfig) -> pn.Spec:
+def build_spec(cfg: ModelConfig):
     if cfg.family == "lstm":
         return pn.lstm_spec(cfg)
     if cfg.family == "cnn":
         return pn.cnn_spec(cfg)
-    raise ValueError(
-        f"the port builds the paper's lstm / cnn families only; "
-        f"{cfg.name!r} is {cfg.family!r}")
+    return tf.build_spec(cfg)
 
 
 def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg=cfg, spec=build_spec(cfg))
+
+
+def make_batch(cfg: ModelConfig, B: int, S: int, seed: int = 0,
+               device=None) -> Dict[str, torch.Tensor]:
+    """Random token batch (tokens, labels: (B, S) int32 in [0, vocab))
+    drawn with numpy from ``seed``, on ``device`` (``None``: the card).
+    Tests hand the same numpy tokens to both packages."""
+    tf.check_family(cfg)
+    rng = np.random.default_rng(seed)
+    dev = resolve_device(device)
+    return {name: torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                               dtype=torch.int32, device=dev)
+            for name in ("tokens", "labels")}

@@ -1,0 +1,75 @@
+"""Parameter specs for the transformer trunk.
+
+Model code declares its parameters once, as a nested ``dict`` of
+``ParamDef`` leaves (shape + initializer), as ``repro.models.spec`` does;
+``init_params`` materializes it.  Logical sharding axes are not carried:
+the port runs on one card.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.common.device import resolve_device
+
+Spec = Any  # ParamDef | Dict[str, Spec]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    init: str = "normal"  # normal | zeros | ones | fan_in
+    scale: float = 0.02
+
+
+def stack_spec(spec: Spec, n: int) -> Spec:
+    """Prepend a stacked layer axis of size ``n`` to every ParamDef."""
+    if isinstance(spec, ParamDef):
+        return ParamDef((n,) + spec.shape, spec.init, spec.scale)
+    return {k: stack_spec(v, n) for k, v in spec.items()}
+
+
+def _init_leaf(d: ParamDef, generator: torch.Generator,
+               dtype: torch.dtype) -> torch.Tensor:
+    gdev = generator.device
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype, device=gdev)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=gdev)
+    if d.init == "normal":
+        std = d.scale
+    elif d.init == "fan_in":
+        fan_in = d.shape[-2] if len(d.shape) >= 2 else d.shape[-1]
+        std = 1.0 / math.sqrt(max(fan_in, 1))
+    else:
+        raise ValueError(f"unknown init {d.init!r}")
+    v = torch.randn(d.shape, generator=generator, dtype=torch.float32,
+                    device=gdev)
+    return (v * std).to(dtype)
+
+
+def init_params(spec: Spec, generator: torch.Generator,
+                dtype: torch.dtype = torch.float32, device=None
+                ) -> Dict[str, Any]:
+    """Materialize a spec tree with the JAX package's rules
+    (``repro/models/spec.py``): ``normal`` is N(0, scale), ``fan_in`` is
+    N(0, 1) / sqrt(shape[-2]) (shape[-1] for vectors), ``zeros`` /
+    ``ones`` are constant.  Leaves are drawn in sorted key order (the
+    order ``jax.tree`` flattens in) from ``generator`` on the generator's
+    own device, then moved to ``device`` (``None``: the CUDA card), so one
+    seed on one generator device gives the same weights on every device.
+    The values differ from ``jax.random``'s; to start from the JAX
+    package's weights use ``repro_torch.models.convert.params_from_numpy``.
+    """
+    dev = resolve_device(device)
+
+    def walk(s):
+        if isinstance(s, ParamDef):
+            return _init_leaf(s, generator, dtype).to(dev)
+        return {k: walk(s[k]) for k in sorted(s)}
+
+    return walk(spec)
+

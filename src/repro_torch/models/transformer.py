@@ -1,0 +1,92 @@
+"""Model assembly for the dense transformer trunk.
+
+Mirrors the dense family of ``repro.models.transformer``: the per-layer
+parameters stay stacked under ``"blocks"`` with a leading layer axis (the
+JAX layout, so ``params_from_numpy`` carries a JAX tree across leaf for
+leaf), and the forward walks them with a Python loop over views where the
+JAX code scans.  The other families (MoE / MLA, SSM, hybrid, VLM, audio)
+belong to later slices of the port and raise by name.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+from repro_torch.models.spec import stack_spec
+
+PORTED_FAMILIES = ("dense",)
+
+
+def check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"the port runs the dense transformer family; {cfg.name!r} is "
+            f"{cfg.family!r}, not ported yet (MoE and MLA, SSM, the "
+            "RG-LRU hybrid, VLM and audio come in later slices)")
+
+
+def dense_block_spec(cfg: ModelConfig):
+    return {"ln1": L.norm_spec(cfg.norm, cfg.d_model),
+            "attn": attn.gqa_spec(cfg),
+            "ln2": L.norm_spec(cfg.norm, cfg.d_model),
+            "mlp": L.mlp_spec(cfg.d_model, cfg.d_ff, cfg.act)}
+
+
+def build_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    check_family(cfg)
+    V, d = cfg.vocab_size, cfg.d_model
+    spec: Dict[str, Any] = {"embed": L.embedding_spec(V, d),
+                            "final_norm": L.norm_spec(cfg.norm, d)}
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = L.lm_head_spec(d, V)
+    spec["blocks"] = stack_spec(dense_block_spec(cfg), cfg.n_layers)
+    return spec
+
+
+def layer(stacked, i: int):
+    """Layer ``i``'s parameters: views into the stacked tree."""
+    if isinstance(stacked, torch.Tensor):
+        return stacked[i]
+    return {k: layer(v, i) for k, v in stacked.items()}
+
+
+def _dense_block(p, x, cfg: ModelConfig, *, positions=None, window=0):
+    h = L.apply_norm(cfg.norm, p["ln1"], x)
+    x = x + attn.gqa_forward(p["attn"], h, cfg, positions=positions,
+                             causal=True, window=window)
+    h = L.apply_norm(cfg.norm, p["ln2"], x)
+    return x + L.mlp(p["mlp"], h, cfg.act)
+
+
+def _embed_inputs(params, cfg: ModelConfig, batch):
+    """tokens -> (x, positions)."""
+    check_family(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = L.embed(params["embed"], tokens)
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    return x, positions
+
+
+def forward_hidden(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Token inputs -> final hidden states (B, S, d)."""
+    x, positions = _embed_inputs(params, cfg, batch)
+    for i in range(cfg.n_layers):
+        x = _dense_block(layer(params["blocks"], i), x, cfg,
+                         positions=positions, window=cfg.sliding_window)
+    return L.apply_norm(cfg.norm, params["final_norm"], x)
+
+
+def _head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.tie_embeddings:
+        return params["embed"]["table"].T
+    return params["lm_head"]["w"]
+
+
+def logits_fn(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    return forward_hidden(params, cfg, batch) @ _head_matrix(params, cfg)

@@ -33,6 +33,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.common.device import resolve_device
 from repro_torch.common.pytree import tree_leaves, tree_stack
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.sim import compile as compile_lib
@@ -215,18 +216,6 @@ class Strategy:
 # ---------------------------------------------------------------------------
 # The engine
 # ---------------------------------------------------------------------------
-
-
-def resolve_device(device=None) -> torch.device:
-    """The run's device: ``None`` means the CUDA card, and without one
-    this raises instead of falling back to the CPU."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch runs on the CUDA card by default, but "
-            "torch.cuda.is_available() is False; pass device='cpu' to run "
-            "the plain-PyTorch path on the CPU")
-    return dev
 
 
 def _check_slice(strategy: Strategy, cfg: RunConfig,

@@ -6,6 +6,7 @@ import shutil
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -60,6 +61,50 @@ def test_run_strategy_defaults_to_the_card():
         run_strategy(get_strategy("asofed"), model, cfg_model,
                      wl.make_clients(3, n_per=20, seed=0),
                      wl.run_config(T=4))
+
+
+def _serve_defaults():
+    """Each entry point of the serve path, called without a device."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import main, serve
+    from repro_torch.models import build_model, make_batch
+    from repro_torch.models.convert import params_from_numpy
+
+    cfg = get_arch("tinyllama-1.1b").reduced()
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device="cpu")
+    tokens = make_batch(cfg, 1, 4, device="cpu")["tokens"]
+    return {
+        "serve": lambda: serve(model, params, tokens, 1),
+        "serve_main": lambda: main(["--reduced", "--batch", "1",
+                                    "--prompt-len", "4", "--gen", "1"]),
+        "Model.init": lambda: model.init(torch.Generator().manual_seed(0)),
+        "params_from_numpy": lambda: params_from_numpy(
+            {"blocks": {"w": np.zeros((2, 3), np.float32)}}),
+        "make_batch": lambda: make_batch(cfg, 1, 4),
+        "init_cache": lambda: model.init_cache(1, 8),
+    }
+
+
+@pytest.mark.parametrize("entry", ["serve", "serve_main", "Model.init",
+                                   "params_from_numpy", "make_batch",
+                                   "init_cache"])
+def test_serve_entry_points_default_to_the_card(entry):
+    """The serve path's entry points, like ``run_strategy``, run on the
+    CUDA card unless given ``device="cpu"`` and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default is valid here")
+    with pytest.raises(RuntimeError, match="cuda.is_available"):
+        _serve_defaults()[entry]()
+
+
+def test_serve_main_runs_on_the_cpu_when_asked():
+    from repro_torch.launch.serve import main
+
+    rec = main(["--device", "cpu", "--reduced", "--batch", "2",
+                "--prompt-len", "8", "--gen", "3", "--temperature", "0"])
+    assert rec["device"] == "cpu" and rec["k3_launches"] == 0
+    assert rec["finite_logits"] and rec["batch"] == 2
 
 
 @pytest.mark.parametrize("alone", [False, True])

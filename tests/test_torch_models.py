@@ -51,7 +51,7 @@ def test_convert_keeps_layouts_and_copies():
     _, jm, _, _ = _models("paper-lstm", in_features=F, out_features=1,
                           hidden=H)
     w = _w(jm, 0)
-    t = params_from_numpy(w)
+    t = params_from_numpy(w, device="cpu")
     assert t["w_x"].shape == (F, 4 * H) and t["w_h"].shape == (H, 4 * H)
     t["w_x"].add_(1.0)  # a copy, not an alias of the numpy array
     assert not np.allclose(t["w_x"].numpy(), w["w_x"])
@@ -59,7 +59,7 @@ def test_convert_keeps_layouts_and_copies():
 
 def test_init_matches_spec_shapes_and_fan_in():
     _, jm, _, tm = _models("paper-cnn", out_features=10, hidden=C)
-    w = tm.init(torch.Generator().manual_seed(0))
+    w = tm.init(torch.Generator().manual_seed(0), device="cpu")
     jw = _w(jm, 0)
     assert {k: tuple(v.shape) for k, v in w.items()} == \
         {k: v.shape for k, v in jw.items()}
@@ -75,7 +75,8 @@ def test_lstm_forward_matches_jax():
     w = _w(jm, 1)
     x = RNG.standard_normal((5, 16, F)).astype(np.float32)
     want = jpn.lstm_forward(w, jnp.asarray(x))
-    got = pn.lstm_forward(params_from_numpy(w), torch.tensor(x))
+    got = pn.lstm_forward(params_from_numpy(w, device="cpu"),
+                          torch.tensor(x))
     _close(got.numpy(), want)
 
 
@@ -84,7 +85,8 @@ def test_cnn_forward_matches_jax():
     w = _w(jm, 2)
     x = RNG.standard_normal((3, 28, 28, 1)).astype(np.float32)
     want = jpn.cnn_forward(w, jnp.asarray(x))
-    got = pn.cnn_forward(params_from_numpy(w), torch.tensor(x))
+    got = pn.cnn_forward(params_from_numpy(w, device="cpu"),
+                         torch.tensor(x))
     _close(got.numpy(), want)
 
 
@@ -101,7 +103,7 @@ def test_stacked_forward_equals_per_client(family):
         _, jm, _, _ = _models("paper-cnn", out_features=10, hidden=C)
         xs = RNG.standard_normal((3, 2, 28, 28, 1)).astype(np.float32)
         fwd = pn.cnn_forward
-    ws = [params_from_numpy(_w(jm, s)) for s in range(3)]
+    ws = [params_from_numpy(_w(jm, s), device="cpu") for s in range(3)]
     stacked = {k: torch.stack([w[k] for w in ws]) for k in ws[0]}
     got = fwd(stacked, torch.tensor(xs))
     for p in range(3):
@@ -177,7 +179,8 @@ def test_per_client_surrogate_grads_match_jax(workload):
     want = [jfn(ws[p], ss[p], jnp.asarray(xs[p]), jnp.asarray(ys[p]))
             for p in range(P)]
     stack = lambda trees: {k: torch.stack(  # noqa: E731
-        [params_from_numpy(t)[k] for t in trees]) for k in trees[0]}
+        [params_from_numpy(t, device="cpu")[k] for t in trees])
+        for k in trees[0]}
     g, loss = avg_surrogate_grad(tm, cfg)(
         stack(ws), stack(ss), torch.tensor(xs), torch.tensor(ys))
     for p in range(P):
@@ -200,7 +203,7 @@ def test_dynamic_multiplier_matches_jax():
 def test_stacked_init_client_state():
     _, jm, _, _ = _models("paper-lstm", in_features=F, out_features=1,
                           hidden=H)
-    w0 = params_from_numpy(_w(jm, 0))
+    w0 = params_from_numpy(_w(jm, 0), device="cpu")
     st = client_lib.init_client_state(w0, torch.tensor([3.0, 5.0]))
     assert st.params["w_x"].shape == (2, F, 4 * H)
     assert torch.equal(st.server_params["w_h"][1], w0["w_h"])
