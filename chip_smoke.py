@@ -15,7 +15,10 @@ drives the port's paths through its entry points:
 * ``serve_path``: ``repro_torch.launch.serve.serve`` on TinyLlama-1.1B
   at its full width and depth (random weights from seed 0), batch 8,
   prompt 2016, 32 greedy tokens, which runs the flash-attention kernel
-  (K3) once per layer of the prefill.
+  (K3) once per layer of the prefill: fp32 (K3's CUDA-core design);
+* ``serve_path_bf16``: the same serve with the seed-0 weights drawn in
+  bf16 (``Model.init(..., dtype=torch.bfloat16)``), which runs K3's
+  tensor-core (wgmma) design once per layer of the prefill.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after.  Then the card's trajectories are held against the
@@ -569,8 +572,11 @@ SERVE_REPEATS = 3
 # magnitude (at least 1), tests/test_kernels.py's bounds.  The online and
 # the dense softmax sum in different orders; bf16 outputs round once.
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
-# (name, B, Sq, Skv, KV, G, hd, causal, window); the first five are
-# tests/test_kernels.py's CASES
+# (name, B, Sq, Skv, KV, G, hd, causal, window), positions arange; the
+# first five are tests/test_kernels.py's CASES.  Then, at every head dim,
+# the edges of both designs: a ragged length (the last 64-key tile and
+# 128-row q tile partly past the sequence) at 100 and at the serve
+# prompt's 2016, a window, and Sq != Skv.
 FLASH_CASES = [
     ("grid0", 2, 128, 128, 2, 2, 64, True, 0),
     ("grid1", 1, 256, 256, 1, 4, 32, True, 64),
@@ -581,7 +587,12 @@ FLASH_CASES = [
     ("ragged", 2, 100, 100, 4, 8, 64, True, 0),
     ("window", 2, SERVE_PROMPT, SERVE_PROMPT, 4, 8, 64, True, 512),
     ("hd128", 2, 512, 512, 4, 8, 128, True, 0),
-]
+] + [case for hd in (32, 64, 128) for case in (
+    (f"ragged100_hd{hd}", 2, 100, 100, 2, 2, hd, True, 0),
+    (f"ragged2016_hd{hd}", 1, SERVE_PROMPT, SERVE_PROMPT, 2, 2, hd, True,
+     0),
+    (f"window48_hd{hd}", 1, 300, 300, 2, 2, hd, True, 48),
+    (f"sq_ne_skv_hd{hd}", 1, 100, 300, 2, 2, hd, True, 0))]
 # card vs CPU under teacher forcing: 5e-3 per unit of max |logits|, the
 # JAX package's own prefill-vs-forward bound
 # (tests/test_decode_consistency.py)
@@ -687,8 +698,9 @@ def _arange_pos(B: int, S: int) -> torch.Tensor:
 def phase_flash_vs_plain(layer0_qkv):
     """K3 against its plain version, fp32 and bf16: the JAX grid, the
     main-path shape with N(0, 1) inputs and with the serve run's own
-    layer-0 q/k/v, a ragged length, a window, hd 128, and a decode-like
-    non-contiguous case over a padded cache."""
+    layer-0 q/k/v (both timed), and at every head dim ragged lengths, a
+    window, Sq != Skv, decode-like non-contiguous queries over a padded
+    cache, fully masked rows and queries at the end of the prompt."""
     from repro_torch.models.decode import INT_SENTINEL
 
     gen = torch.Generator(device=DEV).manual_seed(0)
@@ -707,33 +719,50 @@ def phase_flash_vs_plain(layer0_qkv):
         q, k, v = (t.to(dtype) for t in layer0_qkv)
         out[("main_model", dtype)] = _flash_case(
             "main_model_qkv", q, k, v, _arange_pos(SERVE_B, SERVE_PROMPT),
-            _arange_pos(SERVE_B, SERVE_PROMPT), True, 0, True,
-            timed=dtype == torch.float32)
+            _arange_pos(SERVE_B, SERVE_PROMPT), True, 0, True, timed=True)
         del q, k, v
-        # 64 queries at positions 1000..1063 over a 2048-slot cache whose
-        # slots past 1063 are unwritten (INT_SENTINEL), not contiguous
-        B, Sq, Skv, KV, G, hd = 2, 64, 2048, 4, 8, 64
-        q = torch.randn((B, Sq, KV, G, hd), generator=gen, device=DEV
-                        ).to(dtype)
-        k = torch.randn((B, Skv, KV, hd), generator=gen, device=DEV
-                        ).to(dtype)
-        v = torch.randn((B, Skv, KV, hd), generator=gen, device=DEV
-                        ).to(dtype)
-        q_pos = (1000 + torch.arange(Sq, device=DEV, dtype=torch.int32)
-                 ).expand(B, Sq).contiguous()
-        k_pos = torch.arange(Skv, device=DEV, dtype=torch.int32)
-        k_pos = torch.where(k_pos < 1000 + Sq, k_pos,
-                            torch.full_like(k_pos, INT_SENTINEL))
-        for window in (0, 256):
-            out[(f"padded_cache_w{window}", dtype)] = _flash_case(
-                f"padded_cache_w{window}", q, k, v, q_pos,
-                k_pos.expand(B, Skv).contiguous(), True, window, False)
+        for hd in (32, 64, 128):
+            # 64 queries at positions 1000..1063 over a 2048-slot cache
+            # whose slots past 1063 are unwritten (INT_SENTINEL), not
+            # contiguous; the same queries with 5 of them at position -3,
+            # before every key (fully masked rows: the mean of v over all
+            # keys, as every tile is visited); and 64 queries at the end
+            # of a 2016-key prompt
+            B, Sq, Skv, KV, G = 2, 64, 2048, 4, 8
+            q = torch.randn((B, Sq, KV, G, hd), generator=gen, device=DEV
+                            ).to(dtype)
+            k = torch.randn((B, Skv, KV, hd), generator=gen, device=DEV
+                            ).to(dtype)
+            v = torch.randn((B, Skv, KV, hd), generator=gen, device=DEV
+                            ).to(dtype)
+            q_pos = (1000 + torch.arange(Sq, device=DEV, dtype=torch.int32)
+                     ).expand(B, Sq).contiguous()
+            k_pos = torch.arange(Skv, device=DEV, dtype=torch.int32)
+            k_pos = torch.where(k_pos < 1000 + Sq, k_pos,
+                                torch.full_like(k_pos, INT_SENTINEL)
+                                ).expand(B, Skv).contiguous()
+            sfx = "" if hd == 64 else f"_hd{hd}"
+            for window in (0, 256):
+                name = f"padded_cache_w{window}{sfx}"
+                out[(name, dtype)] = _flash_case(
+                    name, q, k, v, q_pos, k_pos, True, window, False)
+            masked_pos = q_pos.clone()
+            masked_pos[:, :5] = -3
+            out[(f"fully_masked_hd{hd}", dtype)] = _flash_case(
+                f"fully_masked_hd{hd}", q, k, v, masked_pos,
+                _arange_pos(B, Skv), True, 0, False)
+            out[(f"tail_queries_hd{hd}", dtype)] = _flash_case(
+                f"tail_queries_hd{hd}", q, k[:, :SERVE_PROMPT].contiguous(),
+                v[:, :SERVE_PROMPT].contiguous(),
+                _arange_pos(B, Sq) + (SERVE_PROMPT - Sq),
+                _arange_pos(B, SERVE_PROMPT), True, 0, False)
+            del q, k, v
     return out
 
 
-def _serve_setup():
+def _serve_setup(dtype=torch.float32):
     """TinyLlama-1.1B at full width and depth, random weights from seed
-    0 on the card, and the serve batch's prompt tokens."""
+    0 on the card in ``dtype``, and the serve batch's prompt tokens."""
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model, make_batch
 
@@ -741,7 +770,7 @@ def _serve_setup():
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=DEV).manual_seed(0),
-                        device=DEV)
+                        device=DEV, dtype=dtype)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     tokens = make_batch(cfg, SERVE_B, SERVE_PROMPT, seed=0,
@@ -776,10 +805,14 @@ def _serve_once(model, params, tokens):
                      device=DEV)
 
 
-def phase_serve_path(cfg, model, params, tokens, init_s: float):
-    """serve() at full width and depth: K3 once per layer of the
-    prefill, never in decode; the rates of SERVE_REPEATS runs; then one
-    profiled run."""
+def phase_serve_path(cfg, model, params, tokens, init_s: float,
+                     dtype=torch.float32):
+    """serve() at full width and depth in the weights' ``dtype``: K3 once
+    per layer of the prefill, never in decode; the rates of
+    SERVE_REPEATS runs; then one profiled run.  Phases ``serve_path``,
+    ``serve_path_spread``, ``serve_profile`` (fp32) or the same names
+    with ``_bf16``."""
+    sfx = "" if dtype == torch.float32 else "_bf16"
     _serve_once(model, params, tokens)  # warm-up: cuBLAS, allocator
     runs = []
     for _ in range(SERVE_REPEATS):
@@ -792,20 +825,21 @@ def phase_serve_path(cfg, model, params, tokens, init_s: float):
                 and stats["k3_decode_launches"] == 0 and k1 == 0
                 and k2 == 0):
             raise AssertionError(
-                f"serve path: {k3} flash-attention launches ("
+                f"serve path{sfx}: {k3} flash-attention launches ("
                 f"{stats['k3_launches']} in the prefill, "
                 f"{stats['k3_decode_launches']} in decode; expected "
                 f"{cfg.n_layers} and 0), K1 {k1}, K2 {k2}")
         if not stats["finite_logits"] or tuple(gen.shape) != (
                 SERVE_B, SERVE_GEN + 1):
-            raise AssertionError(f"serve path: non-finite logits or "
+            raise AssertionError(f"serve path{sfx}: non-finite logits or "
                                  f"tokens of shape {tuple(gen.shape)}")
-        rec = {"phase": "serve_path", "arch": cfg.name,
+        rec = {"phase": "serve_path" + sfx, "arch": cfg.name,
                "n_layers": cfg.n_layers, "d_model": cfg.d_model,
                "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
                "batch": SERVE_B, "prompt_len": SERVE_PROMPT,
                "gen": SERVE_GEN, "max_len": SERVE_PROMPT + SERVE_GEN,
-               "temperature": 0.0, "dtype": "float32", **stats,
+               "temperature": 0.0, "dtype": str(dtype).split(".")[-1],
+               **stats,
                "prefill_tokens_per_s": SERVE_B * SERVE_PROMPT
                / stats["prefill_s"],
                "peak_device_bytes": torch.cuda.max_memory_allocated(),
@@ -819,14 +853,14 @@ def phase_serve_path(cfg, model, params, tokens, init_s: float):
         q1, med, q3 = np.percentile(vals, [25, 50, 75])
         return {key: vals, f"{key}_median": med, f"{key}_iqr": q3 - q1}
 
-    emit({"phase": "serve_path_spread", "runs": len(runs),
+    emit({"phase": f"serve_path{sfx}_spread", "runs": len(runs),
           **spread("prefill_s"), **spread("ttft_s"),
           **spread("tokens_per_s")})
     (_, stats), wall, per = _device_profile(
         lambda: _serve_once(model, params, tokens))
-    emit({"phase": "serve_profile", "arch": cfg.name, "wall_s": wall,
+    emit({"phase": "serve_profile" + sfx, "arch": cfg.name, "wall_s": wall,
           "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
-          **_profile_record(per, wall, ("flash_attention_fwd",))})
+          **_profile_record(per, wall, ("fa_fwd_f32", "fa_fwd_bf16"))})
     return runs[-1]["flash_attention_launches"]
 
 
@@ -905,7 +939,58 @@ def phase_serve_card_vs_cpu():
         del params, params_cpu
 
 
-def main() -> int:
+# the dense serve phases, which --only can run alone
+SERVE_PHASES = ("flash_vs_plain", "serve_path", "serve_path_bf16")
+
+
+def serve_phases(names):
+    """Run the named phases of SERVE_PHASES: (flash_vs_plain's records,
+    K3 launches on serve_path, on serve_path_bf16)."""
+    fv, k3, k3_bf16 = {}, 0, 0
+    if "flash_vs_plain" in names or "serve_path" in names:
+        cfg, model, params, tokens, init_s = _serve_setup()
+        if "flash_vs_plain" in names:
+            fv = phase_flash_vs_plain(_layer0_qkv(cfg, params, tokens))
+        if "serve_path" in names:
+            k3 = phase_serve_path(cfg, model, params, tokens, init_s)
+        del model, params, tokens
+    if "serve_path_bf16" in names:
+        cfg, model, params, tokens, init_s = _serve_setup(torch.bfloat16)
+        k3_bf16 = phase_serve_path(cfg, model, params, tokens, init_s,
+                                   torch.bfloat16)
+        del model, params, tokens
+    return fv, k3, k3_bf16
+
+
+def _flash_entry(name, rec, launches, by_path, design):
+    """The kernels line's entry for one K3 design."""
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/csrc/"
+                  "flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/kernel.py:95",
+        "launches": launches, "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": rec["library_ms"], "library": rec["library"],
+        "shape": [rec[k] for k in ("B", "Sq", "Skv", "KV", "G", "hd")],
+        "dtype": rec["dtype"].split(".")[-1],
+        "design_source": "src/repro_torch/kernels/flash_attention/csrc/"
+                         + design,
+        "launches_by_path": {"main_path": 0, "assoc_path": 0, **by_path}}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases of " + ", ".join(
+                        SERVE_PHASES) + " to run alone (after the build)")
+    only = [p for p in ap.parse_args(argv).only.split(",") if p]
+    bad = sorted(set(only) - set(SERVE_PHASES))
+    if bad:
+        ap.error(f"--only takes {', '.join(SERVE_PHASES)}; got {bad}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs a CUDA card", file=sys.stderr)
@@ -923,6 +1008,15 @@ def main() -> int:
           "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
           "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32,
           "float32_matmul_precision": torch.get_float32_matmul_precision()})
+    if only:  # the same phases against another checkout's package (copy
+        # this script into its root) read two versions on one card
+        phase_build()
+        serve_phases(only)
+        print(card_line(), flush=True)
+        emit({"ok": True, "only": only, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}})
+        return 0
     phase_build()
     kv = phase_kernel_vs_plain()
     sv = phase_scan_vs_plain()
@@ -931,18 +1025,13 @@ def main() -> int:
     scan_launches = phase_assoc_path()
     phase_profile("fedasync", fold_mode="associative")
     phase_card_vs_cpu()
-    cfg, model, params, tokens, init_s = _serve_setup()
-    fv = phase_flash_vs_plain(_layer0_qkv(cfg, params, tokens))
-    flash_launches = phase_serve_path(cfg, model, params, tokens, init_s)
-    del model, params, tokens
+    fv, flash_launches, flash_launches_bf16 = serve_phases(SERVE_PHASES)
     phase_serve_card_vs_cpu()
     main_rec = kv[((8, 256), torch.float32, True)]
     # K2 at the main path's largest leaf (w_h), a = 1: the case with a
     # library yardstick (torch.cumsum); the kernel's time does not depend
     # on the values of a
     scan_rec = sv[((1, 64, 16384), torch.float32, "ones")]
-    # K3 at the serve path's shape, fp32, N(0, 1) inputs
-    flash_rec = fv[("main", torch.float32)]
     emit({"kernels": [{
         "name": "feature_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/feature_attention/csrc/"
@@ -953,7 +1042,7 @@ def main() -> int:
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
         "library_ms": None,
         "launches_by_path": {"main_path": launches, "assoc_path": 0,
-                             "serve_path": 0}}, {
+                             "serve_path": 0, "serve_path_bf16": 0}}, {
         "name": "linear_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
         "replaces": "src/repro/kernels/linear_scan/kernel.py:56",
@@ -963,22 +1052,17 @@ def main() -> int:
         "library_ms": scan_rec["library_ms"],
         "library": scan_rec["library"], "shape": scan_rec["shape"],
         "launches_by_path": {"main_path": 0, "assoc_path": scan_launches,
-                             "serve_path": 0}}, {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/flash_attention/csrc/"
-                  "flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/kernel.py:95",
-        "launches": flash_launches,
-        "max_abs_err": flash_rec["max_abs_err"],
-        "ms": flash_rec["ms"], "plain_ms": flash_rec["plain_ms"],
-        "bound_ms": flash_rec["bound_ms"],
-        "bound_by": flash_rec["bound_by"],
-        "library_ms": flash_rec["library_ms"],
-        "library": flash_rec["library"],
-        "shape": [flash_rec[k] for k in ("B", "Sq", "Skv", "KV", "G",
-                                         "hd")],
-        "launches_by_path": {"main_path": 0, "assoc_path": 0,
-                             "serve_path": flash_launches}}]})
+                             "serve_path": 0, "serve_path_bf16": 0}},
+        # K3 at the serve path's shape, N(0, 1) inputs: the fp32 design
+        # on serve_path, the bf16 (tensor-core) design on serve_path_bf16
+        _flash_entry("flash_attention", fv[("main", torch.float32)],
+                     flash_launches,
+                     {"serve_path": flash_launches, "serve_path_bf16": 0},
+                     "fa_f32.cuh"),
+        _flash_entry("flash_attention_bf16", fv[("main", torch.bfloat16)],
+                     flash_launches_bf16,
+                     {"serve_path": 0, "serve_path_bf16": flash_launches_bf16},
+                     "fa_bf16.cuh")]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

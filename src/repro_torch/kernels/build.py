@@ -5,7 +5,8 @@ entry point.  It is compiled with ``nvcc`` for ``sm_90a`` into a shared
 library at first use and loaded with ``ctypes``; nothing includes
 PyTorch's headers, so a build takes seconds, not minutes.  Libraries land
 in ``repro_torch/_build/`` (listed in ``.gitignore``), named by a hash of
-their source and flags, so an edited source is rebuilt and a concurrent
+their sources (the ``.cu`` and the ``.cuh`` headers beside it) and
+flags, so an edited source is rebuilt and a concurrent
 builder never sees a half-written file (each writes a private temporary
 and renames it into place).
 
@@ -62,9 +63,16 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
+    """The library's path, named by a hash of the flags, its source and
+    the headers (``*.cuh``) beside the source, which it may include."""
     src = os.path.join(PKG_DIR, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    csrc = os.path.dirname(src)
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [src] + sorted(os.path.join(csrc, f)
+                               for f in os.listdir(csrc)
+                               if f.endswith(".cuh")):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -10,8 +10,10 @@ then ``gen`` one-token decode steps, each sampled greedily (temperature
 ``torch.Generator``.  Runs on the CUDA card unless given
 ``device="cpu"`` / ``--device cpu``; without a card it raises.  On the
 card every prefill launches the flash-attention kernel (K3) once per
-layer and decode launches it never; the stats count both.  fp32 end to
-end, with full-fp32 matrix products (``main`` turns TF32 off).
+layer and decode launches it never; the stats count both.  Computes in
+the weights' dtype (``Model.init(..., dtype=torch.bfloat16)`` serves in
+bf16, K3's tensor-core design); ``main`` serves fp32 with full-fp32
+matrix products (TF32 off).
 """
 from __future__ import annotations
 

@@ -206,3 +206,63 @@ def test_cuda_kernel_matches_plain_version(case, dtype):
     want = want.reshape(B, KV, G, Sq, hd).permute(0, 3, 1, 2, 4)
     assert got.dtype == tdt
     _assert_close(got.cpu(), want.cpu(), tol)
+
+
+# The kernel's own edge cases on the card, for both designs (bf16 on the
+# tensor cores, fp32 on the CUDA cores) at every head dim: ragged lengths
+# (the last 64-key tile and 128-row q tile partly past the sequence),
+# a window, Sq != Skv, decode-like queries over a padded cache
+# (INT_SENTINEL slots, not contiguous), and fully masked rows (queries
+# before every key), which return the mean of v over all keys on both
+# sides when every tile is visited.
+EDGE_KINDS = ["ragged100", "ragged2016", "window", "sq_ne_skv",
+              "padded_cache", "fully_masked"]
+
+
+def _edge_case(kind, hd, seed=11):
+    """(q, k, v, q_pos, k_pos, causal, window, contiguous) as numpy."""
+    B, KV, G = 1, 2, 2
+    Sq, Skv, window, contiguous, q_off = {
+        "ragged100": (100, 100, 0, True, 0),
+        "ragged2016": (2016, 2016, 0, True, 0),
+        "window": (300, 300, 48, True, 0),
+        "sq_ne_skv": (100, 300, 0, True, 0),
+        "padded_cache": (64, 2048, 0, False, 1000),
+        "fully_masked": (64, 300, 0, False, 236),
+    }[kind]
+    q, k, v = _qkv((B, Sq, Skv, KV, G, hd, True, window), seed)
+    q_pos = _arange(B, Sq) + q_off
+    k_pos = _arange(B, Skv)
+    if kind == "padded_cache":
+        k_pos = np.where(k_pos < q_off + Sq, k_pos, INT_SENTINEL).astype(
+            np.int32)
+    if kind == "fully_masked":
+        q_pos[:, :5] = -3
+    return q, k, v, q_pos, k_pos, True, window, contiguous
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", EDGE_KINDS)
+@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_cuda_kernel_edge_cases(kind, hd, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    q, k, v, qp, kp, causal, window, contiguous = _edge_case(kind, hd)
+    _, tdt, tol = DTYPES[dtype]
+    q, k, v = (torch.tensor(a).to(tdt).cuda() for a in (q, k, v))
+    qp, kp = torch.tensor(qp).cuda(), torch.tensor(kp).cuda()
+    B, Sq, KV, G, _ = q.shape
+    before = flash_attention_kernel.launches
+    got = flash_attention(q, k, v, q_positions=qp, k_positions=kp,
+                          causal=causal, window=window,
+                          contiguous=contiguous)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == before + 1
+    want = flash_attention_ref(
+        q.permute(0, 2, 3, 1, 4).reshape(B, KV * G, Sq, hd),
+        k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3), qp, kp,
+        causal=causal, window=window)
+    want = want.reshape(B, KV, G, Sq, hd).permute(0, 3, 1, 2, 4)
+    assert got.dtype == tdt and bool(torch.isfinite(got).all())
+    _assert_close(got.cpu(), want.cpu(), tol, kind)

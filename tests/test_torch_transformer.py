@@ -17,6 +17,10 @@ Tolerance: max abs error per unit of the reference's largest magnitude,
 and softmaxes in different orders.  The JAX package's own
 prefill-vs-forward bound is 5e-3 (``tests/test_decode_consistency.py``);
 the port's self-consistency checks keep that.
+
+The bf16 serve path is held the same way: the JAX package's fp32 numpy
+weights, cast to bf16 on each side (round to nearest even in both),
+prefilled by both in bf16 (``BF16_TOL``, see there).
 """
 import dataclasses
 
@@ -45,6 +49,14 @@ IMPLS = ["xla", "pallas_interpret"]
 B, S = 2, 24
 TOL = 5e-4
 CONSISTENCY_TOL = 5e-3
+# bf16 prefill, port vs JAX: per unit of the reference's largest
+# magnitude.  Both round every activation to bf16, but not at the same
+# places (the frameworks fuse and accumulate differently), and the logits
+# and caches are bf16 themselves: one bf16 ulp of x is 2^-8 to 2^-7 of
+# |x|.  The bound allows ~3-5 ulps of the largest value; the measured
+# figure on reduced TinyLlama is one ulp (4.9e-3 logits, 5.3e-3 caches),
+# against ~4e-2 between the bf16 and the fp32 prefill of either package.
+BF16_TOL = 2e-2
 
 
 def _rel(got, want) -> float:
@@ -147,6 +159,36 @@ def test_sliding_window_circular_cache_matches_jax(impl):
         tl, tc = tm.decode_step(p, tc, torch.tensor(tok), torch.tensor(idx))
         assert _rel(tl, jl) < TOL, f"step {i}"
         _assert_cache(tc["kv"], jc["kv"], f"step {i}")
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_bf16_prefill_matches_jax(impl):
+    """Reduced TinyLlama served in bf16 (``Model.init(..., dtype=
+    torch.bfloat16)`` on the card): the port's bf16 prefill logits and
+    KV cache against the JAX package's bf16 prefill (XLA attention and
+    the Pallas kernel in interpret mode), from the same fp32 numpy
+    weights cast to bf16 on each side and numpy tokens."""
+    from repro_torch.common.pytree import tree_map
+
+    jm, w, tm, p = _pair("tinyllama-1.1b", impl)
+    wj = jax.tree.map(lambda x: jnp.asarray(x).astype(jnp.bfloat16), w)
+    pt = tree_map(lambda t: t.to(torch.bfloat16), p)
+    toks = _tokens(jm.cfg.vocab_size, S, seed=6)
+    jl, jc = jax.jit(lambda w, b: jm.prefill(w, b, max_len=S + 4))(
+        wj, {"tokens": jnp.asarray(toks)})
+    tl, tc = tm.prefill(pt, {"tokens": torch.tensor(toks)}, max_len=S + 4)
+    assert jl.dtype == jnp.bfloat16 and tl.dtype == torch.bfloat16
+    assert tc["kv"]["k"].dtype == torch.bfloat16 == tc["kv"]["v"].dtype
+
+    def rel(got, want):
+        return _rel(got.to(torch.float32),
+                    np.asarray(want.astype(jnp.float32)))
+
+    assert rel(tl, jl) < BF16_TOL
+    for name in ("k", "v"):
+        assert rel(tc["kv"][name], jc["kv"][name]) < BF16_TOL, name
+    np.testing.assert_array_equal(tc["kv"]["pos"].numpy(),
+                                  np.asarray(jc["kv"]["pos"]))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
