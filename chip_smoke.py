@@ -7,8 +7,9 @@ checkout, holds each against its plain PyTorch version on the card, and
 drives the port's paths through its entry points:
 
 * ``main_path``: ASO-Fed with the sequential fold on ``lstm_regression``
-  at the paper LSTM's registered width (hidden 64), which runs the
-  feature-pass kernel (K1) once per folded arrival;
+  at the paper LSTM's registered width (hidden 64), which runs the fused
+  fold kernel (``feature_fold``: K1's feature pass redesigned as the
+  whole tick's sequential fold) once per tick;
 * ``assoc_path``: FedAsync with the associative fold on the same
   workload, which runs the linear-recurrence kernel (K2) once per
   carrier leaf per tick;
@@ -20,11 +21,14 @@ drives the port's paths through its entry points:
   bf16 (``Model.init(..., dtype=torch.bfloat16)``), which runs K3's
   tensor-core (wgmma) design once per layer of the prefill.
 
-Each path is driven with the launch counts set to 0 just before it and
-read just after.  Then the card's trajectories are held against the
-CPU's for every ported strategy, the associative fold against the
-sequential one on the card, and the card's prefill and teacher-forced
-decode logits against the CPU's.  Prints one JSON line per phase, then a
+Before the paths, ``fold_vs_plain`` holds ``feature_fold`` against its
+plain version (the per-arrival loop) and times it beside the per-arrival
+chain it replaced (the loop with K1 in it).  Each path is driven with
+the launch counts set to 0 just before it and read just after.  Then
+the card's trajectories are held against the CPU's for every ported
+strategy, the associative fold against the sequential one on the card,
+and the card's prefill and teacher-forced decode logits against the
+CPU's.  Prints one JSON line per phase, then a
 ``{"kernels": [...]}`` line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
 before that line; without a CUDA card it exits non-zero at once.
@@ -81,6 +85,23 @@ MAIN_PATH_REPEATS = 5
 ASSOC_PATH_REPEATS = 3
 # the main path's shape (see _main_path_run)
 MAIN_CLIENTS, MAIN_HIDDEN, MAIN_T = 256, 64, 512
+# feature_fold cases: (name, workload, hidden, S, n_real, a client twice).
+# The main path's tick (S = 64 bucket, 51.2 arrivals a tick on average),
+# one arrival, a full bucket, a repeated client, the CNN's conv1_w (9, C)
+# at C = 12 and 32, lstm_multilabel's (32, 4H), and a first layer wider
+# than 1024 columns (4H = 1500: the shared-memory row)
+FOLD_CASES = [("main_tick", "lstm_regression", MAIN_HIDDEN, 64, 51, False),
+              ("one", "lstm_regression", MAIN_HIDDEN, 64, 1, False),
+              ("full", "lstm_regression", MAIN_HIDDEN, 64, 64, False),
+              ("repeat", "lstm_regression", MAIN_HIDDEN, 64, 51, True),
+              ("cnn_c12", "cnn_classification", 12, 32, 25, False),
+              ("cnn_c32", "cnn_classification", 32, 32, 25, False),
+              ("multilabel", "lstm_multilabel", MAIN_HIDDEN, 64, 51, False),
+              ("wide", "lstm_regression", 375, 16, 11, False)]
+# the fused fold's first layer against its plain version: per arrival
+# K1's fp32 bound (1e-6 per unit of the largest magnitude), compounded
+# over the tick's arrivals (each starts from the previous one's result)
+FOLD_TOL_PER_ARRIVAL = 1e-6
 # carrier leaves of the paper LSTM (w_x, w_h, b, fc_w, fc_b): K2 launches
 # per associative tick
 LSTM_LEAVES = 5
@@ -291,6 +312,153 @@ def phase_scan_vs_plain():
     return rows_out
 
 
+def fold_bound(w, S: int, n_real: int, rows: int, cols: int, n_len: int):
+    """(bound_ms, bound_by) of one tick's fused fold on these inputs:
+    every leaf read once and written once, the real slots' uploads, idx
+    (int64) and n_vis read, all S received models written, n read and
+    written, over HBM bandwidth; against the axpy's multiply and add on
+    every element and the feature pass on the first layer, per real
+    arrival, over the fp32 peak."""
+    numel = sum(x.numel() for x in w.values())
+    nbytes = 4 * ((2 + n_real + S) * numel + 2 * n_len) + 12 * n_real
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops = n_real * (2 * numel + FEATURE_OPS_PER_ELEM * rows * cols)
+    ops_ms = ops / FP32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
+def _fold_inputs(name: str, hidden: int, S: int, n_real: int,
+                 repeat: bool, seed: int):
+    """One tick of ASO-Fed's fold on the card: the workload's model at
+    ``hidden`` (seeded init) as the server, uploads at the scale of real
+    deltas and whole-number counts for MAIN_CLIENTS clients from a seeded
+    numpy generator; padded slots on the scratch row."""
+    from repro_torch.sim.workloads import get_workload
+
+    wl = get_workload(name)
+    cfg_model, model = wl.build(hidden=hidden)
+    w = model.init(torch.Generator().manual_seed(seed), device=DEV)
+    rng = np.random.default_rng(seed)
+    d = {k: torch.tensor(1e-2 * rng.standard_normal((S,) + tuple(v.shape)),
+                         dtype=torch.float32, device=DEV)
+         for k, v in w.items()}
+    n = np.zeros(MAIN_CLIENTS + 1, np.float32)
+    n[:MAIN_CLIENTS] = rng.integers(1, 40, MAIN_CLIENTS)
+    idx = np.full(S, MAIN_CLIENTS, np.int64)
+    idx[:n_real] = rng.permutation(MAIN_CLIENTS)[:n_real]
+    if repeat:
+        idx[n_real - 1] = idx[0]
+    n_vis = n[idx] + rng.integers(0, 6, S)
+    n_vis[n_real:] = 0.0
+    as_t = lambda a: torch.tensor(a, device=DEV)  # noqa: E731
+    return (wl, cfg_model, model, w, d, as_t(n), as_t(idx),
+            as_t(n_vis.astype(np.float32)))
+
+
+def _fold_check(tag, got, want, first, n_real, gate):
+    """Raises unless leaves other than ``first`` and n are bitwise equal
+    and ``first`` is within ``gate`` per unit of its largest magnitude;
+    returns (max abs error, per unit) of the first layer."""
+    (w_a, n_a, rec_a), (w_b, n_b, rec_b) = got, want
+    if not torch.equal(n_a, n_b):
+        raise AssertionError(f"{tag}: post-tick counts differ")
+    err = per_unit = 0.0
+    for part_a, part_b in ((w_a, w_b), (rec_a, rec_b)):
+        for k, b in part_b.items():
+            a = part_a[k]
+            if k != first:
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{tag}: leaf {k} not bitwise "
+                                         "equal")
+                continue
+            e = float((a - b).abs().max())
+            err = max(err, e)
+            per_unit = max(per_unit, e / max(1.0, float(b.abs().max())))
+    if not per_unit <= gate:
+        raise AssertionError(f"{tag}: first layer {first} off by {per_unit} "
+                             f"per unit (gate {gate})")
+    return err, per_unit
+
+
+def phase_fold_vs_plain():
+    """The fused fold (``feature_fold``) against its plain version (the
+    per-arrival loop in plain PyTorch) at FOLD_CASES, and the chain it
+    replaced on the main path (the same loop with K1 per arrival: the
+    parent's fold) checked and timed beside it."""
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.core.algorithms.asofed import AsoFedStrategy
+    from repro_torch.core.feature_learning import first_layer_path
+    from repro_torch.kernels.feature_attention.kernel import (
+        feature_attention_kernel)
+    from repro_torch.kernels.feature_attention.ops import feature_fold
+    from repro_torch.kernels.feature_attention.ref import feature_fold_ref
+
+    out = {}
+    for seed, (name, wl_name, hidden, S, n_real, repeat) in enumerate(
+            FOLD_CASES):
+        wl, cfg_model, model, w, d, n, idx, n_vis = _fold_inputs(
+            wl_name, hidden, S, n_real, repeat, seed)
+        first = first_layer_path(cfg_model)
+        fold = AsoFedStrategy().build_fold(model, cfg_model,
+                                           wl.run_config())
+        t_arr = torch.zeros(S, device=DEV)
+
+        def kern():
+            return feature_fold(w, d, first, n, idx, n_vis, n_real)
+
+        def plain():
+            return feature_fold_ref(w, d, first, n, idx, n_vis, n_real)
+
+        def chain():  # the engine's per-arrival loop, K1 in each fold
+            server, received = {"w": w, "n": n}, []
+            for s in range(n_real):
+                server, rec = fold(server, tree_map(lambda u: u[s], d),
+                                   idx[s], n_vis[s], t_arr[s])
+                received.append(rec)
+            pad = (received[-1],) * (S - n_real)
+            return server["w"], server["n"], tree_map(
+                lambda *rs: torch.stack(rs), *received, *pad)
+
+        gate = n_real * FOLD_TOL_PER_ARRIVAL
+        want = plain()
+        err, per_unit = _fold_check(f"feature_fold {name}", kern(), want,
+                                    first, n_real, gate)
+        k1_before = feature_attention_kernel.launches
+        chain_err, chain_per_unit = _fold_check(
+            f"per-arrival chain {name}", chain(), want, first, n_real, gate)
+        k1 = feature_attention_kernel.launches - k1_before
+        if k1 != n_real:
+            raise AssertionError(f"{name}: the chain launched K1 {k1} times "
+                                 f"for {n_real} arrivals")
+        rows = w[first].numel() // w[first].shape[-1]
+        cols = w[first].shape[-1]
+        bound_ms, bound_by = fold_bound(w, S, n_real, rows, cols,
+                                        n.numel())
+        ms = device_ms(kern)
+        rec = {"phase": "fold_vs_plain", "kernel": "feature_fold",
+               "case": name, "workload": wl_name, "hidden": hidden,
+               "first_layer": first, "first_shape": [rows, cols],
+               "leaves": {k: list(v.shape) for k, v in w.items()},
+               "S": S, "n_real": n_real, "repeated_client": repeat,
+               "max_abs_err": err, "err_per_unit": per_unit,
+               "tolerance_per_unit": gate,
+               "other_leaves_and_n": "bitwise",
+               "chain_max_abs_err": chain_err,
+               "chain_err_per_unit": chain_per_unit,
+               "ms": ms, "call_ms": call_ms(kern),
+               "plain_ms": device_ms(plain, reps=2),
+               "plain_call_ms": call_ms(plain, reps=5),
+               "chain_ms": device_ms(chain, reps=2),
+               "chain_call_ms": call_ms(chain, reps=5),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_share": bound_ms / ms}
+        emit(rec)
+        out[name] = rec
+        del w, d
+    return out
+
+
 def _main_path_run(T: int, stats: dict, alg: str = "asofed",
                    trace=None, **cfg_kw):
     """One run at the main path's shape: lstm_regression at hidden
@@ -310,6 +478,14 @@ def _main_path_run(T: int, stats: dict, alg: str = "asofed",
     return hist, time.perf_counter() - t0, cfg_model
 
 
+def _fold_kernel():
+    """The fused fold's wrapper, or None in an older checkout's package
+    (``--only main_path`` copied into the parent's tree for an A/B)."""
+    from repro_torch.kernels.feature_attention import kernel
+
+    return getattr(kernel, "feature_fold_kernel", None)
+
+
 def _reset_launches():
     from repro_torch.kernels.feature_attention.kernel import (
         feature_attention_kernel)
@@ -320,6 +496,8 @@ def _reset_launches():
     feature_attention_kernel.launches = 0
     linear_scan_kernel.launches = 0
     flash_attention_kernel.launches = 0
+    if _fold_kernel() is not None:
+        _fold_kernel().launches = 0
 
 
 def _launches():
@@ -329,6 +507,13 @@ def _launches():
     from repro_torch.kernels.linear_scan.kernel import linear_scan_kernel
 
     return feature_attention_kernel.launches, linear_scan_kernel.launches
+
+
+def _fold_launches() -> int:
+    """feature_fold launches since the last reset (0 in a package without
+    the fused fold)."""
+    fk = _fold_kernel()
+    return 0 if fk is None else fk.launches
 
 
 def _flash_launches() -> int:
@@ -351,14 +536,19 @@ def phase_main_path():
         stats = {}
         _reset_launches()
         hist, wall, cfg_model = _main_path_run(MAIN_T, stats)
-        launches, scan_launches = _launches()
-        if launches != stats["iters"] or stats["iters"] != MAIN_T \
-                or scan_launches != 0:
+        k1, scan_launches = _launches()
+        launches = _fold_launches()
+        # one fused launch a tick (every tick folds), no per-row K1, no K2;
+        # an older package: one K1 launch a folded arrival
+        ok = (launches == stats["ticks"] and k1 == 0) \
+            if _fold_kernel() is not None else k1 == stats["iters"]
+        if not ok or stats["iters"] != MAIN_T or scan_launches != 0:
             raise AssertionError(
-                f"main path: {launches} feature-kernel launches for "
-                f"{stats['iters']} folded arrivals (expected one per fold) "
-                f"and {scan_launches} linear-scan launches (expected 0 on "
-                "the sequential fold)")
+                f"main path: {launches} feature_fold launches for "
+                f"{stats['ticks']} ticks (expected one a tick), {k1} per-row "
+                f"feature-kernel launches for {stats['iters']} folded "
+                f"arrivals (expected 0) and {scan_launches} linear-scan "
+                "launches (expected 0 on the sequential fold)")
         _finite(hist)
         rates.append(stats["iters"] / wall)
         final = hist[-1].metrics
@@ -373,7 +563,8 @@ def phase_main_path():
               "eval_s": stats["eval_s"],
               "peak_device_bytes": stats["peak_device_bytes"],
               "participation_mean": stats.get("participation_mean"),
-              "feature_kernel_launches": launches,
+              "feature_fold_launches": launches,
+              "feature_kernel_launches": k1,
               "smape": final["smape"], "mae": final["mae"]})
     q1, med, q3 = np.percentile(rates, [25, 50, 75])
     emit({"phase": "main_path_spread", "runs": len(rates),
@@ -394,13 +585,15 @@ def phase_assoc_path():
         hist, wall, cfg_model = _main_path_run(MAIN_T, stats, "fedasync",
                                                fold_mode="associative")
         k1, launches = _launches()
+        k1 += _fold_launches()
         if stats["fold_mode"] != "associative" or k1 != 0 \
                 or launches != stats["ticks"] * LSTM_LEAVES \
                 or stats["iters"] != MAIN_T:
             raise AssertionError(
                 f"assoc path: {launches} linear-scan launches for "
                 f"{stats['ticks']} ticks (expected {LSTM_LEAVES} a tick) "
-                f"and {k1} feature-kernel launches (expected 0); "
+                f"and {k1} feature-kernel and feature_fold launches "
+                "(expected 0); "
                 f"fold_mode={stats['fold_mode']}, iters={stats['iters']}")
         _finite(hist)
         rates.append(stats["iters"] / wall)
@@ -485,6 +678,7 @@ def phase_profile(alg: str = "asofed", **cfg_kw):
         lambda: _main_path_run(MAIN_T, stats, alg, **cfg_kw))
     emit({"phase": "profile", "strategy": alg, **cfg_kw, "wall_s": wall,
           **_profile_record(per, wall, ("feature_attention_rows",
+                                        "feature_fold_tick",
                                         "linear_scan_channels"))})
 
 
@@ -820,6 +1014,7 @@ def phase_serve_path(cfg, model, params, tokens, init_s: float,
         _reset_launches()
         gen, stats = _serve_once(model, params, tokens)
         k1, k2 = _launches()
+        k1 += _fold_launches()
         k3 = _flash_launches()
         if not (k3 == cfg.n_layers and stats["k3_launches"] == cfg.n_layers
                 and stats["k3_decode_launches"] == 0 and k1 == 0
@@ -941,6 +1136,8 @@ def phase_serve_card_vs_cpu():
 
 # the dense serve phases, which --only can run alone
 SERVE_PHASES = ("flash_vs_plain", "serve_path", "serve_path_bf16")
+# the phases --only can run alone (after the build), in this order
+ONLY_PHASES = ("main_path", "assoc_path") + SERVE_PHASES
 
 
 def serve_phases(names):
@@ -986,11 +1183,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default="",
                     help="comma-separated phases of " + ", ".join(
-                        SERVE_PHASES) + " to run alone (after the build)")
+                        ONLY_PHASES) + " to run alone (after the build)")
     only = [p for p in ap.parse_args(argv).only.split(",") if p]
-    bad = sorted(set(only) - set(SERVE_PHASES))
+    bad = sorted(set(only) - set(ONLY_PHASES))
     if bad:
-        ap.error(f"--only takes {', '.join(SERVE_PHASES)}; got {bad}")
+        ap.error(f"--only takes {', '.join(ONLY_PHASES)}; got {bad}")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs a CUDA card", file=sys.stderr)
@@ -1011,6 +1208,10 @@ def main(argv=None) -> int:
     if only:  # the same phases against another checkout's package (copy
         # this script into its root) read two versions on one card
         phase_build()
+        if "main_path" in only:
+            phase_main_path()
+        if "assoc_path" in only:
+            phase_assoc_path()
         serve_phases(only)
         print(card_line(), flush=True)
         emit({"ok": True, "only": only, "device": {
@@ -1020,6 +1221,7 @@ def main(argv=None) -> int:
     phase_build()
     kv = phase_kernel_vs_plain()
     sv = phase_scan_vs_plain()
+    fv_fold = phase_fold_vs_plain()
     launches = phase_main_path()
     phase_profile()
     scan_launches = phase_assoc_path()
@@ -1028,20 +1230,38 @@ def main(argv=None) -> int:
     fv, flash_launches, flash_launches_bf16 = serve_phases(SERVE_PHASES)
     phase_serve_card_vs_cpu()
     main_rec = kv[((8, 256), torch.float32, True)]
+    fold_rec = fv_fold["main_tick"]
     # K2 at the main path's largest leaf (w_h), a = 1: the case with a
     # library yardstick (torch.cumsum); the kernel's time does not depend
     # on the values of a
     scan_rec = sv[((1, 64, 16384), torch.float32, "ones")]
     emit({"kernels": [{
+        # K1 redesigned for the main path: the tick's whole sequential fold
+        "name": "feature_fold", "route": "cuda",
+        "source": "src/repro_torch/kernels/feature_attention/csrc/"
+                  "feature_attention.cu",
+        "replaces": "src/repro/kernels/feature_attention/kernel.py:38 "
+                    "inside src/repro/sim/compile.py:339-352",
+        "launches": launches, "max_abs_err": fold_rec["max_abs_err"],
+        "ms": fold_rec["ms"], "plain_ms": fold_rec["plain_ms"],
+        "bound_ms": fold_rec["bound_ms"], "bound_by": fold_rec["bound_by"],
+        "library_ms": None, "chain_ms": fold_rec["chain_ms"],
+        "call_ms": fold_rec["call_ms"],
+        "shape": {"S": fold_rec["S"], "n_real": fold_rec["n_real"],
+                  "leaves": fold_rec["leaves"]},
+        "launches_by_path": {"main_path": launches, "assoc_path": 0,
+                             "serve_path": 0, "serve_path_bf16": 0}}, {
+        # the per-row K1, held against its plain version; no path of this
+        # script reaches it now (apply_feature_learning on a CUDA tensor)
         "name": "feature_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/feature_attention/csrc/"
                   "feature_attention.cu",
         "replaces": "src/repro/kernels/feature_attention/kernel.py:38",
-        "launches": launches, "max_abs_err": main_rec["max_abs_err"],
+        "launches": 0, "max_abs_err": main_rec["max_abs_err"],
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
         "library_ms": None,
-        "launches_by_path": {"main_path": launches, "assoc_path": 0,
+        "launches_by_path": {"main_path": 0, "assoc_path": 0,
                              "serve_path": 0, "serve_path_bf16": 0}}, {
         "name": "linear_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",

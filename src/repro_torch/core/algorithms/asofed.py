@@ -4,9 +4,11 @@ Local rule: the Eq. (7)-(11) online update (surrogate grad averaged over E
 minibatches, decay-corrected direction, dynamic step multiplier), for a
 whole cohort at once.  Fold rule: the Eq. (4) sequential server recurrence
 followed by the Eq. (5)-(6) feature pass, one arrival at a time; each
-client downloads the central model as of its own fold.  Without the
-feature pass (ASO-Fed(-F)) the fold is affine and also runs as one
-prefix scan per tick (``build_fold_affine``).
+client downloads the central model as of its own fold.  With the feature
+pass the engine folds a whole tick at once (``build_fold_tick``: one
+fused kernel launch on the card, the same per-arrival loop on the CPU).
+Without it (ASO-Fed(-F)) the fold is affine and also runs as one prefix
+scan per tick (``build_fold_affine``).
 """
 from __future__ import annotations
 
@@ -18,7 +20,9 @@ import torch
 from repro_torch.common.pytree import bcast_rows, tree_axpy, tree_map, tree_sub
 from repro_torch.core import client as client_lib
 from repro_torch.core.algorithms.common import avg_surrogate_grad
-from repro_torch.core.feature_learning import apply_feature_learning
+from repro_torch.core.feature_learning import (apply_feature_learning,
+                                               first_layer_path)
+from repro_torch.kernels.feature_attention.ops import feature_fold
 from repro_torch.sim.engine import Strategy
 
 
@@ -91,6 +95,20 @@ class AsoFedStrategy(Strategy):
             return {"w": w, "n": n}, w
 
         return fold
+
+    def build_fold_tick(self, model, cfg_model, cfg):
+        # build_fold over a whole tick: one launch on the card
+        if not cfg.feature_learning:
+            return None
+        first = first_layer_path(cfg_model)
+
+        def fold_tick(server, delta, idx, n_vis, t_arr, n_real):
+            w, n, received = feature_fold(server["w"], delta, first,
+                                          server["n"], idx, n_vis, n_real,
+                                          use_kernel=cfg.feature_kernel)
+            return {"w": w, "n": n}, received
+
+        return fold_tick
 
     def build_fold_affine(self, model, cfg_model, cfg):
         # Eq. (4) alone is affine in w with a = 1 (a weighted-delta

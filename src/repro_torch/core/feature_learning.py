@@ -7,7 +7,9 @@ input* by a row-softmax attention over the weight magnitudes:
     w1[i, j]   <- alpha[i, j] * w1[i, j]
 
 On the card this is the hand-written CUDA kernel
-(``repro_torch.kernels.feature_attention``), one launch per fold.
+(``repro_torch.kernels.feature_attention``), one launch per call; the
+engine's ASO-Fed fold reaches the pass through the fused tick fold
+(``feature_attention.ops.feature_fold``) instead.
 """
 from __future__ import annotations
 

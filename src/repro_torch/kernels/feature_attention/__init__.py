@@ -1,3 +1,4 @@
-from repro_torch.kernels.feature_attention.ops import feature_attention
+from repro_torch.kernels.feature_attention.ops import (feature_attention,
+                                                      feature_fold)
 
-__all__ = ["feature_attention"]
+__all__ = ["feature_attention", "feature_fold"]

@@ -9,10 +9,17 @@ the reweighting (the paper's "combined with weight normalization"; see
 whatever the input dtype, cast back at the end.  The CPU path of the
 engine runs this; on the card it is the yardstick the CUDA kernel is
 held against.
+
+:func:`feature_fold_ref` is the plain version of the fused kernel: ASO-Fed's
+sequential server fold of one tick, one arrival at a time.
 """
 from __future__ import annotations
 
+from typing import Dict, Tuple
+
 import torch
+
+from repro_torch.common.pytree import tree_axpy, tree_map
 
 
 def feature_attention_ref(w: torch.Tensor, normalize: bool = True
@@ -29,3 +36,29 @@ def feature_attention_ref(w: torch.Tensor, normalize: bool = True
         norm_out = torch.sqrt((out * out).sum(dim=-1, keepdim=True))
         out = out * (norm_in / torch.clamp(norm_out, min=1e-12))
     return out.to(w.dtype)
+
+
+def feature_fold_ref(w: Dict[str, torch.Tensor],
+                     deltas: Dict[str, torch.Tensor], first: str,
+                     n: torch.Tensor, idx: torch.Tensor, n_vis: torch.Tensor,
+                     n_real: int, normalize: bool = True
+                     ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
+                                Dict[str, torch.Tensor]]:
+    """ASO-Fed's sequential fold of a tick's first ``n_real`` slots, in
+    arrival order: per arrival the count update, the weight n'_k / N',
+    the Eq. (4) axpy on every leaf and the feature pass on ``w[first]``
+    (rows over its last axis).  The same torch ops in the same order as
+    ``AsoFedStrategy.build_fold`` folded one arrival at a time, with the
+    received models stacked ``(S, ...)`` and slots past ``n_real`` a copy
+    of the last real one.  Returns (w', n', received)."""
+    received = []
+    for s in range(n_real):
+        n = n.index_copy(0, idx[s].reshape(1), n_vis[s].reshape(1))
+        weight = n_vis[s] / torch.clamp(n.sum(), min=1e-9)  # n'_k / N'
+        w = tree_axpy(-weight, tree_map(lambda u: u[s], deltas), w)
+        shape = w[first].shape
+        w[first] = feature_attention_ref(w[first].reshape(-1, shape[-1]),
+                                         normalize).reshape(shape)
+        received.append(w)
+    pad = (received[-1],) * (deltas[first].shape[0] - n_real)
+    return w, n, tree_map(lambda *rs: torch.stack(rs), *received, *pad)

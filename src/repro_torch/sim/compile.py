@@ -16,7 +16,10 @@ tel_row)``:
 3. fold the uploads into the server, either
    * **sequentially**, in arrival order, one arrival at a time — only the
      ``n_real`` real arrivals, which fill the first slots of the bucket
-     (the host knows how many, so no device value is read back); or
+     (the host knows how many, so no device value is read back) — or,
+     for a strategy with a fused tick fold (ASO-Fed with the feature
+     pass: ``kernels.feature_attention.ops.feature_fold``, one kernel
+     launch a tick on the card), that fold in one call; or
    * **associatively**, for a strategy with an affine fold form: the
      whole bucket's coefficient stream at once through
      ``kernels.linear_scan.ops.fold_prefix`` (the CUDA kernel on the
@@ -90,6 +93,8 @@ def tick_body(strategy, model, cfg_model, cfg, slots: Tuple[str, ...],
     local = strategy.build_local(model, cfg)
     fold = strategy.build_fold(model, cfg_model, cfg)
     affine = resolve_fold_affine(strategy, model, cfg_model, cfg, device)
+    fold_tick = (strategy.build_fold_tick(model, cfg_model, cfg)
+                 if fold is not None and affine is None else None)
     merge = strategy.build_merge(model, cfg)
     finalize = strategy.build_finalize(model, cfg)
     server_tel = (strategy.build_server_telemetry(model, cfg)
@@ -109,6 +114,10 @@ def tick_body(strategy, model, cfg_model, cfg, slots: Tuple[str, ...],
                             use_kernel=cfg.fold_kernel)
             server, received = unfold(server, h, aux, uploads, idx, n_vis,
                                       t_arr, mask)
+            cohort = merge(cohort, received)
+        elif fold_tick is not None and n_real:
+            server, received = fold_tick(server, uploads, idx, n_vis, t_arr,
+                                         n_real)
             cohort = merge(cohort, received)
         elif fold is not None and n_real:
             received = []

@@ -140,6 +140,9 @@ class Strategy:
       :meth:`telemetry_slots` to a (P,) tensor
     * fold(server, upload, idx, n_vis, t_arr) -> (server', received)
       for ONE arrival (``idx``/``n_vis``/``t_arr`` are 0-d tensors)
+    * fold_tick(server, uploads, idx, n_vis, t_arr, n_real)
+          -> (server', received)   (optional: the whole sequential fold
+      of a tick, received stacked over the P slots)
     * merge(state, received) -> state   (post-fold download, stacked)
     * finalize(server) -> server        (sync barrier, e.g. FedAvg average)
     """
@@ -183,6 +186,15 @@ class Strategy:
         raise NotImplementedError
 
     def build_fold(self, model, cfg_model, cfg: RunConfig):
+        return None
+
+    def build_fold_tick(self, model, cfg_model, cfg: RunConfig):
+        """Optional fused form of the sequential fold: None declines (the
+        engine folds one arrival at a time with :meth:`build_fold`), else
+        ``(server, uploads, idx, n_vis, t_arr, n_real) -> (server',
+        received)`` folding the tick's first ``n_real`` slots in order,
+        exactly as that loop does, with ``received`` stacked over all P
+        slots and each padded slot a copy of the last real one."""
         return None
 
     def build_fold_affine(self, model, cfg_model, cfg: RunConfig):
