@@ -19,7 +19,16 @@ drives the port's paths through its entry points:
   (K3) once per layer of the prefill: fp32 (K3's CUDA-core design);
 * ``serve_path_bf16``: the same serve with the seed-0 weights drawn in
   bf16 (``Model.init(..., dtype=torch.bfloat16)``), which runs K3's
-  tensor-core (wgmma) design once per layer of the prefill.
+  tensor-core (wgmma) design once per layer of the prefill;
+* ``oracle_path``: the port's per-arrival oracles
+  (``repro_torch.sim.reference``) at main_path's shape, each held
+  against the engine on the card; ASO-Fed's folds through
+  ``core.server.aggregate``, one per-row K1 launch a fold;
+* ``sweep_path``: Local-S and Global (the sweep schedule) at main_path's
+  fleet, 16 rounds, and one profiled run each;
+* ``paper_rows``: the eight rows of the paper's Table 5.1 on the
+  Air-Quality-like data through ``repro_torch.core.run``, at
+  ``benchmarks/paper_tables.py``'s default (quick-mode) settings.
 
 Before the paths, ``fold_vs_plain`` holds ``feature_fold`` against its
 plain version (the per-arrival loop) and times it beside the per-arrival
@@ -459,19 +468,28 @@ def phase_fold_vs_plain():
     return out
 
 
-def _main_path_run(T: int, stats: dict, alg: str = "asofed",
-                   trace=None, **cfg_kw):
-    """One run at the main path's shape: lstm_regression at hidden
-    MAIN_HIDDEN, MAIN_CLIENTS clients, batch 32, E=2, window 32, seed 0."""
-    from repro_torch.core.algorithms import get_strategy
-    from repro_torch.sim.engine import run_strategy
+def _main_setup(T: int, **cfg_kw):
+    """(model, cfg_model, clients, cfg) at the main path's shape:
+    lstm_regression at hidden MAIN_HIDDEN, MAIN_CLIENTS clients, batch
+    32, E=2, window 32, seed 0."""
     from repro_torch.sim.workloads import get_workload
 
     wl = get_workload("lstm_regression")
     cfg_model, model = wl.build(hidden=MAIN_HIDDEN)
     clients = wl.make_clients(MAIN_CLIENTS, seed=0)
-    cfg = wl.run_config(T=T, batch_size=32, local_epochs=2,
-                        eval_every=256, window=32, seed=0, **cfg_kw)
+    cfg = wl.run_config(**{"T": T, "batch_size": 32, "local_epochs": 2,
+                           "eval_every": 256, "window": 32, "seed": 0,
+                           **cfg_kw})
+    return model, cfg_model, clients, cfg
+
+
+def _main_path_run(T: int, stats: dict, alg: str = "asofed",
+                   trace=None, **cfg_kw):
+    """One run through the engine at the main path's shape."""
+    from repro_torch.core.algorithms import get_strategy
+    from repro_torch.sim.engine import run_strategy
+
+    model, cfg_model, clients, cfg = _main_setup(T, **cfg_kw)
     t0 = time.perf_counter()
     hist = run_strategy(get_strategy(alg), model, cfg_model, clients,
                         cfg, stats=stats, trace=trace)
@@ -682,6 +700,220 @@ def phase_profile(alg: str = "asofed", **cfg_kw):
                                         "linear_scan_channels"))})
 
 
+# ---------------------------------------------------------------------------
+# The per-arrival oracles, the sweep baselines and the paper's table rows
+# ---------------------------------------------------------------------------
+
+# oracle_path at main_path's shape, depth cut per strategy: (strategy,
+# oracle, T, oracle kwargs).  ASO-Fed folds 128 arrivals; FedAvg's T
+# counts rounds of ~51 participants, one eager local round each (32
+# rounds took 136 s on one H100 host)
+ORACLE_RUNS = [("asofed", "asofed", 128, {}),
+               ("fedasync", "fedasync", 32, {}),
+               ("fedbuff", "fedbuff", 32, {}),
+               ("fedavg", "fedavg", 2, {"prox_mu": 0.0})]
+# sweep_path: Local-S and Global at main_path's fleet for SWEEP_T rounds;
+# the profiled run takes SWEEP_PROFILE_T (profiling 16 rounds made the
+# phase 65 s on one H100 host, of which the runs took 9 s)
+SWEEP_T, SWEEP_PROFILE_T = 16, 4
+# paper_rows: benchmarks/paper_tables.py's Table 5.1 on the
+# Air-Quality-like data in its default (quick) mode (copied here: this
+# script imports nothing of benchmarks/): _data_for, _model_for, _run_cfg
+# and _dispatch.  Full mode (n_per 300, 6000 simulated s, eval every
+# 100) took 152 s of this script on one H100 host.
+PAPER_ALGS = ["asofed", "asofed_d", "asofed_f", "fedavg", "fedprox",
+              "fedasync", "local", "global"]
+PAPER_SYNC = ("fedavg", "fedprox", "local", "global")
+PAPER_N_PER = 150
+PAPER_CFG = dict(T=100000, sim_time_budget=1600.0, batch_size=16,
+                 local_epochs=2, eta=0.03, lam=1.0, beta=0.001,
+                 task="regression", eval_every=200, seed=0,
+                 participation=0.2)
+
+
+def _compare_to_oracle(trace, traj, tag: str) -> float:
+    """An engine trace against an oracle's {t: weights} at every tick
+    boundary the engine recorded (the last one the oracle's last)."""
+    if not trace or trace[-1][0] != max(traj) or any(
+            t not in traj for t, _ in trace):
+        raise AssertionError(f"{tag}: engine boundaries "
+                             f"{[t for t, _ in trace]} not all in the "
+                             f"oracle's 1..{max(traj)}")
+    return _compare(trace, [(t, traj[t]) for t, _ in trace], tag)
+
+
+def phase_oracle_path():
+    """The port's per-arrival oracles on the card, each held against the
+    engine on the card at the same settings.  ASO-Fed's oracle folds
+    through ``core.server.aggregate``: one per-row K1 launch a fold;
+    the engine's run launches ``feature_fold`` once a tick and the
+    per-row K1 never."""
+    from repro_torch.core.algorithms import get_strategy
+    from repro_torch.sim import reference
+    from repro_torch.sim.engine import run_strategy
+
+    phase_t0 = time.perf_counter()
+    k1_oracle = 0
+    for alg, name, T, kw in ORACLE_RUNS:
+        model, cfg_model, clients, cfg = _main_setup(T)
+        ostats = {}
+        _reset_launches()
+        t0 = time.perf_counter()
+        traj = getattr(reference, f"run_{name}_reference")(
+            model, cfg_model, clients, cfg, stats=ostats, device=DEV, **kw)
+        torch.cuda.synchronize()
+        o_wall = time.perf_counter() - t0
+        k1, k2 = _launches()
+        fold = _fold_launches()
+        model, cfg_model, clients, cfg = _main_setup(T)
+        estats, trace = {}, []
+        _reset_launches()
+        t0 = time.perf_counter()
+        hist = run_strategy(get_strategy(alg), model, cfg_model, clients,
+                            cfg, stats=estats, trace=trace, device=DEV)
+        e_wall = time.perf_counter() - t0
+        ek1, ek2 = _launches()
+        efold = _fold_launches()
+        _finite(hist)
+        folds = ostats["iters"]
+        want_k1 = folds if alg == "asofed" else 0
+        want_efold = estats["ticks"] if alg == "asofed" else 0
+        if (k1, k2, fold, ek1, ek2, efold) != (want_k1, 0, 0, 0, 0,
+                                               want_efold) \
+                or folds != T or estats["iters"] != T:
+            raise AssertionError(
+                f"oracle path {alg}: the oracle made {folds} folds with "
+                f"{k1} per-row K1 launches (expected {want_k1}), K2 {k2}, "
+                f"feature_fold {fold}; the engine ({estats['iters']} iters, "
+                f"{estats['ticks']} ticks) made K1 {ek1}, K2 {ek2}, "
+                f"feature_fold {efold} (expected {want_efold})")
+        worst = _compare_to_oracle(trace, traj, f"{alg} engine vs oracle")
+        if alg == "asofed":
+            k1_oracle = k1
+        emit({"phase": "oracle_path", "strategy": alg,
+              "workload": "lstm_regression", "hidden": MAIN_HIDDEN,
+              "clients": MAIN_CLIENTS, "T": T, "batch_size": 32,
+              "local_epochs": 2, "oracle_iters": folds,
+              "oracle_wall_s": o_wall, "oracle_iters_per_s": folds / o_wall,
+              "engine_iters": estats["iters"],
+              "engine_ticks": estats["ticks"], "engine_wall_s": e_wall,
+              "engine_iters_per_s": estats["iters"] / e_wall,
+              "engine_over_oracle": o_wall / e_wall,
+              "engine_traced": True, "engine_device_s": estats["device_s"],
+              "oracle_feature_kernel_launches": k1,
+              "engine_feature_kernel_launches": ek1,
+              "engine_feature_fold_launches": efold,
+              "shared_boundaries": len(trace), "max_abs_diff": worst,
+              "atol": TRAJ_ATOL, "rtol": TRAJ_RTOL,
+              "oracle_staleness_mean": ostats.get("staleness_mean")})
+    emit({"phase": "oracle_path_total",
+          "wall_s": time.perf_counter() - phase_t0})
+    return k1_oracle
+
+
+def phase_sweep_path():
+    """Local-S and Global on the sweep schedule at main_path's fleet:
+    rounds/s, device and host time, peak memory, then one shorter
+    profiled run each.  Neither has a server fold, so no kernel of the port runs."""
+    phase_t0 = time.perf_counter()
+    for alg in ("local", "global"):
+        _main_path_run(2, {}, alg)  # warm-up at this strategy's shapes
+        stats = {}
+        _reset_launches()
+        hist, wall, cfg_model = _main_path_run(SWEEP_T, stats, alg,
+                                               eval_every=SWEEP_T // 2)
+        k1, k2 = _launches()
+        k1 += _fold_launches()
+        _finite(hist)
+        if stats["iters"] != SWEEP_T or (k1, k2) != (0, 0) \
+                or len(hist) != 2:
+            raise AssertionError(
+                f"sweep path {alg}: {stats['iters']} rounds of {SWEEP_T}, "
+                f"{len(hist)} evals, K1 {k1}, K2 {k2} (expected 0, 0)")
+        final = hist[-1].metrics
+        emit({"phase": "sweep_path", "strategy": alg,
+              "workload": "lstm_regression", "hidden": cfg_model.hidden,
+              "clients": MAIN_CLIENTS, "rounds": stats["iters"],
+              "batch_size": 32, "local_epochs": 2, "wall_s": wall,
+              "rounds_per_s": stats["iters"] / wall,
+              "device_s": stats["device_s"],
+              "host_build_s": stats["host_build_s"],
+              "eval_s": stats["eval_s"],
+              "peak_device_bytes": stats["peak_device_bytes"],
+              "stacked_state_bytes": stats["stacked_state_bytes"],
+              "folds_per_tick_mean": stats.get("folds_per_tick_mean"),
+              "smape": final["smape"], "mae": final["mae"]})
+        pstats = {}
+        (_, pwall, _), _, per = _device_profile(
+            lambda: _main_path_run(SWEEP_PROFILE_T, pstats, alg,
+                                   eval_every=SWEEP_PROFILE_T // 2))
+        emit({"phase": "sweep_profile", "strategy": alg,
+              "rounds": SWEEP_PROFILE_T, "wall_s": pwall,
+              **_profile_record(per, pwall, ())})
+    emit({"phase": "sweep_path_total",
+          "wall_s": time.perf_counter() - phase_t0})
+
+
+def phase_paper_rows():
+    """The eight rows of the paper's Table 5.1 on the Air-Quality-like
+    data through ``repro_torch.core.run``, as
+    ``benchmarks/paper_tables.py`` runs them in its default mode."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import RunConfig, make_sim_clients, run
+    from repro_torch.data import airquality_like
+    from repro_torch.models import build_model
+
+    cfg_model = dataclasses.replace(get_arch("paper-lstm"), in_features=8,
+                                    out_features=1, hidden=32)
+    model = build_model(cfg_model)
+    base_cfg = RunConfig(**PAPER_CFG)
+    phase_t0 = time.perf_counter()
+    per_iter = {}
+    for alg in PAPER_ALGS:
+        cfg, base = base_cfg, alg
+        if alg == "asofed_d":
+            cfg, base = dataclasses.replace(cfg, dynamic_lr=False), "asofed"
+        elif alg == "asofed_f":
+            cfg = dataclasses.replace(cfg, feature_learning=False)
+            base = "asofed"
+        if base in PAPER_SYNC:
+            cfg = dataclasses.replace(cfg, T=150, eval_every=20)
+        clients = make_sim_clients(
+            airquality_like(n_clients=9, n_per=PAPER_N_PER), seed=0)
+        stats = {}
+        _reset_launches()
+        t0 = time.perf_counter()
+        hist = run(base, model, cfg_model, clients, cfg, stats=stats)
+        wall = time.perf_counter() - t0
+        k1, k2 = _launches()
+        _finite(hist)
+        if not hist:
+            raise AssertionError(f"paper rows: {alg} evaluated no point")
+        last = hist[-1]  # the row's Table 5.1 entry, as paper_tables.py
+        per_iter[alg] = stats["sim_time"] / stats["iters"]
+        emit({"phase": "paper_rows", "row": alg, "strategy": base,
+              "dataset": f"airquality_like(n_clients=9, "
+                         f"n_per={PAPER_N_PER})",
+              "hidden": 32, "T": cfg.T, "sim_time_budget":
+              cfg.sim_time_budget, "iters": stats["iters"],
+              "sim_time": stats["sim_time"], "ticks": stats["ticks"],
+              "last_eval_iter": last.global_iter,
+              "last_eval_sim_time": last.sim_time,
+              "sim_s_per_iter": per_iter[alg], "wall_s": wall,
+              "iters_per_s": stats["iters"] / wall,
+              "device_s": stats["device_s"], "evals": len(hist),
+              "mae": last.metrics["mae"], "smape": last.metrics["smape"],
+              "feature_fold_launches": _fold_launches(),
+              "feature_kernel_launches": k1, "scan_kernel_launches": k2})
+    emit({"phase": "paper_rows_total",
+          "wall_s": time.perf_counter() - phase_t0})
+    if not per_iter["asofed"] < per_iter["fedavg"]:
+        raise AssertionError(
+            f"paper rows: asofed's simulated time per iteration "
+            f"{per_iter['asofed']} is not below fedavg's "
+            f"{per_iter['fedavg']}")
+
+
 # the affine strategies at small width: (strategy, config overrides, T)
 AFFINE = [("fedasync", {}, 60), ("fedbuff", {"buffer_size": 3}, 60),
           ("asofed", {"feature_learning": False}, 60),
@@ -733,6 +965,8 @@ def phase_card_vs_cpu():
              for alg, over, T in AFFINE]
     runs += [("cnn_classification", 30, "fedasync",
               {"fold_mode": "associative"})]
+    # the sweep baselines (T counts rounds)
+    runs += [("lstm_regression", 10, alg, {}) for alg in ("local", "global")]
     for name, T, alg, kw in runs:
         _, tr_gpu = _small_run(name, T, "cuda", alg, **kw)
         _, tr_cpu = _small_run(name, T, "cpu", alg, **kw)
@@ -1137,7 +1371,8 @@ def phase_serve_card_vs_cpu():
 # the dense serve phases, which --only can run alone
 SERVE_PHASES = ("flash_vs_plain", "serve_path", "serve_path_bf16")
 # the phases --only can run alone (after the build), in this order
-ONLY_PHASES = ("main_path", "assoc_path") + SERVE_PHASES
+ONLY_PHASES = ("main_path", "assoc_path", "oracle_path", "sweep_path",
+               "paper_rows") + SERVE_PHASES
 
 
 def serve_phases(names):
@@ -1174,7 +1409,8 @@ def _flash_entry(name, rec, launches, by_path, design):
         "dtype": rec["dtype"].split(".")[-1],
         "design_source": "src/repro_torch/kernels/flash_attention/csrc/"
                          + design,
-        "launches_by_path": {"main_path": 0, "assoc_path": 0, **by_path}}
+        "launches_by_path": {"main_path": 0, "assoc_path": 0,
+                             "oracle_path": 0, "sweep_path": 0, **by_path}}
 
 
 def main(argv=None) -> int:
@@ -1212,6 +1448,12 @@ def main(argv=None) -> int:
             phase_main_path()
         if "assoc_path" in only:
             phase_assoc_path()
+        if "oracle_path" in only:
+            phase_oracle_path()
+        if "sweep_path" in only:
+            phase_sweep_path()
+        if "paper_rows" in only:
+            phase_paper_rows()
         serve_phases(only)
         print(card_line(), flush=True)
         emit({"ok": True, "only": only, "device": {
@@ -1226,6 +1468,9 @@ def main(argv=None) -> int:
     phase_profile()
     scan_launches = phase_assoc_path()
     phase_profile("fedasync", fold_mode="associative")
+    k1_oracle = phase_oracle_path()
+    phase_sweep_path()
+    phase_paper_rows()
     phase_card_vs_cpu()
     fv, flash_launches, flash_launches_bf16 = serve_phases(SERVE_PHASES)
     phase_serve_card_vs_cpu()
@@ -1250,18 +1495,21 @@ def main(argv=None) -> int:
         "shape": {"S": fold_rec["S"], "n_real": fold_rec["n_real"],
                   "leaves": fold_rec["leaves"]},
         "launches_by_path": {"main_path": launches, "assoc_path": 0,
+                             "oracle_path": 0, "sweep_path": 0,
                              "serve_path": 0, "serve_path_bf16": 0}}, {
-        # the per-row K1, held against its plain version; no path of this
-        # script reaches it now (apply_feature_learning on a CUDA tensor)
+        # the per-row K1 at the first layer's shape (8, 256), held against
+        # its plain version; oracle_path reaches it once a fold
+        # (core.server.aggregate -> apply_feature_learning)
         "name": "feature_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/feature_attention/csrc/"
                   "feature_attention.cu",
         "replaces": "src/repro/kernels/feature_attention/kernel.py:38",
-        "launches": 0, "max_abs_err": main_rec["max_abs_err"],
+        "launches": k1_oracle, "max_abs_err": main_rec["max_abs_err"],
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
         "library_ms": None,
         "launches_by_path": {"main_path": 0, "assoc_path": 0,
+                             "oracle_path": k1_oracle, "sweep_path": 0,
                              "serve_path": 0, "serve_path_bf16": 0}}, {
         "name": "linear_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
@@ -1272,6 +1520,7 @@ def main(argv=None) -> int:
         "library_ms": scan_rec["library_ms"],
         "library": scan_rec["library"], "shape": scan_rec["shape"],
         "launches_by_path": {"main_path": 0, "assoc_path": scan_launches,
+                             "oracle_path": 0, "sweep_path": 0,
                              "serve_path": 0, "serve_path_bf16": 0}},
         # K3 at the serve path's shape, N(0, 1) inputs: the fp32 design
         # on serve_path, the bf16 (tensor-core) design on serve_path_bf16

@@ -1,8 +1,8 @@
 """Algorithm strategy objects for the port's cohort engine.
 
-The port carries ASO-Fed, FedAsync, FedBuff, FedAvg and FedProx; the
-Local / Global sweep baselines of ``repro.core.algorithms`` are still to
-port.
+Each strategy supplies only the local-update and aggregation rules of one
+algorithm; the shared scheduling / eval / history plumbing lives in
+``repro_torch.sim.engine``.  The same seven as ``repro.core.algorithms``.
 """
 from __future__ import annotations
 
@@ -12,25 +12,29 @@ from repro_torch.core.algorithms.asofed import AsoFedStrategy
 from repro_torch.core.algorithms.fedasync import FedAsyncStrategy
 from repro_torch.core.algorithms.fedavg import FedAvgStrategy, FedProxStrategy
 from repro_torch.core.algorithms.fedbuff import FedBuffStrategy
+from repro_torch.core.algorithms.local_global import (GlobalStrategy,
+                                                      LocalStrategy)
 from repro_torch.sim.engine import Strategy
 
 STRATEGIES: Dict[str, Type[Strategy]] = {
     "asofed": AsoFedStrategy,
-    "fedasync": FedAsyncStrategy,
-    "fedbuff": FedBuffStrategy,
     "fedavg": FedAvgStrategy,
     "fedprox": FedProxStrategy,
+    "fedasync": FedAsyncStrategy,
+    "fedbuff": FedBuffStrategy,
+    "local": LocalStrategy,
+    "global": GlobalStrategy,
 }
 
 
 def get_strategy(name: str) -> Strategy:
+    """A fresh strategy object; raises ``KeyError`` for an unknown name."""
     if name not in STRATEGIES:
         raise KeyError(
-            f"strategy {name!r} is not ported yet; the port has "
-            f"{sorted(STRATEGIES)}")
+            f"unknown strategy {name!r}; the port has {sorted(STRATEGIES)}")
     return STRATEGIES[name]()
 
 
 __all__ = ["Strategy", "STRATEGIES", "get_strategy", "AsoFedStrategy",
-           "FedAsyncStrategy", "FedBuffStrategy", "FedAvgStrategy",
-           "FedProxStrategy"]
+           "FedAvgStrategy", "FedProxStrategy", "FedAsyncStrategy",
+           "FedBuffStrategy", "LocalStrategy", "GlobalStrategy"]

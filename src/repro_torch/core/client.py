@@ -11,7 +11,8 @@ Per received central model w^t the client computes
 with the dynamic step multiplier r_k^t = max(1, log(mean past delay)).
 The cohort engine keeps one :class:`ClientState` whose tensors are
 stacked over a leading client axis; every function here works on that
-stacked form (scalars become ``(P,)`` vectors).
+stacked form (scalars become ``(P,)`` vectors) and on one client's state
+(the per-arrival oracles, ``repro_torch.sim.reference``).
 """
 from __future__ import annotations
 
@@ -20,7 +21,9 @@ from typing import Callable, Dict, Tuple, Union
 
 import torch
 
-from repro_torch.common.pytree import Tree, tree_repeat, tree_zeros_like
+from repro_torch.common.pytree import (Tree, tree_axpy, tree_map,
+                                       tree_repeat, tree_sub,
+                                       tree_zeros_like)
 
 
 @dataclasses.dataclass
@@ -85,3 +88,51 @@ def surrogate_grad(loss_fn: Callable, params: Tree, server_params: Tree,
     g = {k: gi + lam * (params[k] - server_params[k])
          for k, gi in zip(p, grads)}
     return g, loss.detach(), metrics
+
+
+def client_step(loss_fn: Callable, state: ClientState, batch, *, lam: float,
+                beta: float, eta: float, delay, new_samples=0.0,
+                use_dynamic_lr: bool = True) -> Tuple[ClientState, Dict]:
+    """One ASO-Fed local round.  Returns (new_state, metrics).
+
+    ``delay`` is the observed communication+compute delay for this round
+    (drives the dynamic step size); ``new_samples`` is the online growth
+    of the local dataset before this round.
+    """
+    g, loss, metrics = surrogate_grad(loss_fn, state.params,
+                                      state.server_params, batch, lam)
+    # Eq. (8): variance-corrected direction
+    zeta = tree_map(lambda gs, vp, hp: gs - vp + hp, g, state.v, state.h)
+    dev = state.delay_sum.device
+    delay = torch.as_tensor(delay, dtype=torch.float32, device=dev)
+    if use_dynamic_lr:
+        r = dynamic_multiplier(state.delay_sum, state.rounds, delay)
+    else:
+        r = torch.ones((), dtype=torch.float32, device=dev)
+    step = r * eta
+    new_params = tree_axpy(-step, zeta, state.params)
+    # Eq. (9) / line 15-16: slot updates with the *previous* v
+    new_h = tree_map(lambda hp, vp: beta * hp + (1.0 - beta) * vp,
+                     state.h, state.v)
+    new_state = ClientState(
+        params=new_params, server_params=state.server_params, h=new_h, v=g,
+        delay_sum=state.delay_sum + delay, rounds=state.rounds + 1.0,
+        n_samples=state.n_samples + torch.as_tensor(
+            new_samples, dtype=torch.float32, device=dev),
+    )
+    out = dict(metrics)
+    out.update({"loss": loss, "r_mult": r, "step": step})
+    return new_state, out
+
+
+def receive_server_model(state: ClientState, server_params: Tree
+                         ) -> ClientState:
+    """Client pulls the latest central model (starts its next local round
+    from it, per Fig. 2: clients keep their own copy of w)."""
+    return dataclasses.replace(state, params=server_params,
+                               server_params=server_params)
+
+
+def local_delta(state_before: ClientState, state_after: ClientState) -> Tree:
+    """w_k^t - w_k^{t+1} — what the server folds in (Eq. 4)."""
+    return tree_sub(state_before.params, state_after.params)

@@ -10,6 +10,7 @@ from repro_torch.sim.engine import (
     RunConfig,
     Strategy,
     run_strategy,
+    stack_batches,
 )
 from repro_torch.sim.evaluation import Evaluator
 from repro_torch.sim.prefetch import (
@@ -25,7 +26,13 @@ from repro_torch.sim.profiles import (
     make_profiles,
     make_sim_clients,
 )
-from repro_torch.sim.scheduler import Arrival, AsyncScheduler, draw_dropouts
+from repro_torch.sim.scheduler import (
+    Arrival,
+    AsyncScheduler,
+    SweepScheduler,
+    SyncScheduler,
+    draw_dropouts,
+)
 from repro_torch.sim.streaming import OnlineStream
 from repro_torch.sim.telemetry import TelemetryLog, TickRecord
 from repro_torch.sim.workloads import (
@@ -34,12 +41,25 @@ from repro_torch.sim.workloads import (
     get_workload,
     resolve_eval_report,
 )
+from repro_torch.sim.traces import (
+    AvailabilityTrace,
+    diurnal,
+    flash_crowd,
+    load_jsonl,
+    markov_churn,
+    save_jsonl,
+    scenario_traces,
+    straggler_waves,
+    utilization,
+    with_traces,
+)
 
 __all__ = [
     "HistoryPoint",
     "RunConfig",
     "Strategy",
     "run_strategy",
+    "stack_batches",
     "Evaluator",
     "PreparedTick",
     "TickBuilder",
@@ -52,6 +72,8 @@ __all__ = [
     "make_sim_clients",
     "Arrival",
     "AsyncScheduler",
+    "SweepScheduler",
+    "SyncScheduler",
     "draw_dropouts",
     "OnlineStream",
     "TelemetryLog",
@@ -60,4 +82,14 @@ __all__ = [
     "Workload",
     "get_workload",
     "resolve_eval_report",
+    "AvailabilityTrace",
+    "diurnal",
+    "flash_crowd",
+    "load_jsonl",
+    "markov_churn",
+    "save_jsonl",
+    "scenario_traces",
+    "straggler_waves",
+    "utilization",
+    "with_traces",
 ]

@@ -152,8 +152,10 @@ def window_fn(strategy, model, cfg_model, cfg, slots: Tuple[str, ...],
     """``(stacked, server, pt) -> (stacked, server, tel)`` for one staged
     block.  ``windowed`` (async schedule): the real ticks of ``pt`` in
     order (fully-masked padding ticks of the ``[T_w]`` axis are skipped),
-    with a ``[n_ticks, n_slots]`` telemetry block.  Otherwise (sync
-    rounds) ``pt`` is one tick with no window axis."""
+    with a ``[n_ticks, n_slots]`` telemetry block.  Otherwise (sync and
+    sweep rounds) ``pt`` is one tick with no window axis; a sweep round
+    has no fold, and its ``folds_per_tick`` slot counts the round's
+    members (K for Local-S, 1 for Global)."""
     tick = tick_body(strategy, model, cfg_model, cfg, slots, server_slots,
                      device)
     if not windowed:

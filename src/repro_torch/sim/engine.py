@@ -1,7 +1,7 @@
 """Cohort engine of the port: ``run_strategy``.
 
 Counterpart of ``repro.sim.engine`` for the part the port covers: the
-asynchronous and synchronous schedules, the sequential and associative
+asynchronous, synchronous and sweep schedules, the sequential and associative
 server folds, the stacked client state resident on the device, the
 identity state and upload codecs, no faults or admission guards, one
 device.  The host layer — schedulers, streams, staging buffers, prefetch
@@ -16,7 +16,9 @@ of ``RunConfig.window`` ticks: the producer stages a whole window in one
 block and transfers it once; the consumer runs the window's ticks in
 order (``repro_torch.sim.compile``), each at the shape bucket it would
 ride alone, so window size and prefetch never change a bit of the
-trajectory.  The sync engine runs one tick per round (FedAvg/FedProx).
+trajectory.  The sync engine runs one tick per round (FedAvg/FedProx);
+the sweep engine one tick per round over every client (Local-S) or over
+one pooled member (Global).
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``): with no card present ``run_strategy`` raises instead
@@ -28,19 +30,22 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import (Any, Dict, List, Mapping, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.common.pytree import tree_leaves, tree_stack
+from repro_torch.common.pytree import tree_leaves, tree_map, tree_stack
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.sim import compile as compile_lib
 from repro_torch.sim.evaluation import Evaluator
 from repro_torch.sim.prefetch import TickBuilder, TickPrefetcher, bucket_size
 from repro_torch.sim.profiles import SimClient
-from repro_torch.sim.scheduler import AsyncScheduler, SyncScheduler
+from repro_torch.sim.scheduler import (AsyncScheduler, SweepScheduler,
+                                       SyncScheduler)
+from repro_torch.sim.streaming import OnlineStream
 from repro_torch.sim.telemetry import TelemetryLog, split_at_evals
 from repro_torch.sim.traces import utilization as availability_utilization
 from repro_torch.sim.workloads import resolve_eval_report
@@ -148,9 +153,13 @@ class Strategy:
     """
 
     name: str = "base"
-    schedule: str = "async"  # "async" | "sync" ("sweep" is not ported)
+    schedule: str = "async"  # "async" | "sync" | "sweep"
     uses_dropout: bool = True
-    pooled: bool = False  # Global baseline (not ported): pooled data
+    pooled: bool = False  # Global baseline: one virtual member, pooled data
+    eval_per_client: bool = False  # Local baseline: per-client eval params
+    # Local baseline: every client starts from its own draw, so
+    # run_strategy's init_params is one mapping per client
+    per_client_init: bool = False
     # whether build_fold_affine stays exact under duplicate / rejected
     # arrivals (the chaos layer, not ported yet)
     fold_affine_supports_faults: bool = True
@@ -221,8 +230,56 @@ class Strategy:
     def server_broadcast(self, server):
         return server
 
-    def eval_params(self, server):
+    def eval_params(self, server, stacked_clients=None):
+        """Params to evaluate: the central model, or, for a strategy with
+        ``eval_per_client`` or ``pooled``, taken from the member rows of
+        the stacked client state (the engine passes them only then, so a
+        strategy may keep the one-argument form)."""
         return server["w"]
+
+    def pooled_batches(self, clients, t: int, cfg: RunConfig):
+        """``(xs, ys)`` of the pooled member's round (Global only)."""
+        raise NotImplementedError
+
+
+# ---------------------------------------------------------------------------
+# Host-side batch construction (numpy, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+
+def pad_batch(x: np.ndarray, y: np.ndarray, size: int,
+              template_x: np.ndarray, template_y: np.ndarray
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """Force (x, y) to exactly ``size`` rows.
+
+    Short draws are padded by cycling the drawn rows (``np.resize``); an
+    *empty* draw (a client whose visible window is empty) yields all-zero
+    rows.  ``template_*`` supply the row shape/dtype for the empty case.
+    """
+    if len(x) == 0:
+        return (np.zeros((size,) + template_x.shape[1:], template_x.dtype),
+                np.zeros((size,) + template_y.shape[1:], template_y.dtype))
+    if len(x) < size:
+        x = np.resize(x, (size,) + x.shape[1:])
+        y = np.resize(y, (size,) + y.shape[1:])
+    return x[:size], y[:size]
+
+
+def stack_batches(stream: OnlineStream, t: int, batch_size: int,
+                  n_steps: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(n_steps, batch_size, ...) minibatches from one client's stream.
+
+    Consumes the same rng draws as ``OnlineStream.batch_into`` — the
+    engine's staging-buffer path and this allocating path are
+    interchangeable without perturbing the trajectory.
+    """
+    xs, ys = [], []
+    for _ in range(n_steps):
+        x, y = pad_batch(*stream.batch(t, batch_size), batch_size,
+                         stream.x, stream.y)
+        xs.append(x)
+        ys.append(y)
+    return np.stack(xs), np.stack(ys)
 
 
 # ---------------------------------------------------------------------------
@@ -238,9 +295,9 @@ def _check_slice(strategy: Strategy, cfg: RunConfig,
         raise ValueError(
             f"{knob}={value!r} is not ported yet (the port runs {accepted})")
 
-    if strategy.schedule not in ("async", "sync"):
+    if strategy.schedule not in ("async", "sync", "sweep"):
         refuse("strategy.schedule", strategy.schedule,
-               "'async' and 'sync' strategies")
+               "'async', 'sync' and 'sweep' strategies")
     if cfg.state_residency != "device":
         refuse("state_residency", cfg.state_residency,
                "state_residency='device'")
@@ -284,7 +341,8 @@ def run_strategy(
     checkpoint_path: Optional[str] = None,
     resume_from: Optional[str] = None,
     device=None,
-    init_params: Optional[Mapping[str, Any]] = None,
+    init_params: Union[Mapping[str, Any], Sequence[Mapping[str, Any]],
+                       None] = None,
 ) -> List[HistoryPoint]:
     """Run one algorithm through the port's cohort engine.
 
@@ -292,7 +350,9 @@ def run_strategy(
     covers.  ``device`` is the run's device (None: the CUDA card).
     ``init_params`` (a name -> array mapping, e.g. the JAX package's
     ``w0`` as numpy) replaces the seeded draw of the starting weights, so
-    a test can start both engines from the same ``w0``.  ``trace``, when
+    a test can start both engines from the same ``w0``; for a strategy
+    whose clients start from their own draws (Local-S) it is a sequence
+    of K such mappings, one per client in cid order.  ``trace``, when
     a list, receives ``(t, {name: numpy server weight})`` after every
     window; ``stats``, when a dict, is filled with the run's counters and
     per-phase wall times; ``telemetry`` receives one record per tick.
@@ -314,13 +374,32 @@ def run_strategy(
     max_cohort = max_cohort if max_cohort is not None else cfg.max_cohort
     W = max(1, int(window if window is not None else cfg.window))
 
-    if init_params is not None:
+    starts = None  # per-client starting weights (Local-S)
+    if init_params is None:
+        w0 = model.init(torch.Generator().manual_seed(cfg.seed), device=dev)
+    elif isinstance(init_params, Mapping):
+        if strategy.per_client_init:
+            raise ValueError(
+                f"init_params: strategy {strategy.name!r} starts every "
+                "client from its own draw (seed + cid), so it takes a "
+                f"sequence of {K} per-client mappings, not one mapping")
         w0 = params_from_numpy(init_params, device=dev)
     else:
-        w0 = model.init(torch.Generator().manual_seed(cfg.seed), device=dev)
-    # identity upload codec: one arrival transmits the fp32 delta
+        if not strategy.per_client_init:
+            raise ValueError(
+                f"init_params: strategy {strategy.name!r} starts every "
+                "client from one w0, so it takes one mapping, not a "
+                "sequence of per-client mappings")
+        if len(init_params) != K:
+            raise ValueError(f"init_params: {len(init_params)} per-client "
+                             f"mappings for {K} clients")
+        starts = [params_from_numpy(p, device=dev) for p in init_params]
+        w0 = starts[0]
+    # identity upload codec: one arrival transmits the fp32 delta; the
+    # sweep baselines (Local-S, Global) upload nothing
     upload_bytes = float(sum(v.numel() * v.element_size()
-                             for v in w0.values()))
+                             for v in w0.values())) \
+        if strategy.schedule != "sweep" else 0.0
     client_slots = tuple(strategy.telemetry_slots(cfg))
     server_slots = tuple(strategy.server_telemetry_slots(cfg))
     # the engine-owned fold-depth slot rides between the two blocks
@@ -337,7 +416,7 @@ def run_strategy(
         )
         active = sched.active
         pad = max(1, min(max_cohort or len(active), max(len(active), 1)))
-    else:
+    elif strategy.schedule == "sync":
         sched = SyncScheduler(
             clients, seed=cfg.seed, dropout_frac=drop, skip_prob=skip,
             participation=cfg.participation, round_work=E * B,
@@ -345,25 +424,36 @@ def run_strategy(
         )
         active = sched.active
         pad = sched.m
-    scratch = K  # index of the scratch row targeted by padded slots
+    else:  # sweep
+        sched = SweepScheduler(clients)
+        active = sched.active
+        pad = 1 if strategy.pooled else K
+    # Global trains one virtual member on pooled batches
+    n_members = 1 if strategy.pooled else K
+    members = [None] if strategy.pooled else clients
+    scratch = n_members  # index of the scratch row targeted by padded slots
 
-    def _n0(c: SimClient) -> float:
-        return float(c.stream.visible(0))
+    def _n0(c: Optional[SimClient]) -> float:
+        return float(c.stream.visible(0)) if c is not None else 0.0
+
+    def _init_one(c: Optional[SimClient]):
+        if starts is None:
+            return strategy.init_client(model, cfg, w0, c)
+        return strategy.init_client(model, cfg, w0, c, start=starts[c.cid])
 
     init_batched = strategy.build_init_client(model, cfg)
     if init_batched is not None:
-        n0s = np.array([_n0(c) for c in clients] + [_n0(clients[0])],
+        n0s = np.array([_n0(c) for c in members] + [_n0(members[0])],
                        np.float32)
         stacked = init_batched(w0, torch.tensor(n0s, device=dev))
     else:
-        stacked = tree_stack(
-            [strategy.init_client(model, cfg, w0, c)
-             for c in clients + [clients[0]]])
+        stacked = tree_stack([_init_one(c) for c in members + [members[0]]])
     server = strategy.init_server(model, cfg_model, cfg, w0, clients, active)
     run_block = compile_lib.window_fn(strategy, model, cfg_model, cfg,
                                       client_slots, server_slots, dev,
                                       windowed=windowed)
-    evaluator = Evaluator(model, clients, eval_report, dev) \
+    evaluator = Evaluator(model, clients, eval_report, dev,
+                          per_client=strategy.eval_per_client) \
         if cfg.eval_every > 0 else None
     telem = telemetry if telemetry is not None else TelemetryLog(slots)
     if telem.slots != slots:
@@ -393,15 +483,21 @@ def run_strategy(
     device_s = 0.0
     eval_s = 0.0
     n_ticks, n_windows, t, sim_time = 0, 0, 0, 0.0
-    n_uploads = 0  # folded arrivals of the sync schedule
+    n_uploads = 0  # arrivals of the sync and sweep schedules
     t0 = time.perf_counter()
+
+    def eval_params():
+        if strategy.eval_per_client or strategy.pooled:
+            return strategy.eval_params(
+                server, tree_map(lambda x: x[:n_members], stacked))
+        return strategy.eval_params(server)
 
     def record(t: int, sim_time: float):
         nonlocal eval_s
         if evaluator is None:
             return
         e0 = time.perf_counter()
-        preds = evaluator.predict_device(strategy.eval_params(server))
+        preds = evaluator.predict_device(eval_params())
         pending_evals.append((t, sim_time, time.perf_counter() - t0, preds))
         eval_s += time.perf_counter() - e0
 
@@ -418,8 +514,10 @@ def run_strategy(
         n_windows += 1
 
     def snapshot():
-        return (t, {k: v.cpu().numpy()
-                    for k, v in strategy.eval_params(server).items()})
+        # a copy: per-client params are views of the stacked state, which
+        # later ticks overwrite in place
+        return (t, {k: v.cpu().numpy().copy()
+                    for k, v in eval_params().items()})
 
     use_prefetch = False
     if windowed:
@@ -502,25 +600,32 @@ def run_strategy(
             if isinstance(source, TickPrefetcher):
                 source.close()
     else:
+        sync = strategy.schedule == "sync"
         for t in range(1, cfg.T + 1):
-            if cfg.sim_time_budget and sim_time > cfg.sim_time_budget:
+            if sync and cfg.sim_time_budget \
+                    and sim_time > cfg.sim_time_budget:
                 break
             arrivals, round_time = sched.next_round(now=sim_time)
             if not arrivals:
-                if not np.isfinite(round_time):
-                    break  # fleet retired: no trace ever rejoins
-                # every participant skipped (round_time 0), or the whole
-                # fleet is off-window: the barrier still waits out the gap
-                # to the earliest rejoin edge
-                sim_time += round_time
+                if sync:
+                    if not np.isfinite(round_time):
+                        break  # fleet retired: no trace ever rejoins
+                    # every participant skipped (round_time 0), or the
+                    # whole fleet is off-window: the barrier still waits
+                    # out the gap to the earliest rejoin edge
+                    sim_time += round_time
                 continue
-            # advance=False: a sync round's telemetry stamp is the round
-            # index t itself, matching the eval history points
+            pooled = (strategy.pooled_batches(clients, t, cfg)
+                      if strategy.pooled else None)
+            if strategy.pooled:
+                arrivals = arrivals[:1]
+            # advance=False: a sync/sweep round's telemetry stamp is the
+            # round index t itself, matching the eval history points
             pt = builder.build(arrivals, [t] * len(arrivals), sim_time,
-                               advance=False)
+                               pooled_batch=pooled, advance=False)
             dispatch(pt)
             n_uploads += len(arrivals)
-            sim_time = sim_time + round_time
+            sim_time = sim_time + round_time if sync else float(t)
             if trace is not None:
                 trace.append(snapshot())
             if (cfg.eval_every > 0 and t % cfg.eval_every == 0) \

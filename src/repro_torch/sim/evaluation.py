@@ -63,12 +63,18 @@ class Evaluator:
     predict over every client's test split and returns the device tensor
     (no host sync); ``metrics_from`` copies it to the host and reduces it
     with the metric bundle — deferred to the end of the run so eval never
-    stalls the tick loop."""
+    stalls the tick loop.
+
+    ``per_client`` (Local-S): the params are stacked over the K clients,
+    and client k's model predicts client k's test block — still one
+    device pass, the paper models' stacked forward over ``(K, n_max,
+    ...)``."""
 
     def __init__(self, model, clients: Sequence, report: ReportFn,
-                 device: torch.device):
+                 device: torch.device, per_client: bool = False):
         self.model = model
         self.report = report
+        self.per_client = per_client
         self.lens = [len(c.test_x) for c in clients]
         n_max = max(self.lens)
         K = len(clients)
@@ -82,8 +88,12 @@ class Evaluator:
         self.targets = np.concatenate([c.test_y for c in clients])
 
     def predict_device(self, params) -> torch.Tensor:
-        """(K, n_max, O) predictions of the central model ``params``."""
+        """(K, n_max, O) predictions of the central model ``params``, or
+        of each client's own row of the stacked ``params``."""
         with torch.no_grad():
+            if self.per_client:
+                return self.model.predict(params, {"x": self.X.reshape(
+                    (self.K, self.n_max) + tuple(self.X.shape[1:]))})
             out = self.model.predict(params, {"x": self.X})
         return out.reshape((self.K, self.n_max) + tuple(out.shape[1:]))
 
