@@ -28,7 +28,14 @@ drives the port's paths through its entry points:
   fleet, 16 rounds, and one profiled run each;
 * ``paper_rows``: the eight rows of the paper's Table 5.1 on the
   Air-Quality-like data through ``repro_torch.core.run``, at
-  ``benchmarks/paper_tables.py``'s default (quick-mode) settings.
+  ``benchmarks/paper_tables.py``'s default (quick-mode) settings;
+* ``residency_path``: the JAX bench's K-sweep shape at main_path's
+  width, 64 real clients padded to 10,000 registered ones, with the
+  client state stored in fp32, bf16, int8 and int4 on the card or in
+  the host pool (``state_residency="host"``): asofed's sequential fold
+  (``feature_fold`` once a tick) and fedasync's associative one (K2),
+  host and device bit for bit, pool bytes from the leaf table, and the
+  int8 host engine against the port's oracle on the card.
 
 Before the paths, ``fold_vs_plain`` holds ``feature_fold`` against its
 plain version (the per-arrival loop) and times it beside the per-arrival
@@ -914,6 +921,230 @@ def phase_paper_rows():
             f"{per_iter['fedavg']}")
 
 
+# ---------------------------------------------------------------------------
+# Reduced-precision and host-resident client state at a large fleet
+# ---------------------------------------------------------------------------
+
+# residency_path: the JAX bench's K-sweep run shape
+# (benchmarks/sim_bench.py:536-560, copied: this script imports nothing
+# of benchmarks/) at the main path's width: RES_REAL real clients do all
+# the arriving, padded to RES_K registered clients with permanently
+# dropped stubs (two training samples each) that hold state rows and
+# never enter the scheduler
+RES_REAL, RES_K, RES_T, RES_ORACLE_T = 64, 10_000, 256, 64
+# (strategy, residency, state dtype): asofed on the sequential fold
+# (feature_fold), fedasync on the associative fold (K2)
+RES_RUNS = [("asofed", "device", None), ("asofed", "host", None),
+            ("asofed", "device", "bf16"), ("asofed", "host", "bf16"),
+            ("asofed", "host", "int8"), ("asofed", "host", "int4"),
+            ("fedasync", "device", "int8"), ("fedasync", "host", "int8")]
+# the pairs that must agree bit for bit across residencies
+RES_PAIRS = [("asofed", None), ("asofed", "bf16"), ("fedasync", "int8")]
+# asofed's host_pool_bytes at RES_K and hidden 64 (75,015 elements a
+# row: 4 x 18,753 parameters and 3 fp32 scalars; int4 packs each leaf
+# to ceil(n / 2) bytes)
+RES_POOL_BYTES = {None: 3_000_600_000, "bf16": 1_500_360_000,
+                  "int8": 750_240_000, "int4": 375_200_000}
+# a window's block: 64 distinct clients and the scratch row, bucketed to
+# the next power of two
+RES_BLOCK_ROWS = 128
+
+
+def _res_setup(T: int, hidden: int, K: int, **cfg_kw):
+    """(model, cfg_model, clients, cfg) at residency_path's shape."""
+    from repro_torch.sim.profiles import make_sim_clients
+    from repro_torch.sim.workloads import get_workload
+
+    wl = get_workload("lstm_regression")
+    cfg_model, model = wl.build(hidden=hidden)
+    data = wl.make_data(RES_REAL)
+    xtr, ytr, xte, yte = data[0]
+    stub = (xtr[:2], ytr[:2], xte[:1], yte[:1])
+    clients = make_sim_clients(data + [stub] * (K - RES_REAL), seed=0)
+    for c in clients[RES_REAL:]:
+        c.dropped = True
+    cfg = wl.run_config(T=T, batch_size=8, local_epochs=2, eta=0.02,
+                        lam=1.0, beta=0.001, eval_every=0, seed=0,
+                        window=32, **cfg_kw)
+    return model, cfg_model, clients, cfg
+
+
+def _res_row_bytes(alg: str, model, cfg, device) -> tuple:
+    """(pool bytes, block bytes) of one encoded state row, from its leaf
+    table: the pool packs int4 codes two to a byte, the block does not."""
+    from repro_torch.common.dtypes import resolve_state_storage
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.core.algorithms import get_strategy
+
+    strat = get_strategy(alg)
+    w0 = model.init(torch.Generator().manual_seed(0), device=device)
+    row = strat.build_init_client(model, cfg)(
+        w0, torch.zeros(1, device=device))
+    codec = strat.state_codec(model, cfg, w0)
+    if codec is not None:
+        row = codec.encode(row)
+    storage = resolve_state_storage(cfg.state_dtype)
+    packed = storage is not None and storage.pool_bits == 4
+    pool = block = 0
+    for x in tree_leaves(row):
+        n = x[0].numel()
+        block += n * x.element_size()
+        pool += (n + 1) // 2 if packed and x.dtype == torch.int8 \
+            else n * x.element_size()
+    return pool, block
+
+
+def _res_check_launches(alg: str, stats: dict, k1: int, k2: int,
+                        fold: int, tag: str) -> None:
+    """asofed: one feature_fold launch a tick, no per-row K1, no K2;
+    fedasync (associative): K2 once a carrier leaf a tick, no K1."""
+    want = ((stats["ticks"], 0, 0) if alg == "asofed"
+            else (0, 0, stats["ticks"] * LSTM_LEAVES))
+    if (fold, k1, k2) != want:
+        raise AssertionError(
+            f"{tag}: feature_fold {fold}, per-row K1 {k1}, K2 {k2} for "
+            f"{stats['ticks']} ticks; expected {want}")
+
+
+def phase_residency_path(K: int = RES_K, T: int = RES_T,
+                         hidden: int = MAIN_HIDDEN,
+                         oracle_T: int = RES_ORACLE_T, device="cuda"):
+    """asofed (sequential fold) and fedasync (associative fold) with the
+    client state stored in fp32, bf16, int8 and int4, on the card or in
+    the host pool, at K registered clients: checks 1-7 of the slice
+    (bitwise residency pairs, pool bytes from the leaf table, the block
+    bound, the peak, the launches, finite metrics, the int8 host engine
+    against the port's oracle on the card).  Returns (feature_fold
+    launches, K2 launches, per-row K1 launches) over the phase."""
+    from repro_torch.core.algorithms import get_strategy
+    from repro_torch.sim import reference
+    from repro_torch.sim.engine import run_strategy
+
+    phase_t0 = time.perf_counter()
+    # warm-up at the real clients alone: cuBLAS / cuDNN handles and the
+    # allocator, so the first cell does not pay them
+    for alg, kw in (("asofed", {}), ("fedasync",
+                                     {"fold_mode": "associative"})):
+        model, cfg_model, clients, cfg = _res_setup(32, hidden, RES_REAL,
+                                                    **kw)
+        run_strategy(get_strategy(alg), model, cfg_model, clients, cfg,
+                     device=device)
+    traces, runs = {}, {}
+    fold_total = k2_total = 0
+    for alg, res, dt in RES_RUNS:
+        tag = f"residency_path {alg} {res} {dt or 'fp32'}"
+        fold_kw = {"fold_mode": "associative"} if alg == "fedasync" else {}
+        model, cfg_model, clients, cfg = _res_setup(
+            T, hidden, K, state_residency=res, state_dtype=dt, **fold_kw)
+        stats, trace = {}, []
+        _reset_launches()
+        t0 = time.perf_counter()
+        run_strategy(get_strategy(alg), model, cfg_model, clients, cfg,
+                     stats=stats, trace=trace, device=device)
+        wall = time.perf_counter() - t0
+        k1, k2 = _launches()
+        fold = _fold_launches()
+        _res_check_launches(alg, stats, k1, k2, fold, tag)
+        fold_total += fold
+        k2_total += k2
+        numbers = {k: v for k, v in stats.items()
+                   if isinstance(v, (int, float))}
+        if stats["iters"] != T or not all(
+                math.isfinite(v) for v in numbers.values()) or not all(
+                np.all(np.isfinite(w[k])) for _, w in trace for k in w):
+            raise AssertionError(f"{tag}: {stats['iters']} of {T} iters, "
+                                 f"or a non-finite metric or weight")
+        row_pool, row_block = _res_row_bytes(alg, model, cfg, device)
+        if res == "host":
+            want = K * row_pool
+            if (alg, K, hidden) == ("asofed", RES_K, MAIN_HIDDEN) \
+                    and want != RES_POOL_BYTES[dt]:
+                raise AssertionError(f"{tag}: the leaf table gives {want} "
+                                     f"pool bytes, not {RES_POOL_BYTES[dt]}")
+            if stats["host_pool_bytes"] != want:
+                raise AssertionError(f"{tag}: host_pool_bytes "
+                                     f"{stats['host_pool_bytes']} != {want}")
+            if not 0 < stats["stacked_state_bytes"] \
+                    <= RES_BLOCK_ROWS * row_block:
+                raise AssertionError(
+                    f"{tag}: stacked_state_bytes "
+                    f"{stats['stacked_state_bytes']} beyond "
+                    f"{RES_BLOCK_ROWS} rows of {row_block} bytes")
+        traces[(alg, res, dt)], runs[(alg, res, dt)] = trace, stats
+        emit({"phase": "residency_path", "strategy": alg,
+              "fold_mode": stats["fold_mode"], "state_residency": res,
+              "state_dtype": stats["state_dtype"], "clients": K,
+              "real_clients": RES_REAL, "hidden": hidden, "T": T,
+              "batch_size": 8, "local_epochs": 2, "window": 32,
+              "iters": stats["iters"], "ticks": stats["ticks"],
+              "windows": stats["windows"], "wall_s": wall,
+              "iters_per_s": stats["iters"] / wall,
+              "setup_s": stats["setup_s"], "device_s": stats["device_s"],
+              "host_build_s": stats["host_build_s"],
+              "stacked_state_bytes": stats["stacked_state_bytes"],
+              "host_pool_bytes": stats["host_pool_bytes"],
+              "peak_device_bytes": stats["peak_device_bytes"],
+              "gathered_rows": stats["gathered_rows"],
+              "scattered_rows": stats["scattered_rows"],
+              "gather_s": stats["gather_s"], "scatter_s": stats["scatter_s"],
+              "row_bytes_pool": row_pool, "row_bytes_block": row_block,
+              "feature_fold_launches": fold, "feature_kernel_launches": k1,
+              "scan_kernel_launches": k2})
+    for alg, dt in RES_PAIRS:
+        tag = f"residency_path {alg} {dt or 'fp32'} host vs device"
+        tr_d, tr_h = traces[(alg, "device", dt)], traces[(alg, "host", dt)]
+        if [t for t, _ in tr_d] != [t for t, _ in tr_h] or not all(
+                np.array_equal(w[k], v[k]) for (_, w), (_, v) in
+                zip(tr_d, tr_h) for k in w):
+            raise AssertionError(f"{tag}: trajectories differ")
+        dev, host = runs[(alg, "device", dt)], runs[(alg, "host", dt)]
+        saved = dev["peak_device_bytes"] - host["peak_device_bytes"]
+        if saved < 0.9 * dev["stacked_state_bytes"]:
+            raise AssertionError(
+                f"{tag}: peak {host['peak_device_bytes']} on the host "
+                f"pool against {dev['peak_device_bytes']} with the stack "
+                f"of {dev['stacked_state_bytes']} bytes on the card")
+        emit({"phase": "residency_pair", "strategy": alg,
+              "state_dtype": dt or "fp32", "bitwise": True,
+              "windows": len(tr_d), "peak_saved_bytes": saved,
+              "device_stacked_state_bytes": dev["stacked_state_bytes"]})
+    # the int8 host engine against the port's oracle on the card
+    model, cfg_model, clients, cfg = _res_setup(
+        oracle_T, hidden, K, state_residency="host", state_dtype="int8")
+    trace, estats = [], {}
+    _reset_launches()
+    run_strategy(get_strategy("asofed"), model, cfg_model, clients, cfg,
+                 stats=estats, trace=trace, device=device)
+    k1, k2 = _launches()
+    fold = _fold_launches()
+    _res_check_launches("asofed", estats, k1, k2, fold,
+                        "residency_path oracle check's engine")
+    fold_total += fold
+    model, cfg_model, clients, cfg = _res_setup(oracle_T, hidden, K,
+                                                state_dtype="int8")
+    _reset_launches()
+    t0 = time.perf_counter()
+    traj = reference.run_asofed_reference(model, cfg_model, clients, cfg,
+                                          device=device)
+    o_wall = time.perf_counter() - t0
+    k1_oracle, _ = _launches()
+    if k1_oracle != oracle_T:
+        raise AssertionError(
+            f"residency_path oracle: {k1_oracle} per-row K1 launches for "
+            f"{oracle_T} folds (expected one a fold)")
+    worst = _compare_to_oracle(trace, traj,
+                               "residency_path asofed int8 host vs oracle")
+    emit({"phase": "residency_oracle", "strategy": "asofed",
+          "state_dtype": "int8", "state_residency": "host", "clients": K,
+          "T": oracle_T, "engine_ticks": estats["ticks"],
+          "oracle_wall_s": o_wall, "oracle_feature_kernel_launches":
+          k1_oracle, "shared_boundaries": len(trace), "max_abs_diff": worst,
+          "atol": TRAJ_ATOL, "rtol": TRAJ_RTOL})
+    emit({"phase": "residency_path_total",
+          "wall_s": time.perf_counter() - phase_t0})
+    return fold_total, k2_total, k1_oracle
+
+
 # the affine strategies at small width: (strategy, config overrides, T)
 AFFINE = [("fedasync", {}, 60), ("fedbuff", {"buffer_size": 3}, 60),
           ("asofed", {"feature_learning": False}, 60),
@@ -938,7 +1169,7 @@ def _small_run(name: str, T: int, device: str, alg: str = "asofed",
     return hist, trace
 
 
-def _compare(tr_a, tr_b, tag: str) -> float:
+def _compare(tr_a, tr_b, tag: str, atol: float = TRAJ_ATOL) -> float:
     """Max abs difference of two traces with the same tick boundaries;
     raises beyond the engine tolerance (against ``tr_b``)."""
     if [t for t, _ in tr_a] != [t for t, _ in tr_b] or not tr_a:
@@ -948,7 +1179,7 @@ def _compare(tr_a, tr_b, tag: str) -> float:
         for k in wa:
             d = np.abs(wa[k] - wb[k])
             worst = max(worst, float(d.max()))
-            excess = d - (TRAJ_ATOL + TRAJ_RTOL * np.abs(wb[k]))
+            excess = d - (atol + TRAJ_RTOL * np.abs(wb[k]))
             if not np.all(np.isfinite(wa[k])) or excess.max() > 0:
                 raise AssertionError(
                     f"{tag}: trajectories differ at t={t} in {k}: max abs "
@@ -957,6 +1188,9 @@ def _compare(tr_a, tr_b, tag: str) -> float:
 
 
 def phase_card_vs_cpu():
+    from repro_torch.common.dtypes import resolve_state_storage
+    from repro_torch.sim.engine import RunConfig
+
     runs = [("lstm_regression", 60, "asofed", {}),
             ("cnn_classification", 30, "asofed", {}),
             ("lstm_multilabel", 60, "asofed", {})]
@@ -967,13 +1201,24 @@ def phase_card_vs_cpu():
               {"fold_mode": "associative"})]
     # the sweep baselines (T counts rounds)
     runs += [("lstm_regression", 10, alg, {}) for alg in ("local", "global")]
+    # stored client state through a codec, on the card and in the pool
+    runs += [("lstm_regression", 60, "asofed", {"state_dtype": "bf16"}),
+             ("lstm_regression", 60, "asofed",
+              {"state_residency": "host", "state_dtype": "int4"})]
     for name, T, alg, kw in runs:
         _, tr_gpu = _small_run(name, T, "cuda", alg, **kw)
         _, tr_cpu = _small_run(name, T, "cpu", alg, **kw)
-        worst = _compare(tr_gpu, tr_cpu, f"{alg} {name} card vs CPU")
+        # a quantized code may land one step apart where the two devices'
+        # fp32 states differ by an ulp at a rounding boundary: one step
+        # (state_qclip / levels) on top of the trajectory tolerance
+        storage = resolve_state_storage(kw.get("state_dtype"))
+        atol = TRAJ_ATOL + (RunConfig.state_qclip / storage.levels
+                            if storage is not None and storage.quantized
+                            else 0.0)
+        worst = _compare(tr_gpu, tr_cpu, f"{alg} {name} card vs CPU", atol)
         emit({"phase": "card_vs_cpu", "workload": name, "strategy": alg,
               **kw, "T": T, "ticks": len(tr_gpu), "max_abs_diff": worst,
-              "atol": TRAJ_ATOL, "rtol": TRAJ_RTOL})
+              "atol": atol, "rtol": TRAJ_RTOL})
     # the associative fold (K2) against the sequential one, on the card
     for alg, over, T in AFFINE:
         _, tr_par = _small_run("lstm_regression", T, "cuda", alg,
@@ -1372,7 +1617,7 @@ def phase_serve_card_vs_cpu():
 SERVE_PHASES = ("flash_vs_plain", "serve_path", "serve_path_bf16")
 # the phases --only can run alone (after the build), in this order
 ONLY_PHASES = ("main_path", "assoc_path", "oracle_path", "sweep_path",
-               "paper_rows") + SERVE_PHASES
+               "paper_rows", "residency_path") + SERVE_PHASES
 
 
 def serve_phases(names):
@@ -1410,7 +1655,8 @@ def _flash_entry(name, rec, launches, by_path, design):
         "design_source": "src/repro_torch/kernels/flash_attention/csrc/"
                          + design,
         "launches_by_path": {"main_path": 0, "assoc_path": 0,
-                             "oracle_path": 0, "sweep_path": 0, **by_path}}
+                             "oracle_path": 0, "sweep_path": 0,
+                             "residency_path": 0, **by_path}}
 
 
 def main(argv=None) -> int:
@@ -1454,6 +1700,8 @@ def main(argv=None) -> int:
             phase_sweep_path()
         if "paper_rows" in only:
             phase_paper_rows()
+        if "residency_path" in only:
+            phase_residency_path()
         serve_phases(only)
         print(card_line(), flush=True)
         emit({"ok": True, "only": only, "device": {
@@ -1471,6 +1719,7 @@ def main(argv=None) -> int:
     k1_oracle = phase_oracle_path()
     phase_sweep_path()
     phase_paper_rows()
+    res_fold, res_scan, res_k1 = phase_residency_path()
     phase_card_vs_cpu()
     fv, flash_launches, flash_launches_bf16 = serve_phases(SERVE_PHASES)
     phase_serve_card_vs_cpu()
@@ -1496,6 +1745,7 @@ def main(argv=None) -> int:
                   "leaves": fold_rec["leaves"]},
         "launches_by_path": {"main_path": launches, "assoc_path": 0,
                              "oracle_path": 0, "sweep_path": 0,
+                             "residency_path": res_fold,
                              "serve_path": 0, "serve_path_bf16": 0}}, {
         # the per-row K1 at the first layer's shape (8, 256), held against
         # its plain version; oracle_path reaches it once a fold
@@ -1510,6 +1760,7 @@ def main(argv=None) -> int:
         "library_ms": None,
         "launches_by_path": {"main_path": 0, "assoc_path": 0,
                              "oracle_path": k1_oracle, "sweep_path": 0,
+                             "residency_path": res_k1,
                              "serve_path": 0, "serve_path_bf16": 0}}, {
         "name": "linear_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
@@ -1521,6 +1772,7 @@ def main(argv=None) -> int:
         "library": scan_rec["library"], "shape": scan_rec["shape"],
         "launches_by_path": {"main_path": 0, "assoc_path": scan_launches,
                              "oracle_path": 0, "sweep_path": 0,
+                             "residency_path": res_scan,
                              "serve_path": 0, "serve_path_bf16": 0}},
         # K3 at the serve path's shape, N(0, 1) inputs: the fp32 design
         # on serve_path, the bf16 (tensor-core) design on serve_path_bf16

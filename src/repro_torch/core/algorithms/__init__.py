@@ -9,6 +9,7 @@ from __future__ import annotations
 from typing import Dict, Type
 
 from repro_torch.core.algorithms.asofed import AsoFedStrategy
+from repro_torch.core.algorithms.common import ClientStateCodec
 from repro_torch.core.algorithms.fedasync import FedAsyncStrategy
 from repro_torch.core.algorithms.fedavg import FedAvgStrategy, FedProxStrategy
 from repro_torch.core.algorithms.fedbuff import FedBuffStrategy
@@ -35,6 +36,7 @@ def get_strategy(name: str) -> Strategy:
     return STRATEGIES[name]()
 
 
-__all__ = ["Strategy", "STRATEGIES", "get_strategy", "AsoFedStrategy",
-           "FedAvgStrategy", "FedProxStrategy", "FedAsyncStrategy",
-           "FedBuffStrategy", "LocalStrategy", "GlobalStrategy"]
+__all__ = ["Strategy", "STRATEGIES", "get_strategy", "ClientStateCodec",
+           "AsoFedStrategy", "FedAvgStrategy", "FedProxStrategy",
+           "FedAsyncStrategy", "FedBuffStrategy", "LocalStrategy",
+           "GlobalStrategy"]

@@ -17,9 +17,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.common.pytree import bcast_rows, tree_axpy, tree_map, tree_sub
+from repro_torch.common.pytree import (bcast_rows, tree_axpy, tree_map,
+                                       tree_sub, tree_zeros_like)
 from repro_torch.core import client as client_lib
-from repro_torch.core.algorithms.common import avg_surrogate_grad
+from repro_torch.core.algorithms.common import (avg_surrogate_grad,
+                                                bool_tree, make_state_codec)
 from repro_torch.core.feature_learning import (apply_feature_learning,
                                                first_layer_path)
 from repro_torch.kernels.feature_attention.ops import feature_fold
@@ -42,6 +44,23 @@ class AsoFedStrategy(Strategy):
     def build_init_client(self, model, cfg):
         # batched stacked init: (w0, n0 of shape (R,)) -> R stacked rows
         return lambda w0, n0: client_lib.init_client_state(w0, n0)
+
+    def state_codec(self, model, cfg, w0):
+        # params / server_params stored as reduced-dtype deltas from w0
+        # (constant over the run), h / v as plain reduced casts (zero
+        # anchor); the delay / round / sample scalars pass through in
+        # fp32, where reduced mantissas would corrupt their counting
+        z = tree_zeros_like(w0)
+        s0 = torch.zeros((), dtype=torch.float32,
+                         device=next(iter(w0.values())).device)
+        anchor = client_lib.ClientState(
+            params=w0, server_params=w0, h=z, v=z,
+            delay_sum=s0, rounds=s0, n_samples=s0)
+        mask = client_lib.ClientState(
+            params=bool_tree(w0, True), server_params=bool_tree(w0, True),
+            h=bool_tree(z, True), v=bool_tree(z, True),
+            delay_sum=False, rounds=False, n_samples=False)
+        return make_state_codec(cfg, anchor, mask)
 
     def init_server(self, model, cfg_model, cfg, w0, clients, active):
         # per-client online sample counts n'_k, indexed by cid; one extra

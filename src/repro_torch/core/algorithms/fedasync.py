@@ -10,7 +10,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.common.pytree import bcast_rows, tree_map, tree_repeat
-from repro_torch.core.algorithms.common import sgd_epochs
+from repro_torch.core.algorithms.common import (bool_tree, make_state_codec,
+                                                sgd_epochs)
 from repro_torch.sim.engine import Strategy
 
 
@@ -20,12 +21,25 @@ def _stale_copies(w0, n0):
             "version": torch.zeros_like(n0, dtype=torch.float32)}
 
 
+def stale_copy_codec(cfg, w0):
+    """FedAsync's and FedBuff's state codec: the stale model copies as
+    reduced-dtype deltas from w0, the version counter untouched fp32."""
+    s0 = torch.zeros((), dtype=torch.float32,
+                     device=next(iter(w0.values())).device)
+    return make_state_codec(cfg, anchor={"w": w0, "version": s0},
+                            mask={"w": bool_tree(w0, True),
+                                  "version": False})
+
+
 class FedAsyncStrategy(Strategy):
     name = "fedasync"
     schedule = "async"
 
     def build_init_client(self, model, cfg):
         return _stale_copies
+
+    def state_codec(self, model, cfg, w0):
+        return stale_copy_codec(cfg, w0)
 
     def init_server(self, model, cfg_model, cfg, w0, clients, active):
         return {"w": w0}

@@ -20,7 +20,8 @@ import torch
 from repro_torch.common.pytree import (bcast_rows, tree_axpy, tree_map,
                                        tree_sub, tree_where, tree_zeros_like)
 from repro_torch.core.algorithms.common import sgd_epochs
-from repro_torch.core.algorithms.fedasync import _stale_copies
+from repro_torch.core.algorithms.fedasync import (_stale_copies,
+                                                  stale_copy_codec)
 from repro_torch.sim.engine import Strategy
 
 
@@ -39,6 +40,10 @@ class FedBuffStrategy(Strategy):
 
     def build_init_client(self, model, cfg):
         return _stale_copies
+
+    def state_codec(self, model, cfg, w0):
+        # the same layout as fedasync's
+        return stale_copy_codec(cfg, w0)
 
     def init_server(self, model, cfg_model, cfg, w0, clients, active):
         if cfg.buffer_size < 1:
@@ -86,7 +91,12 @@ class FedBuffStrategy(Strategy):
         def coeffs(server, up, idx, n_vis, t_arr, mask):
             m32 = mask.to(torch.float32)
             S = m32.shape[0]
-            s_w = m32 / torch.sqrt(1.0 + (t_arr - up["version"]))
+            # padded slots weigh 0 whatever their row holds: under host
+            # residency a padded slot reads a real client's row, whose
+            # version can exceed the padded t_arr of 0 (the sqrt of a
+            # negative is NaN, and 0 / NaN is NaN)
+            s_w = torch.where(
+                mask, 1.0 / torch.sqrt(1.0 + (t_arr - up["version"])), 0.0)
             # c_s: cumulative fold count ignoring resets.  The stored
             # count sits in [0, M-1], so a flush fires at exactly the
             # real arrivals whose c_s crosses a multiple of M.

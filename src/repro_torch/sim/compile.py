@@ -11,7 +11,10 @@ CUDA graph is later work.
 One tick ``(stacked, server, arrays, n_real) -> (stacked, server,
 tel_row)``:
 
-1. gather the cohort's rows from the stacked client state;
+1. gather the cohort's rows from the stacked client state and, when the
+   state is stored through a codec (``RunConfig.state_dtype``), decode
+   them to the fp32 working state — the local rounds and the folds see
+   fp32 only;
 2. run every client's local round at once (batched over the cohort axis);
 3. fold the uploads into the server, either
    * **sequentially**, in arrival order, one arrival at a time — only the
@@ -26,9 +29,15 @@ tel_row)``:
      card), padded slots being exact identities (a=1, b=0);
 4. merge each client's received model into its state, then apply the
    strategy's finalize (FedAvg's synchronous average);
-5. scatter the rows back (in place): padded slots target the scratch row
-   and write back that row's own pre-tick value, so repeated indices are
-   harmless.
+5. scatter the rows back (in place), encoded again: padded slots target
+   the scratch row and write back that row's own pre-tick (still
+   encoded) value, so repeated indices are harmless.
+
+``stacked`` is the device-resident ``[K+1, ...]`` stack, or under host
+residency the window's block gathered from the pool; only the gather
+and the write-back read ``lidx`` (the row in ``stacked``), while the
+server reads ``idx`` (the client id), so the arithmetic between them is
+the same in both residencies.
 """
 from __future__ import annotations
 
@@ -86,10 +95,13 @@ def resolve_fold_affine(strategy, model, cfg_model, cfg,
 
 
 def tick_body(strategy, model, cfg_model, cfg, slots: Tuple[str, ...],
-              server_slots: Tuple[str, ...], device: torch.device):
+              server_slots: Tuple[str, ...], device: torch.device,
+              codec=None):
     """The one-tick update.  The telemetry row is ``slots +
     ("folds_per_tick",) + server_slots``: the strategy's per-client means,
-    the engine-owned fold depth, then the post-fold server scalars."""
+    the engine-owned fold depth, then the post-fold server scalars.
+    ``codec``: the strategy's ``ClientStateCodec`` for the stored state,
+    or None (fp32 stored as it is)."""
     local = strategy.build_local(model, cfg)
     fold = strategy.build_fold(model, cfg_model, cfg)
     affine = resolve_fold_affine(strategy, model, cfg_model, cfg, device)
@@ -102,7 +114,8 @@ def tick_body(strategy, model, cfg_model, cfg, slots: Tuple[str, ...],
 
     def tick(stacked, server, arrays, n_real: int):
         idx, lidx, xs, ys, delays, n_vis, t_arr, mask = arrays[:8]
-        cohort0 = tree_take(stacked, lidx)
+        enc0 = tree_take(stacked, lidx)
+        cohort0 = enc0 if codec is None else codec.decode(enc0)
         bcast = strategy.server_broadcast(server)
         cohort, uploads, tel = local(cohort0, bcast, xs, ys, delays, n_vis,
                                      t_arr)
@@ -140,7 +153,9 @@ def tick_body(strategy, model, cfg_model, cfg, slots: Tuple[str, ...],
                                        device=mask.device).reshape(())
                        for s in server_slots]
         tel_row = torch.cat([tel_row, torch.stack(extras)])
-        tree_scatter(stacked, lidx, tree_where(mask, cohort, cohort0))
+        # padded slots revert to their still-encoded pre-tick rows
+        enc = cohort if codec is None else codec.encode(cohort)
+        tree_scatter(stacked, lidx, tree_where(mask, enc, enc0))
         return stacked, server, tel_row
 
     return tick
@@ -148,7 +163,7 @@ def tick_body(strategy, model, cfg_model, cfg, slots: Tuple[str, ...],
 
 def window_fn(strategy, model, cfg_model, cfg, slots: Tuple[str, ...],
               server_slots: Tuple[str, ...], device: torch.device, *,
-              windowed: bool = True):
+              windowed: bool = True, codec=None):
     """``(stacked, server, pt) -> (stacked, server, tel)`` for one staged
     block.  ``windowed`` (async schedule): the real ticks of ``pt`` in
     order (fully-masked padding ticks of the ``[T_w]`` axis are skipped),
@@ -157,7 +172,7 @@ def window_fn(strategy, model, cfg_model, cfg, slots: Tuple[str, ...],
     has no fold, and its ``folds_per_tick`` slot counts the round's
     members (K for Local-S, 1 for Global)."""
     tick = tick_body(strategy, model, cfg_model, cfg, slots, server_slots,
-                     device)
+                     device, codec)
     if not windowed:
         return lambda stacked, server, pt: tick(
             stacked, server, pt.arrays, pt.ticks_meta[0].n_folds)

@@ -2,13 +2,15 @@
 
 Counterpart of ``repro.sim.engine`` for the part the port covers: the
 asynchronous, synchronous and sweep schedules, the sequential and associative
-server folds, the stacked client state resident on the device, the
-identity state and upload codecs, no faults or admission guards, one
-device.  The host layer — schedulers, streams, staging buffers, prefetch
-thread, telemetry log — is the JAX package's, copied unchanged, so both
-engines replay the same arrival stream draw for draw; the device side is
-plain PyTorch plus the hand-written CUDA kernels (the feature pass and
-the fold's linear recurrence).
+server folds, the stacked client state stored in fp32, bf16, fp16, int8
+or int4 (``state_dtype``) on the device or, for the async schedule, in a
+host pool (``state_residency="host"``, ``repro_torch.sim.state_pool``),
+the identity upload codec, no faults or admission guards, one device.
+The host layer — schedulers, streams, staging buffers, prefetch thread,
+telemetry log — is the JAX package's, copied unchanged, so both engines
+replay the same arrival stream draw for draw; the device side is plain
+PyTorch plus the hand-written CUDA kernels (the feature pass and the
+fold's linear recurrence).
 
 The async engine drains the scheduler in **ticks** (maximal runs of
 pending arrivals with pairwise-distinct clients) grouped into **windows**
@@ -37,7 +39,10 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.common.pytree import tree_leaves, tree_map, tree_stack
+from repro_torch.common.dtypes import (resolve_state_dtype,
+                                       resolve_state_storage)
+from repro_torch.common.pytree import (tree_leaves, tree_map, tree_stack,
+                                       tree_unflatten)
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.sim import compile as compile_lib
 from repro_torch.sim.evaluation import Evaluator
@@ -45,6 +50,8 @@ from repro_torch.sim.prefetch import TickBuilder, TickPrefetcher, bucket_size
 from repro_torch.sim.profiles import SimClient
 from repro_torch.sim.scheduler import (AsyncScheduler, SweepScheduler,
                                        SyncScheduler)
+from repro_torch.sim.state_pool import (HostStatePool, leaf_to_device,
+                                        leaf_to_host)
 from repro_torch.sim.streaming import OnlineStream
 from repro_torch.sim.telemetry import TelemetryLog, split_at_evals
 from repro_torch.sim.traces import utilization as availability_utilization
@@ -93,12 +100,15 @@ class RunConfig:
     prefetch: Optional[bool] = None
     # `window` consecutive async ticks are staged and transferred as one
     # block and run back to back; `eval_align` splits windows at
-    # `eval_every` fold boundaries.  `state_dtype`: only fp32 (None) in
-    # this slice.
+    # `eval_every` fold boundaries.  `state_dtype`: storage of the stacked
+    # client state (None / "fp32" | "bf16" | "fp16" | "int8" | "int4",
+    # repro_torch.common.dtypes), quantized codes spanning ±state_qclip
     window: int = 1
     eval_align: bool = False
     state_dtype: Optional[str] = None
-    # only "device" in this slice
+    # "device": the [K+1, ...] stack on the run's device; "host": the
+    # encoded state in a HostStatePool, gathered and scattered per window
+    # (async schedules only); `state_shards` splits the pool's rows
     state_residency: str = "device"
     state_shards: int = 1
     state_qclip: float = 0.5
@@ -190,6 +200,13 @@ class Strategy:
                     clients: Sequence[SimClient],
                     active: Sequence[SimClient]):
         return {}
+
+    def state_codec(self, model, cfg: RunConfig, w0):
+        """Optional ``ClientStateCodec`` for the stacked client state
+        (``repro_torch.core.algorithms.common``).  None (the default, and
+        the answer for ``state_dtype in (None, "fp32")``) stores the fp32
+        state directly — the bitwise-replayable path."""
+        return None
 
     def build_local(self, model, cfg: RunConfig):
         raise NotImplementedError
@@ -290,7 +307,8 @@ def stack_batches(stream: OnlineStream, t: int, batch_size: int,
 def _check_slice(strategy: Strategy, cfg: RunConfig,
                  clients: Sequence[SimClient], *, mesh, checkpoint_path,
                  resume_from) -> None:
-    """Raise ``ValueError`` naming the first knob outside this slice."""
+    """Raise ``ValueError`` naming the first knob outside this slice, or
+    the first malformed one."""
     def refuse(knob: str, value, accepted: str):
         raise ValueError(
             f"{knob}={value!r} is not ported yet (the port runs {accepted})")
@@ -298,11 +316,6 @@ def _check_slice(strategy: Strategy, cfg: RunConfig,
     if strategy.schedule not in ("async", "sync", "sweep"):
         refuse("strategy.schedule", strategy.schedule,
                "'async', 'sync' and 'sweep' strategies")
-    if cfg.state_residency != "device":
-        refuse("state_residency", cfg.state_residency,
-               "state_residency='device'")
-    if cfg.state_dtype not in (None, "fp32", "float32"):
-        refuse("state_dtype", cfg.state_dtype, "fp32 client state")
     if cfg.upload_codec != "identity":
         refuse("upload_codec", cfg.upload_codec, "upload_codec='identity'")
     if cfg.max_staleness is not None:
@@ -318,6 +331,26 @@ def _check_slice(strategy: Strategy, cfg: RunConfig,
         refuse("resume_from", resume_from, "without checkpoints")
     if mesh is not None:
         refuse("mesh", mesh, "on a single device")
+    # the state storage knobs, validated as the JAX engine does
+    resolve_state_dtype(cfg.state_dtype)
+    if cfg.state_residency not in ("device", "host"):
+        raise ValueError(
+            f"unknown state_residency {cfg.state_residency!r}; "
+            "accepted: 'device' | 'host'")
+    if cfg.state_residency == "host" and strategy.schedule != "async":
+        raise ValueError(
+            "state_residency='host' is supported for async schedules only "
+            f"({strategy.name!r} is {strategy.schedule!r}): the host pool "
+            "rides the windowed gather/scatter tick path")
+    if cfg.state_residency == "host" and (strategy.eval_per_client
+                                          or strategy.pooled):
+        raise ValueError(
+            f"state_residency='host' cannot serve {strategy.name!r}: "
+            "per-client / pooled evaluation reads the full stacked state, "
+            "which a host-resident pool keeps off-device")
+    if cfg.state_shards < 1:
+        raise ValueError(
+            f"state_shards must be >= 1, got {cfg.state_shards}")
     if cfg.eval_every < 0:
         raise ValueError(
             f"eval_every must be >= 0 (0 disables evaluation), "
@@ -357,6 +390,7 @@ def run_strategy(
     window; ``stats``, when a dict, is filled with the run's counters and
     per-phase wall times; ``telemetry`` receives one record per tick.
     """
+    entry = time.perf_counter()
     clients = list(clients)
     K = len(clients)
     if [c.cid for c in clients] != list(range(K)):
@@ -441,17 +475,50 @@ def run_strategy(
             return strategy.init_client(model, cfg, w0, c)
         return strategy.init_client(model, cfg, w0, c, start=starts[c.cid])
 
+    codec = strategy.state_codec(model, cfg, w0)
     init_batched = strategy.build_init_client(model, cfg)
-    if init_batched is not None:
-        n0s = np.array([_n0(c) for c in members] + [_n0(members[0])],
-                       np.float32)
-        stacked = init_batched(w0, torch.tensor(n0s, device=dev))
+
+    def init_rows(cs):
+        """The encoded initial state rows of clients ``cs``."""
+        n0 = np.array([_n0(c) for c in cs], np.float32)
+        rows = init_batched(w0, torch.tensor(n0, device=dev))
+        return rows if codec is None else codec.encode(rows)
+
+    pool = None
+    if cfg.state_residency == "host":
+        if init_batched is None:
+            raise ValueError(
+                f"state_residency='host' needs {strategy.name!r} to "
+                "provide build_init_client: the pool is filled by chunked "
+                "batched init (a device-stacked init of all K rows is "
+                "exactly what the host pool exists to avoid)")
+        storage = resolve_state_storage(cfg.state_dtype)
+        packed = (storage is not None and codec is not None
+                  and storage.pool_bits == 4)
+        tmpl = init_rows(members[:1])
+        # the storage dtype of each leaf: the pool holds bf16 as int16
+        leaf_dtypes = [x.dtype for x in tree_leaves(tmpl)]
+        pool = HostStatePool(
+            tree_map(lambda x: leaf_to_host(x[0]), tmpl), n_members,
+            packed=packed, shards=min(cfg.state_shards, n_members))
+        del tmpl
+        # chunked init: the device holds one encoded chunk at a time on
+        # its way into the pool
+        CHUNK = 4096
+        for start in range(0, n_members, CHUNK):
+            pool.write_block(start, tree_map(
+                leaf_to_host, init_rows(members[start:start + CHUNK])))
+        stacked = None  # no device-resident stack: blocks ride per window
+    elif init_batched is not None:
+        stacked = init_rows(members + [members[0]])
     else:
         stacked = tree_stack([_init_one(c) for c in members + [members[0]]])
+        if codec is not None:
+            stacked = codec.encode(stacked)
     server = strategy.init_server(model, cfg_model, cfg, w0, clients, active)
     run_block = compile_lib.window_fn(strategy, model, cfg_model, cfg,
                                       client_slots, server_slots, dev,
-                                      windowed=windowed)
+                                      windowed=windowed, codec=codec)
     evaluator = Evaluator(model, clients, eval_report, dev,
                           per_client=strategy.eval_per_client) \
         if cfg.eval_every > 0 else None
@@ -470,10 +537,15 @@ def run_strategy(
 
     builder = TickBuilder(
         by_id=by_id, batch_size=B, local_epochs=E, scratch=scratch, pad=pad,
-        pooled=strategy.pooled, transfer=transfer,
+        pooled=strategy.pooled, transfer=transfer, state_pool=pool,
     )
-    stacked_state_bytes = sum(
-        x.numel() * x.element_size() for x in tree_leaves(stacked))
+
+    def nbytes(tree) -> int:
+        return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+    # live device bytes of client state: the [K+1, ...] stack, or under
+    # host residency the largest block dispatched (updated in `dispatch`)
+    stacked_state_bytes = 0 if pool is not None else nbytes(stacked)
     on_card = dev.type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
@@ -487,9 +559,11 @@ def run_strategy(
     t0 = time.perf_counter()
 
     def eval_params():
-        if strategy.eval_per_client or strategy.pooled:
+        # host residency only serves central-model evaluation
+        if pool is None and (strategy.eval_per_client or strategy.pooled):
+            view = tree_map(lambda x: x[:n_members], stacked)
             return strategy.eval_params(
-                server, tree_map(lambda x: x[:n_members], stacked))
+                server, view if codec is None else codec.decode(view))
         return strategy.eval_params(server)
 
     def record(t: int, sim_time: float):
@@ -502,12 +576,29 @@ def run_strategy(
         eval_s += time.perf_counter() - e0
 
     def dispatch(pt):
-        nonlocal stacked, server, device_s, n_ticks, n_windows
+        nonlocal stacked, server, device_s, n_ticks, n_windows, \
+            stacked_state_bytes
         d0 = time.perf_counter()
-        with torch.no_grad():
-            stacked, server, tel = run_block(stacked, server, pt)
+        if pool is not None:
+            # host residency: repair the speculative gather (rows written
+            # by scatters that landed after it), copy the block to the
+            # device, run the window on it as the stacked carry and
+            # scatter the updated member rows back into the pool
+            pool.patch(pt.block, pt.block_cids, pt.gather_seq)
+            block = tree_unflatten(pt.block, [
+                leaf_to_device(a, dt, dev)
+                for a, dt in zip(tree_leaves(pt.block), leaf_dtypes)])
+            stacked_state_bytes = max(stacked_state_bytes, nbytes(block))
+            with torch.no_grad():
+                block, server, tel = run_block(block, server, pt)
+        else:
+            with torch.no_grad():
+                stacked, server, tel = run_block(stacked, server, pt)
         if on_card:
             torch.cuda.synchronize(dev)
+        if pool is not None:
+            pool.scatter(pt.block_cids[:pt.block_rows],
+                         tree_map(leaf_to_host, block))
         telem.append(pt, tel)
         device_s += time.perf_counter() - d0
         n_ticks += pt.n_ticks
@@ -641,16 +732,32 @@ def run_strategy(
     if stats is not None:
         stats.update(
             ticks=n_ticks, windows=n_windows, iters=t, sim_time=sim_time,
+            # wall seconds before the first window: state init (the
+            # host pool's chunked fill), scheduler, evaluator
+            setup_s=round(t0 - entry, 6),
             host_build_s=round(builder.host_build_s, 6),
             device_s=round(device_s, 6), eval_s=round(eval_s, 6),
             prefetch=bool(use_prefetch), devices=1,
             window=W if windowed else 1,
-            device=str(dev), state_dtype="fp32", state_residency="device",
+            device=str(dev),
+            # "fp32" whenever no codec ran: a codec-less strategy stores
+            # full-precision state whatever the config asked for
+            state_dtype=str(cfg.state_dtype) if codec is not None
+            else "fp32",
+            state_residency="host" if pool is not None else "device",
             fold_mode="associative" if associative else "sequential",
             stacked_state_bytes=int(stacked_state_bytes),
             # the allocator's peak on the card (0: not measured on the CPU)
             peak_device_bytes=int(torch.cuda.max_memory_allocated(dev))
             if on_card else 0,
+            # host-pool footprint and gather / patch / scatter traffic
+            # (all zero under device residency: the stack never moves)
+            host_pool_bytes=int(pool.nbytes) if pool is not None else 0,
+            gathered_rows=int(pool.gathered_rows) if pool is not None else 0,
+            scattered_rows=int(pool.scattered_rows) if pool is not None
+            else 0,
+            gather_s=round(pool.gather_s, 6) if pool is not None else 0.0,
+            scatter_s=round(pool.scatter_s, 6) if pool is not None else 0.0,
             staleness_mean=round(builder.staleness.mean, 4),
             staleness_max=int(builder.staleness.max),
             availability_utilization=round(

@@ -11,11 +11,13 @@ fold), and a blocking host read — which makes them both the numerical
 oracle for the engine's equivalence tests and the honest per-arrival
 baseline for throughput.
 
-The slice covers fp32 client state, the identity upload codec, no faults
-and no admission guards; a config that needs more raises ``ValueError``
-naming the knob.  Every entry point takes ``device`` (None: the CUDA
-card) and ``init_params`` (a name -> array mapping that replaces the
-seeded draw of ``w0``), and returns ``{t: {name: numpy weight}}``.
+The slice covers every state codec (``state_dtype``: each stored row
+makes the engine's ``decode(encode(.))`` round trip), the identity
+upload codec, no faults and no admission guards; a config that needs
+more raises ``ValueError`` naming the knob.  Every entry point takes
+``device`` (None: the CUDA card) and ``init_params`` (a name -> array
+mapping that replaces the seeded draw of ``w0``), and returns ``{t:
+{name: numpy weight}}``.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
+from repro_torch.common.dtypes import resolve_state_dtype
 from repro_torch.common.pytree import (tree_axpy, tree_map, tree_sub,
                                        tree_zeros_like)
 from repro_torch.core import client as client_lib
@@ -71,8 +74,7 @@ def _check_slice(cfg: RunConfig, clients) -> None:
         raise ValueError(f"{knob}={value!r} is not ported yet (the port's "
                          f"oracles run {accepted})")
 
-    if cfg.state_dtype not in (None, "fp32", "float32"):
-        refuse("state_dtype", cfg.state_dtype, "fp32 client state")
+    resolve_state_dtype(cfg.state_dtype)
     if cfg.upload_codec != "identity":
         refuse("upload_codec", cfg.upload_codec, "upload_codec='identity'")
     if cfg.max_staleness is not None:
@@ -96,6 +98,31 @@ def _setup(model, cfg: RunConfig, clients, device,
     # identity upload codec: one arrival transmits the fp32 delta
     nbytes = float(sum(v.numel() * v.element_size() for v in w0.values()))
     return dev, w0, nbytes
+
+
+def _state_roundtripper(cfg: RunConfig, alg: str, model, w0):
+    """Per-arrival oracle of the engine's reduced-precision *stored*
+    client state: ``decode(encode(state))`` through the strategy's
+    codec, applied wherever the engine would scatter a row back encoded.
+    Idempotent (quantized codes are stable under re-encode).  None for
+    the identity (fp32) codec, which leaves the loops untouched."""
+    from repro_torch.core.algorithms import get_strategy
+
+    codec = get_strategy(alg).state_codec(model, cfg, w0)
+    if codec is None:
+        return None
+    return lambda st: codec.decode(codec.encode(st))
+
+
+def _stale_copy_roundtripper(cfg: RunConfig, alg: str, model, w0):
+    """FedAsync's / FedBuff's round trip of one stored stale copy:
+    ``(w, version) -> w``."""
+    srt = _state_roundtripper(cfg, alg, model, w0)
+    if srt is None:
+        return lambda wl, v: wl
+    dev = next(iter(w0.values())).device
+    return lambda wl, v: srt({"w": wl, "version": torch.tensor(
+        float(v), dtype=torch.float32, device=dev)})["w"]
 
 
 def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -181,6 +208,9 @@ def run_asofed_reference(model, cfg_model, clients, cfg: RunConfig, *,
                          keep_copies=False)
     cstate = {c.cid: client_lib.init_client_state(w0, c.stream.visible(0))
               for c in active}
+    srt = _state_roundtripper(cfg, "asofed", model, w0)
+    if srt is not None:  # the engine stores the initial stack encoded
+        cstate = {cid: srt(st) for cid, st in cstate.items()}
     grad_fn = avg_surrogate_grad(model, cfg)
     n_evals = 0
 
@@ -230,6 +260,8 @@ def run_asofed_reference(model, cfg_model, clients, cfg: RunConfig, *,
             use_kernel=cfg.feature_kernel)
         t = server.t
         cstate[a.cid] = client_lib.receive_server_model(st, server.w)
+        if srt is not None:  # the row is scattered back encoded
+            cstate[a.cid] = srt(cstate[a.cid])
         if collect_trace:
             traj[t] = _host(server.w)
         if _evaluates(cfg, t):
@@ -257,8 +289,9 @@ def run_fedasync_reference(model, cfg_model, clients, cfg: RunConfig, *,
     dev, w, upload_bytes = _setup(model, cfg, clients, device, init_params)
     sched = _make_scheduler(clients, cfg, upload_bytes)
     sgd = sgd_epochs(model, cfg, mu=0.005)
+    rt_w = _stale_copy_roundtripper(cfg, "fedasync", model, w)
     version = {c.cid: 0 for c in sched.active}
-    local_w = {c.cid: w for c in sched.active}
+    local_w = {c.cid: rt_w(w, 0) for c in sched.active}
     trainable = {c.cid for c in sched.active if c.stream.n > 0}
     traj: Dict[int, Dict[str, np.ndarray]] = {}
     churn = _ChurnStats()
@@ -283,7 +316,7 @@ def run_fedasync_reference(model, cfg_model, clients, cfg: RunConfig, *,
         w = tree_map(lambda x, y: (1 - alpha_t) * x + alpha_t * y, w, wk)
         t += 1
         version[a.cid] = t
-        local_w[a.cid] = w
+        local_w[a.cid] = rt_w(w, t)  # the row is scattered back encoded
         if collect_trace:
             traj[t] = _host(w)
         if _evaluates(cfg, t):
@@ -314,8 +347,9 @@ def run_fedbuff_reference(model, cfg_model, clients, cfg: RunConfig, *,
     dev, w, upload_bytes = _setup(model, cfg, clients, device, init_params)
     sched = _make_scheduler(clients, cfg, upload_bytes)
     sgd = sgd_epochs(model, cfg, mu=0.0)
+    rt_w = _stale_copy_roundtripper(cfg, "fedbuff", model, w)
     version = {c.cid: 0 for c in sched.active}
-    local_w = {c.cid: w for c in sched.active}
+    local_w = {c.cid: rt_w(w, 0) for c in sched.active}
     trainable = {c.cid for c in sched.active if c.stream.n > 0}
     M = int(cfg.buffer_size)
     buf = tree_zeros_like(w)
@@ -348,7 +382,7 @@ def run_fedbuff_reference(model, cfg_model, clients, cfg: RunConfig, *,
             count = 0
         t += 1
         version[a.cid] = t
-        local_w[a.cid] = w
+        local_w[a.cid] = rt_w(w, t)  # the row is scattered back encoded
         if collect_trace:
             traj[t] = _host(w)
         if _evaluates(cfg, t):

@@ -230,7 +230,10 @@ def test_client_step_matches_jax():
 
 @pytest.mark.parametrize("cfg_kw,knob", [
     (dict(upload_codec="topk_sparse"), "upload_codec"),
-    (dict(state_dtype="int8"), "state_dtype"),
+    # the state codecs are ported (tests/test_torch_state_pool.py): an
+    # unknown state dtype still raises, with the JAX package's message
+    pytest.param(dict(state_dtype="int3"), "unknown state dtype 'int3'",
+                 id="cfg_kw1-state_dtype"),
     (dict(max_staleness=4.0), "max_staleness"),
     (dict(max_delta_norm=1.0), "max_delta_norm"),
     (None, "faults"),
