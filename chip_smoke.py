@@ -35,11 +35,22 @@ drives the port's paths through its entry points:
   the host pool (``state_residency="host"``): asofed's sequential fold
   (``feature_fold`` once a tick) and fedasync's associative one (K2),
   host and device bit for bit, pool bytes from the leaf table, and the
-  int8 host engine against the port's oracle on the card.
+  int8 host engine against the port's oracle on the card;
+* ``chaos_path``: main_path's shape under the chaos layer
+  (``tests/test_faults.py``'s mixed faults at rate 0.15 and its guards,
+  ``max_staleness`` 8 and ``max_delta_norm`` 0.5): asofed with the
+  ``random_mask`` upload codec (``feature_fold`` once a tick, with each
+  slot's fold count read on the card), fedasync associative under noise
+  corruption, the downweight policy and ``quantized_delta`` (K2 five
+  times a tick), fedbuff sequential; host and device residency bit for
+  bit, the port's asofed oracle against the engine (one per-row K1
+  launch a server fold, two for a duplicate), the card against the CPU,
+  and the synchronizing calls of a chaos window against main_path's.
 
 Before the paths, ``fold_vs_plain`` holds ``feature_fold`` against its
 plain version (the per-arrival loop) and times it beside the per-arrival
-chain it replaced (the loop with K1 in it).  Each path is driven with
+chain it replaced (the loop with K1 in it), with and without a per-slot
+fold count (``reps``: 0, 1 or 2 folds a slot).  Each path is driven with
 the launch counts set to 0 just before it and read just after.  Then
 the card's trajectories are held against the CPU's for every ported
 strategy, the associative fold against the sequential one on the card,
@@ -59,6 +70,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -118,6 +130,11 @@ FOLD_CASES = [("main_tick", "lstm_regression", MAIN_HIDDEN, 64, 51, False),
 # K1's fp32 bound (1e-6 per unit of the largest magnitude), compounded
 # over the tick's arrivals (each starts from the previous one's result)
 FOLD_TOL_PER_ARRIVAL = 1e-6
+# feature_fold with a per-slot fold count at the main path's tick: (name,
+# pattern of the 51 real slots' counts).  The gate is sum(reps) x 1e-6
+# per unit: one FOLD_TOL_PER_ARRIVAL a fold
+FOLD_REPS_CASES = [("main_tick_reps", "mixed"), ("main_tick_dup", "dup_all"),
+                   ("main_tick_skip", "skip_half")]
 # carrier leaves of the paper LSTM (w_x, w_h, b, fc_w, fc_b): K2 launches
 # per associative tick
 LSTM_LEAVES = 5
@@ -328,17 +345,21 @@ def phase_scan_vs_plain():
     return rows_out
 
 
-def fold_bound(w, S: int, n_real: int, rows: int, cols: int, n_len: int):
+def fold_bound(w, S: int, n_real: int, rows: int, cols: int, n_len: int,
+               folds=None):
     """(bound_ms, bound_by) of one tick's fused fold on these inputs:
     every leaf read once and written once, the real slots' uploads, idx
-    (int64) and n_vis read, all S received models written, n read and
-    written, over HBM bandwidth; against the axpy's multiply and add on
-    every element and the feature pass on the first layer, per real
-    arrival, over the fp32 peak."""
+    (int64), n_vis (and reps, int32, when given) read, all S received
+    models written, n read and written, over HBM bandwidth; against the
+    axpy's multiply and add on every element and the feature pass on the
+    first layer, per fold (``folds``: sum(reps); None: one a real
+    arrival), over the fp32 peak."""
     numel = sum(x.numel() for x in w.values())
-    nbytes = 4 * ((2 + n_real + S) * numel + 2 * n_len) + 12 * n_real
+    nbytes = 4 * ((2 + n_real + S) * numel + 2 * n_len) + 12 * n_real \
+        + (0 if folds is None else 4 * n_real)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops = n_real * (2 * numel + FEATURE_OPS_PER_ELEM * rows * cols)
+    ops = (n_real if folds is None else folds) * (
+        2 * numel + FEATURE_OPS_PER_ELEM * rows * cols)
     ops_ms = ops / FP32_OPS_PER_S * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
                                                            "operations")
@@ -472,7 +493,69 @@ def phase_fold_vs_plain():
         emit(rec)
         out[name] = rec
         del w, d
+    # the chaos layer's fold counts: admitted slots fold once, duplicated
+    # ones twice, rejected ones not at all, read by the kernel on the card
+    _, name, hidden, S, n_real, _ = FOLD_CASES[0]
+    for tag, pattern in FOLD_REPS_CASES:
+        wl, cfg_model, model, w, d, n, idx, n_vis = _fold_inputs(
+            name, hidden, S, n_real, False, 0)
+        first = first_layer_path(cfg_model)
+        reps = torch.tensor(_fold_reps(pattern, S, n_real), device=DEV)
+        folds = int(reps.sum())
+
+        def kern():
+            return feature_fold(w, d, first, n, idx, n_vis, n_real,
+                                reps=reps)
+
+        def kern_none():
+            return feature_fold(w, d, first, n, idx, n_vis, n_real)
+
+        def plain():
+            return feature_fold_ref(w, d, first, n, idx, n_vis, n_real,
+                                    reps=reps)
+
+        gate = max(folds, 1) * FOLD_TOL_PER_ARRIVAL
+        err, per_unit = _fold_check(f"feature_fold {tag}", kern(), plain(),
+                                    first, n_real, gate)
+        rows = w[first].numel() // w[first].shape[-1]
+        cols = w[first].shape[-1]
+        bound_ms, bound_by = fold_bound(w, S, n_real, rows, cols,
+                                        n.numel(), folds)
+        ms = device_ms(kern)
+        rec = {"phase": "fold_vs_plain", "kernel": "feature_fold",
+               "case": tag, "reps_pattern": pattern, "workload": name,
+               "hidden": hidden, "first_layer": first,
+               "first_shape": [rows, cols], "S": S, "n_real": n_real,
+               "folds": folds, "reps": reps.tolist(),
+               "max_abs_err": err, "err_per_unit": per_unit,
+               "tolerance_per_unit": gate,
+               "other_leaves_and_n": "bitwise",
+               "ms": ms, "call_ms": call_ms(kern),
+               "none_ms": device_ms(kern_none),
+               # the plain version reads reps on the host (a branch a
+               # slot), which a CUDA graph cannot capture: eager time
+               "plain_ms": call_ms(plain, reps=5),
+               "plain_timing": "eager, CUDA events",
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "bound_share": bound_ms / ms}
+        emit(rec)
+        out[tag] = rec
+        del w, d
     return out
+
+
+def _fold_reps(pattern: str, S: int, n_real: int):
+    """(S,) int32 fold counts of the real slots (padded slots 0): a
+    seeded draw over {0, 1, 2}, every slot twice, or every other slot
+    skipped."""
+    reps = np.zeros(S, np.int32)
+    if pattern == "mixed":
+        reps[:n_real] = np.random.default_rng(7).integers(0, 3, n_real)
+    elif pattern == "dup_all":
+        reps[:n_real] = 2
+    else:
+        reps[:n_real] = np.arange(n_real) % 2
+    return reps
 
 
 def _main_setup(T: int, **cfg_kw):
@@ -1146,6 +1229,240 @@ def phase_residency_path(K: int = RES_K, T: int = RES_T,
 
 
 # the affine strategies at small width: (strategy, config overrides, T)
+# ---------------------------------------------------------------------------
+# The chaos layer at the main path's shape
+# ---------------------------------------------------------------------------
+
+# tests/test_faults.py's mixed spec and guards; (name, strategy, fault
+# kind, RunConfig overrides): (a) asofed, the sequential fold through
+# feature_fold with reps, random_mask uploads; (b) fedasync, the
+# associative fold (K2), noise corruption, the downweight policy,
+# quantized_delta uploads; (c) fedbuff, the sequential per-arrival fold
+CHAOS_GUARDS = {"max_staleness": 8.0, "max_delta_norm": 0.5}
+CHAOS_RUNS = [
+    ("a", "asofed", "nan", {**CHAOS_GUARDS, "upload_codec": "random_mask",
+                            "upload_frac": 0.1}),
+    ("b", "fedasync", "noise", {"max_staleness": 8.0,
+                                "staleness_policy": "downweight",
+                                "upload_codec": "quantized_delta",
+                                "fold_mode": "associative"}),
+    ("c", "fedbuff", "nan", dict(CHAOS_GUARDS)),
+]
+CHAOS_FAULT_RATE = 0.15
+# depth of the oracle check (e) and of the card-vs-CPU runs (f)
+CHAOS_ORACLE_T, CHAOS_CPU_T = 128, 128
+CHAOS_COUNTERS = ("rejected_uploads", "clipped_uploads", "lost_uploads",
+                  "retried_uploads", "crashed_clients",
+                  "duplicated_arrivals", "corrupted_arrivals")
+
+
+def _chaos_run(T: int, alg: str, kind: str, cfg_kw: dict, device="cuda",
+               trace=None, **run_kw):
+    """(history, wall seconds, stats) of one run at the main path's shape
+    with every client under FaultSpec.uniform(CHAOS_FAULT_RATE, seed=42,
+    corrupt_kind=kind)."""
+    from repro_torch.core.algorithms import get_strategy
+    from repro_torch.sim.engine import run_strategy
+    from repro_torch.sim.faults import FaultSpec, with_faults
+
+    model, cfg_model, clients, cfg = _main_setup(T, **cfg_kw)
+    clients = with_faults(clients, [FaultSpec.uniform(
+        CHAOS_FAULT_RATE, seed=42, corrupt_kind=kind)] * len(clients))
+    stats = {}
+    t0 = time.perf_counter()
+    hist = run_strategy(get_strategy(alg), model, cfg_model, clients, cfg,
+                        stats=stats, trace=trace, device=device, **run_kw)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return hist, time.perf_counter() - t0, stats
+
+
+# the port's compute code (the tick, the strategies, the kernels' wrappers,
+# the PRNG): a synchronizing call made there on every tick would stall it
+COMPUTE_SOURCES = ("repro_torch/sim/compile.py", "repro_torch/core/",
+                   "repro_torch/kernels/", "repro_torch/common/")
+
+
+def _sync_calls(run):
+    """(run's result, {"file:line": count} of the synchronizing CUDA calls
+    it made): the calls ``torch.cuda.set_sync_debug_mode("warn")``
+    reports, over every thread of the run (the prefetch thread's copies
+    included), by the Python line that made them."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    where = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{os.path.relpath(w.filename, HERE)}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    return out, where
+
+
+def phase_chaos_path():
+    """The chaos layer at main_path's shape: (a)-(c) driven with the
+    launch counts set to 0 just before each, (d) host vs device bit for
+    bit, (e) the asofed oracle on the card against the engine, (f) the
+    card against the CPU, the synchronizing calls of (a) against
+    main_path's at the same depth, and one profiled run of (a).  Returns
+    (a)'s feature_fold launches,
+    (b)'s K2 launches and the oracle check's per-row K1 launches."""
+    from repro_torch.sim import reference
+
+    phase_t0 = time.perf_counter()
+    _chaos_run(64, *CHAOS_RUNS[0][1:])  # warm-up at (a)'s shapes
+    fold_a = scan_b = 0
+    for tag, alg, kind, kw in CHAOS_RUNS:
+        _reset_launches()
+        hist, wall, stats = _chaos_run(MAIN_T, alg, kind, kw)
+        k1, k2 = _launches()
+        fold = _fold_launches()
+        ticks = stats["ticks"]
+        want = {"asofed": (ticks, 0, 0), "fedasync": (0, 0, 5 * ticks),
+                "fedbuff": (0, 0, 0)}[alg]
+        if (fold, k1, k2) != want or stats["iters"] != MAIN_T:
+            raise AssertionError(
+                f"chaos path ({tag}) {alg}: feature_fold {fold}, per-row K1 "
+                f"{k1}, K2 {k2} for {ticks} ticks (expected {want}); "
+                f"iters {stats['iters']}")
+        _finite(hist)
+        # every fault kind fires; the guards reject (NaN payloads) or, under
+        # the downweight policy, rescale
+        guard = "clipped_uploads" if kw.get("staleness_policy") == \
+            "downweight" else "rejected_uploads"
+        if not all(stats[c] for c in (
+                guard, "crashed_clients", "duplicated_arrivals",
+                "corrupted_arrivals", "retried_uploads")):
+            raise AssertionError(f"chaos path ({tag}): a fault kind or the "
+                                 f"guard never fired: "
+                                 f"{ {c: stats[c] for c in CHAOS_COUNTERS} }")
+        fold_a, scan_b = (fold if tag == "a" else fold_a,
+                          k2 if tag == "b" else scan_b)
+        emit({"phase": "chaos_path", "run": tag, "strategy": alg,
+              "fault_rate": CHAOS_FAULT_RATE, "corrupt_kind": kind, **kw,
+              "workload": "lstm_regression", "hidden": MAIN_HIDDEN,
+              "clients": MAIN_CLIENTS, "T": MAIN_T, "batch_size": 32,
+              "local_epochs": 2, "window": 32, "iters": stats["iters"],
+              "ticks": ticks, "windows": stats["windows"], "wall_s": wall,
+              "iters_per_s": stats["iters"] / wall,
+              "device_s": stats["device_s"],
+              "host_build_s": stats["host_build_s"],
+              "upload_bytes": stats["upload_bytes"],
+              **{c: stats[c] for c in CHAOS_COUNTERS},
+              "feature_fold_launches": fold, "feature_kernel_launches": k1,
+              "scan_kernel_launches": k2,
+              "smape": hist[-1].metrics["smape"]})
+    # (d) host vs device residency, bit for bit
+    tag, alg, kind, kw = CHAOS_RUNS[0]
+    traces = {}
+    for residency in ("device", "host"):
+        traces[residency] = []
+        _, _, stats = _chaos_run(MAIN_T, alg, kind,
+                                 {**kw, "state_residency": residency},
+                                 trace=traces[residency])
+    worst = _compare(traces["host"], traces["device"], "chaos host vs device",
+                     atol=0.0)
+    if worst != 0.0:
+        raise AssertionError(f"chaos path: host and device residency differ "
+                             f"by {worst}")
+    emit({"phase": "chaos_residency", "strategy": alg, "T": MAIN_T,
+          "boundaries": len(traces["host"]), "max_abs_diff": worst,
+          "host_pool_bytes": stats["host_pool_bytes"]})
+    # (e) the port's asofed oracle on the card against the engine
+    model, cfg_model, clients, cfg = _main_setup(CHAOS_ORACLE_T, **kw)
+    from repro_torch.sim.faults import FaultSpec, with_faults
+
+    clients = with_faults(clients, [FaultSpec.uniform(
+        CHAOS_FAULT_RATE, seed=42, corrupt_kind=kind)] * len(clients))
+    ostats = {}
+    _reset_launches()
+    t0 = time.perf_counter()
+    traj = reference.run_asofed_reference(model, cfg_model, clients, cfg,
+                                          stats=ostats, device=DEV)
+    torch.cuda.synchronize()
+    o_wall = time.perf_counter() - t0
+    k1, k2 = _launches()
+    k1_oracle = k1
+    trace = []
+    _reset_launches()
+    _, e_wall, estats = _chaos_run(CHAOS_ORACLE_T, alg, kind, kw,
+                                   trace=trace)
+    ek1, _ = _launches()
+    efold = _fold_launches()
+    if k1 != ostats["folds"] or k2 != 0 or ek1 != 0 \
+            or efold != estats["ticks"] \
+            or any(ostats[c] != estats[c] for c in ("rejected_uploads",
+                                                    "clipped_uploads")):
+        raise AssertionError(
+            f"chaos oracle: {k1} per-row K1 launches for {ostats['folds']} "
+            f"server folds, K2 {k2}; the engine K1 {ek1}, feature_fold "
+            f"{efold} for {estats['ticks']} ticks; rejected / clipped "
+            f"{ostats['rejected_uploads']} / {ostats['clipped_uploads']} "
+            f"(oracle) vs {estats['rejected_uploads']} / "
+            f"{estats['clipped_uploads']} (engine)")
+    worst = _compare_to_oracle(trace, traj, "chaos asofed engine vs oracle")
+    emit({"phase": "chaos_oracle", "strategy": alg, "T": CHAOS_ORACLE_T,
+          "oracle_iters": ostats["iters"], "oracle_folds": ostats["folds"],
+          "oracle_wall_s": o_wall,
+          "oracle_iters_per_s": ostats["iters"] / o_wall,
+          "engine_wall_s": e_wall, "oracle_feature_kernel_launches": k1,
+          "engine_feature_fold_launches": efold,
+          "rejected_uploads": ostats["rejected_uploads"],
+          "clipped_uploads": ostats["clipped_uploads"],
+          "shared_boundaries": len(trace), "max_abs_diff": worst,
+          "atol": TRAJ_ATOL, "rtol": TRAJ_RTOL})
+    # (f) the card against the CPU
+    for tag, alg, kind, kw in CHAOS_RUNS:
+        tr_gpu, tr_cpu = [], []
+        _chaos_run(CHAOS_CPU_T, alg, kind, kw, trace=tr_gpu)
+        _, cpu_wall, _ = _chaos_run(CHAOS_CPU_T, alg, kind, kw,
+                                    device="cpu", trace=tr_cpu)
+        worst = _compare(tr_gpu, tr_cpu, f"chaos ({tag}) {alg} card vs CPU")
+        emit({"phase": "chaos_card_vs_cpu", "run": tag, "strategy": alg,
+              "T": CHAOS_CPU_T, "boundaries": len(tr_gpu),
+              "max_abs_diff": worst, "atol": TRAJ_ATOL, "rtol": TRAJ_RTOL,
+              "cpu_wall_s": cpu_wall})
+    # the guards add no host read: synchronizing calls of (a) against
+    # main_path's at the same depth, those of the compute code apart
+    tag, alg, kind, kw = CHAOS_RUNS[0]
+    (_, _, cstats), c_where = _sync_calls(
+        lambda: _chaos_run(MAIN_T, alg, kind, kw))
+    mstats = {}
+    _, m_where = _sync_calls(lambda: _main_path_run(MAIN_T, mstats))
+
+    def in_compute(where):
+        return sum(n for k, n in where.items()
+                   if any(src in k for src in COMPUTE_SOURCES))
+
+    c_comp, m_comp = in_compute(c_where), in_compute(m_where)
+    if c_comp > m_comp:
+        raise AssertionError(
+            f"chaos path: {c_comp} synchronizing calls in the compute code "
+            f"against main_path's {m_comp}: {c_where}")
+    emit({"phase": "chaos_sync_calls",
+          "chaos_sync_calls": sum(c_where.values()),
+          "chaos_windows": cstats["windows"], "chaos_ticks": cstats["ticks"],
+          "main_sync_calls": sum(m_where.values()),
+          "main_windows": mstats["windows"], "main_ticks": mstats["ticks"],
+          "chaos_in_compute_code": c_comp, "main_in_compute_code": m_comp,
+          "chaos_by_line": c_where, "main_by_line": m_where})
+    # where (a)'s device time goes (torch.profiler)
+    (_, wall, _), _, per = _device_profile(
+        lambda: _chaos_run(MAIN_T, alg, kind, kw))
+    emit({"phase": "chaos_profile", "run": tag, "strategy": alg,
+          "wall_s": wall, **_profile_record(per, wall, (
+              "feature_attention_rows", "feature_fold_tick",
+              "linear_scan_channels"))})
+    emit({"phase": "chaos_path_total",
+          "wall_s": time.perf_counter() - phase_t0})
+    return fold_a, scan_b, k1_oracle
+
+
 AFFINE = [("fedasync", {}, 60), ("fedbuff", {"buffer_size": 3}, 60),
           ("asofed", {"feature_learning": False}, 60),
           ("fedavg", {"participation": 0.6}, 10),
@@ -1617,7 +1934,7 @@ def phase_serve_card_vs_cpu():
 SERVE_PHASES = ("flash_vs_plain", "serve_path", "serve_path_bf16")
 # the phases --only can run alone (after the build), in this order
 ONLY_PHASES = ("main_path", "assoc_path", "oracle_path", "sweep_path",
-               "paper_rows", "residency_path") + SERVE_PHASES
+               "paper_rows", "residency_path", "chaos_path") + SERVE_PHASES
 
 
 def serve_phases(names):
@@ -1656,7 +1973,8 @@ def _flash_entry(name, rec, launches, by_path, design):
                          + design,
         "launches_by_path": {"main_path": 0, "assoc_path": 0,
                              "oracle_path": 0, "sweep_path": 0,
-                             "residency_path": 0, **by_path}}
+                             "residency_path": 0, "chaos_path": 0,
+                             **by_path}}
 
 
 def main(argv=None) -> int:
@@ -1702,6 +2020,8 @@ def main(argv=None) -> int:
             phase_paper_rows()
         if "residency_path" in only:
             phase_residency_path()
+        if "chaos_path" in only:
+            phase_chaos_path()
         serve_phases(only)
         print(card_line(), flush=True)
         emit({"ok": True, "only": only, "device": {
@@ -1720,11 +2040,13 @@ def main(argv=None) -> int:
     phase_sweep_path()
     phase_paper_rows()
     res_fold, res_scan, res_k1 = phase_residency_path()
+    chaos_fold, chaos_scan, chaos_k1 = phase_chaos_path()
     phase_card_vs_cpu()
     fv, flash_launches, flash_launches_bf16 = serve_phases(SERVE_PHASES)
     phase_serve_card_vs_cpu()
     main_rec = kv[((8, 256), torch.float32, True)]
     fold_rec = fv_fold["main_tick"]
+    reps_rec = fv_fold["main_tick_reps"]
     # K2 at the main path's largest leaf (w_h), a = 1: the case with a
     # library yardstick (torch.cumsum); the kernel's time does not depend
     # on the values of a
@@ -1746,6 +2068,26 @@ def main(argv=None) -> int:
         "launches_by_path": {"main_path": launches, "assoc_path": 0,
                              "oracle_path": 0, "sweep_path": 0,
                              "residency_path": res_fold,
+                             "chaos_path": chaos_fold,
+                             "serve_path": 0, "serve_path_bf16": 0}}, {
+        # the same kernel with the chaos layer's per-slot fold counts
+        # (reps, read on the card) at the main path's tick; chaos_path's
+        # run (a) launches it once a tick
+        "name": "feature_fold_reps", "route": "cuda",
+        "source": "src/repro_torch/kernels/feature_attention/csrc/"
+                  "feature_attention.cu",
+        "replaces": "src/repro/kernels/feature_attention/kernel.py:38 "
+                    "inside src/repro/sim/compile.py:339-352",
+        "launches": chaos_fold, "max_abs_err": reps_rec["max_abs_err"],
+        "ms": reps_rec["ms"], "plain_ms": reps_rec["plain_ms"],
+        "bound_ms": reps_rec["bound_ms"], "bound_by": reps_rec["bound_by"],
+        "library_ms": None, "none_ms": reps_rec["none_ms"],
+        "call_ms": reps_rec["call_ms"],
+        "shape": {"S": reps_rec["S"], "n_real": reps_rec["n_real"],
+                  "folds": reps_rec["folds"]},
+        "launches_by_path": {"main_path": 0, "assoc_path": 0,
+                             "oracle_path": 0, "sweep_path": 0,
+                             "residency_path": 0, "chaos_path": chaos_fold,
                              "serve_path": 0, "serve_path_bf16": 0}}, {
         # the per-row K1 at the first layer's shape (8, 256), held against
         # its plain version; oracle_path reaches it once a fold
@@ -1761,6 +2103,7 @@ def main(argv=None) -> int:
         "launches_by_path": {"main_path": 0, "assoc_path": 0,
                              "oracle_path": k1_oracle, "sweep_path": 0,
                              "residency_path": res_k1,
+                             "chaos_path": chaos_k1,
                              "serve_path": 0, "serve_path_bf16": 0}}, {
         "name": "linear_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
@@ -1773,6 +2116,7 @@ def main(argv=None) -> int:
         "launches_by_path": {"main_path": 0, "assoc_path": scan_launches,
                              "oracle_path": 0, "sweep_path": 0,
                              "residency_path": res_scan,
+                             "chaos_path": chaos_scan,
                              "serve_path": 0, "serve_path_bf16": 0}},
         # K3 at the serve path's shape, N(0, 1) inputs: the fp32 design
         # on serve_path, the bf16 (tensor-core) design on serve_path_bf16

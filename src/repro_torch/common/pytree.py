@@ -126,3 +126,33 @@ def tree_where(pred: torch.Tensor, a: Tree, b: Tree) -> Tree:
         lambda x, y: torch.where(bcast_rows(pred, x) if pred.dim() else pred,
                                  x, y), a, b)
 
+
+
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over every axis but the leading (cohort) one."""
+    return x.reshape(x.shape[0], -1).sum(dim=1)
+
+
+def tree_any_nan(a: Tree) -> torch.Tensor:
+    """Per row of a tree stacked over a leading cohort axis: True where
+    any leaf holds a NaN or an Inf (``repro.common.pytree.tree_any_nan``
+    under the engine's vmap).  Returns a (P,) bool tensor."""
+    flags = [~torch.isfinite(x.to(torch.float32)).reshape(
+        x.shape[0], -1).all(dim=1) for x in tree_leaves(a)]
+    out = flags[0]
+    for f in flags[1:]:
+        out = out | f
+    return out
+
+
+def tree_l2_norm(a: Tree) -> torch.Tensor:
+    """Per row of a tree stacked over a leading cohort axis: the global L2
+    norm over all leaves (``repro.common.pytree.tree_l2_norm`` under the
+    engine's vmap), the per-leaf sums of squares added in flatten order.
+    Returns a (P,) fp32 tensor."""
+    sq = [_row_sum(torch.square(x.to(torch.float32)))
+          for x in tree_leaves(a)]
+    total = torch.zeros_like(sq[0])
+    for s in sq:
+        total = total + s
+    return torch.sqrt(total)

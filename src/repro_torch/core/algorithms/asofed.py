@@ -62,6 +62,12 @@ class AsoFedStrategy(Strategy):
             delay_sum=False, rounds=False, n_samples=False)
         return make_state_codec(cfg, anchor, mask)
 
+    def upload_codec_view(self, model, cfg):
+        # the upload IS the wire delta (params - new_params): the codec
+        # round-trips it in place
+        return (lambda up, c0, bcast: up,
+                lambda up, d, c0, bcast: d)
+
     def init_server(self, model, cfg_model, cfg, w0, clients, active):
         # per-client online sample counts n'_k, indexed by cid; one extra
         # scratch slot absorbs padded-slot writes.  Dropped clients hold 0
@@ -121,10 +127,11 @@ class AsoFedStrategy(Strategy):
             return None
         first = first_layer_path(cfg_model)
 
-        def fold_tick(server, delta, idx, n_vis, t_arr, n_real):
+        def fold_tick(server, delta, idx, n_vis, t_arr, n_real, reps=None):
             w, n, received = feature_fold(server["w"], delta, first,
                                           server["n"], idx, n_vis, n_real,
-                                          use_kernel=cfg.feature_kernel)
+                                          use_kernel=cfg.feature_kernel,
+                                          reps=reps)
             return {"w": w, "n": n}, received
 
         return fold_tick

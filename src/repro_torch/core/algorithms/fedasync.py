@@ -9,7 +9,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.common.pytree import bcast_rows, tree_map, tree_repeat
+from repro_torch.common.pytree import (bcast_rows, tree_map, tree_repeat,
+                                       tree_sub)
 from repro_torch.core.algorithms.common import (bool_tree, make_state_codec,
                                                 sgd_epochs)
 from repro_torch.sim.engine import Strategy
@@ -40,6 +41,19 @@ class FedAsyncStrategy(Strategy):
 
     def state_codec(self, model, cfg, w0):
         return stale_copy_codec(cfg, w0)
+
+    def upload_codec_view(self, model, cfg):
+        # the wire delta is the local progress wk - w_stale (the pre-round
+        # copy is the model the server last sent); the version stamp
+        # passes through
+        def extract(up, c0, bcast):
+            return tree_sub(up["wk"], c0["w"])
+
+        def rebuild(up, d, c0, bcast):
+            return {"wk": tree_map(torch.add, c0["w"], d),
+                    "version": up["version"]}
+
+        return extract, rebuild
 
     def init_server(self, model, cfg_model, cfg, w0, clients, active):
         return {"w": w0}

@@ -32,6 +32,17 @@ class FedAvgStrategy(Strategy):
     def server_broadcast(self, server):
         return server["w"]
 
+    def upload_codec_view(self, model, cfg):
+        # the upload is the full local model; its wire delta is measured
+        # against the round's broadcast
+        def extract(wk, c0, bcast):
+            return tree_map(torch.sub, wk, bcast)
+
+        def rebuild(wk, d, c0, bcast):
+            return tree_map(torch.add, bcast, d)
+
+        return extract, rebuild
+
     def build_local(self, model, cfg):
         sgd = sgd_epochs(model, cfg, mu=self.mu(cfg))
 

@@ -45,6 +45,17 @@ class FedBuffStrategy(Strategy):
         # the same layout as fedasync's
         return stale_copy_codec(cfg, w0)
 
+    def upload_codec_view(self, model, cfg):
+        # the upload carries its wire delta (pre - post SGD); the version
+        # stamp rides through
+        def extract(up, c0, bcast):
+            return up["delta"]
+
+        def rebuild(up, d, c0, bcast):
+            return {"delta": d, "version": up["version"]}
+
+        return extract, rebuild
+
     def init_server(self, model, cfg_model, cfg, w0, clients, active):
         if cfg.buffer_size < 1:
             raise ValueError(

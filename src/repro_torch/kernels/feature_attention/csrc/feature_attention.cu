@@ -171,6 +171,19 @@ extern "C" int feature_attention_launch(const void* w, void* out, int rows,
 // n_out (a separate buffer: n is read by every block) get the post-tick
 // server.
 //
+// With a fold count reps (an (S,) int32 array in device memory; null means
+// 1 for every slot), slot s folds reps[s] times: 0 leaves the server and n
+// untouched and received[s] is the model as it stands (an arrival the
+// chaos layer's admission guards rejected), 2 folds the same delta twice
+// in a row, each fold the Eq. (4) axpy and the Eq. (5)-(6) pass, with the
+// same weight both times (the count is replaced twice by the same n_vis),
+// and received[s] is the model after the second (a duplicated delivery).
+// That is the JAX tick's sequential scan with tree_where(admit & dup, ...)
+// (src/repro/sim/compile.py:339-352).  The count is read on the card, so
+// the host never waits on the admission decision.  A null reps launches
+// the instantiation with kReps = false, whose count is the constant 1:
+// the code the fold ran before counts existed.
+//
 // Bound: bytes.  At the main path's tick (paper LSTM, hidden 64: 18,753
 // fp32 a model, S = 64, n_real ~ 51) the launch reads ~3.8 MB of deltas
 // and writes 4.8 MB of received models: ~2.6 us at 3.35 TB/s.  What holds
@@ -186,7 +199,8 @@ extern "C" int feature_attention_launch(const void* w, void* out, int rows,
 //    the per-slot work runs in between.  Per slot, the count it replaces
 //    (the latest earlier write of the same client in this tick, else
 //    n[idx]: a branch-free pass over the tick's clients staged in shared
-//    memory, O(n_real) a slot) and one prefix sum give N'_s.  Counts are
+//    memory, O(n_real) a slot; a slot that does not fold adds nothing and
+//    is no earlier write) and one prefix sum give N'_s.  Counts are
 //    whole numbers: while sum(n) stays below 2^24 every partial sum is
 //    exact, so the weights equal the plain version's bit for bit, whatever
 //    the order of the sums.
@@ -235,6 +249,7 @@ struct FoldParams {
   float* n_out;
   const long long* idx;         // (S,) client of each slot
   const float* n_vis;           // (S,) its new count
+  const int* reps;              // (S,) its fold count (0-2), or null: 1
   int n_leaves, rows, cols, n_len, S, n_real, normalize;
 };
 
@@ -300,10 +315,20 @@ __device__ __forceinline__ void feature_pass_row(Row<VPL>& w, int nv,
   }
 }
 
-// One first-layer row through the whole tick (warp 0 of its block).
+// A lane's VPL values of a first-layer row from global memory (columns
+// past `cols` read as 0).
 template <int VPL, bool kAll>
-__device__ void fold_row(const FoldParams& p, const float* wt, int row,
-                         int lane, float* shared_row) {
+__device__ __forceinline__ void load_row(float* dst, const float* src,
+                                         int lane, int cols) {
+#pragma unroll
+  for (int i = 0; i < VPL; ++i)
+    dst[i] = in_row<kAll>(lane, i, cols) ? __ldg(src + 32 * i) : 0.0f;
+}
+
+// One first-layer row through the whole tick (warp 0 of its block).
+template <int VPL, bool kAll, bool kReps>
+__device__ void fold_row(const FoldParams& p, const float* wt, const int* rp,
+                         int row, int lane, float* shared_row) {
   const int cols = p.cols;
   const int nv = VPL ? VPL : (cols + 31) / 32;
   const size_t plane = static_cast<size_t>(p.rows) * cols;  // one slot
@@ -322,26 +347,26 @@ __device__ void fold_row(const FoldParams& p, const float* wt, int row,
   for (int s = 0; s < p.n_real; ++s) {
     const float nw = -wt[s];
     const float* ds = d + s * plane;
+    const int r = kReps ? rp[s] : 1;
+    // the next slot's delta row goes to dn once this slot's last axpy has
+    // read it
+    const bool next = VPL > 0 && s + 1 < p.n_real;
+    if (r == 0 && next) load_row<VPL, kAll>(dn, ds + plane, lane, cols);
+    for (int k = 0; k < r; ++k) {
 #pragma unroll
-    for (int i = 0; i < nv; ++i) {  // Eq. (4) on this row
-      const bool ok = in_row<kAll>(lane, i, cols);
-      float dv;
-      if constexpr (VPL > 0) {
-        dv = dn[i];
-      } else {
-        dv = ok ? __ldg(ds + 32 * i) : 0.0f;
+      for (int i = 0; i < nv; ++i) {  // Eq. (4) on this row
+        const bool ok = in_row<kAll>(lane, i, cols);
+        float dv;
+        if constexpr (VPL > 0) {
+          dv = dn[i];
+        } else {
+          dv = ok ? __ldg(ds + 32 * i) : 0.0f;
+        }
+        w[i] = ok ? __fadd_rn(__fmul_rn(nw, dv), w[i]) : 0.0f;
       }
-      w[i] = ok ? __fadd_rn(__fmul_rn(nw, dv), w[i]) : 0.0f;
+      if (k + 1 == r && next) load_row<VPL, kAll>(dn, ds + plane, lane, cols);
+      feature_pass_row<VPL, kAll>(w, nv, lane, cols, p.normalize);
     }
-    if constexpr (VPL > 0) {
-      if (s + 1 < p.n_real) {
-#pragma unroll
-        for (int i = 0; i < nv; ++i)
-          dn[i] = in_row<kAll>(lane, i, cols) ? __ldg(ds + plane + 32 * i)
-                                              : 0.0f;
-      }
-    }
-    feature_pass_row<VPL, kAll>(w, nv, lane, cols, p.normalize);
     float* rs = rec + s * plane;
 #pragma unroll
     for (int i = 0; i < nv; ++i)
@@ -359,11 +384,12 @@ __device__ void fold_row(const FoldParams& p, const float* wt, int row,
 }
 
 // One element of a leaf other than the first layer through the whole tick.
-__device__ void fold_elem(const FoldParams& p, const float* wt, int L,
-                          size_t e) {
+template <bool kReps>
+__device__ void fold_elem(const FoldParams& p, const float* wt,
+                          const int* rp, int L, size_t e) {
   const size_t stride = static_cast<size_t>(p.numel[L]);
   const float* dp = p.d[L] + e;
-  float* rp = p.rec[L] + e;
+  float* out = p.rec[L] + e;
   float w = p.w[L][e];
   for (int s0 = 0; s0 < p.n_real; s0 += kBatch) {
     float dv[kBatch];
@@ -373,12 +399,14 @@ __device__ void fold_elem(const FoldParams& p, const float* wt, int L,
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       if (s0 + u < p.n_real) {
-        w = __fadd_rn(__fmul_rn(-wt[s0 + u], dv[u]), w);
-        rp[(s0 + u) * stride] = w;
+        const int r = kReps ? rp[s0 + u] : 1;
+        for (int k = 0; k < r; ++k)
+          w = __fadd_rn(__fmul_rn(-wt[s0 + u], dv[u]), w);
+        out[(s0 + u) * stride] = w;
       }
     }
   }
-  for (int s = p.n_real; s < p.S; ++s) rp[s * stride] = w;
+  for (int s = p.n_real; s < p.S; ++s) out[s * stride] = w;
   p.w_out[L][e] = w;
 }
 
@@ -391,17 +419,18 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
-template <int VPL, bool kAll>
+template <int VPL, bool kAll, bool kReps>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 feature_fold_tick(const FoldParams p) {
-  // [S] the weight stream, [S] the slots' clients, [S] their new counts;
-  // then, for VPL = 0, the row
+  // [S] the weight stream, [S] the slots' clients, [S] their new counts,
+  // [S] their fold counts; then, for VPL = 0, the row
   extern __shared__ float dyn[];
   __shared__ float sh[kWarps];
   __shared__ float part, total;
   float* wt = dyn;
   int* ix = reinterpret_cast<int*>(dyn + p.S);
   float* nv = dyn + 2 * p.S;
+  int* rp = reinterpret_cast<int*>(dyn + 3 * p.S);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
   // 1. this block's eighth of N'_0 = sum(n), published to the cluster
@@ -417,7 +446,7 @@ feature_fold_tick(const FoldParams p) {
   cluster_arrive();
 
   // 2. this block's slice of the post-tick counts starts as n; the slots'
-  //    clients and new counts go to shared memory
+  //    clients, new counts and fold counts go to shared memory
   const int chunk2 = (p.n_len + gridDim.x - 1) / gridDim.x;
   const int lo2 = blockIdx.x * chunk2, hi2 = min(p.n_len, lo2 + chunk2);
   for (int k = lo2 + tid; k < hi2; k += kThreads) p.n_out[k] = p.n[k];
@@ -426,23 +455,31 @@ feature_fold_tick(const FoldParams p) {
     if (k < 0 || k >= p.n_len) __trap();  // as index_copy's bounds check
     ix[s] = static_cast<int>(k);
     nv[s] = p.n_vis[s];
+    if constexpr (kReps) {
+      const int r = p.reps[s];
+      if (r < 0 || r > 2) __trap();  // a fold count is 0, 1 or 2
+      rp[s] = r;
+    }
   }
   __syncthreads();
 
   // 3. per slot, the increment of N' (n_vis_s minus the count it replaces:
-  //    the latest earlier write of its client in this tick, else n[k]);
-  //    the last write of each client lands in its block's slice of n_out
+  //    the latest earlier folding write of its client in this tick, else
+  //    n[k]; 0 for a slot that does not fold, and a second fold of the
+  //    same slot replaces n_vis_s by itself); the last folding write of
+  //    each client lands in its block's slice of n_out
   for (int s = tid; s < p.n_real; s += kThreads) {
     const int k = ix[s];
+    const bool folds = !kReps || rp[s] > 0;
     int prev = -1;
     bool last = true;
     for (int j = 0; j < p.n_real; ++j) {
-      const bool same = ix[j] == k;
+      const bool same = ix[j] == k && (!kReps || rp[j] > 0);
       prev = j < s && same ? j : prev;
       last = last && !(j > s && same);
     }
-    wt[s] = nv[s] - (prev >= 0 ? nv[prev] : p.n[k]);
-    if (last && k >= lo2 && k < hi2) p.n_out[k] = nv[s];
+    wt[s] = folds ? nv[s] - (prev >= 0 ? nv[prev] : p.n[k]) : 0.0f;
+    if (folds && last && k >= lo2 && k < hi2) p.n_out[k] = nv[s];
   }
 
   // 4. the cluster's partial sums, in rank order, through distributed
@@ -481,7 +518,8 @@ feature_fold_tick(const FoldParams p) {
     // one row a block, so that no SM carries more than one row's loads
     // and stores; the block's other warps have nothing left to do
     if (warp == 0)
-      fold_row<VPL, kAll>(p, wt, blockIdx.x, lane, dyn + 3 * p.S);
+      fold_row<VPL, kAll, kReps>(p, wt, rp, blockIdx.x, lane,
+                                 dyn + 4 * p.S);
   } else {
     int L = 0;
     while (L < p.n_leaves && static_cast<int>(blockIdx.x) >= p.block_end[L])
@@ -490,7 +528,7 @@ feature_fold_tick(const FoldParams p) {
     const int b0 = L == 0 ? p.rows : p.block_end[L - 1];
     const size_t e = static_cast<size_t>(blockIdx.x - b0) * kThreads + tid;
     if (L < p.n_leaves && e < static_cast<size_t>(p.numel[L]))
-      fold_elem(p, wt, L, e);
+      fold_elem<kReps>(p, wt, rp, L, e);
   }
   // no block leaves while another may still read its part
   cluster_wait();
@@ -501,8 +539,10 @@ int launch_fold(const FoldParams& p, int grid, size_t smem,
                 cudaStream_t stream) {
   // every lane's VPL values are columns: no masks
   const bool all = VPL > 0 && p.cols == 32 * VPL;
-  auto kernel = all ? feature_fold_tick<VPL, true>
-                    : feature_fold_tick<VPL, false>;
+  auto kernel = p.reps ? (all ? feature_fold_tick<VPL, true, true>
+                              : feature_fold_tick<VPL, false, true>)
+                       : (all ? feature_fold_tick<VPL, true, false>
+                              : feature_fold_tick<VPL, false, false>);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -517,14 +557,15 @@ int launch_fold(const FoldParams& p, int grid, size_t smem,
 
 // C entry for ctypes.  The leaf arrays are host arrays of n_leaves
 // entries; every tensor is contiguous fp32 on the current device but idx
-// (int64).  Launches on `stream`, does not synchronise, and returns
+// (int64) and reps (int32, or null: every real slot folds once).
+// Launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() (cudaErrorInvalidValue for arguments it refuses).
 extern "C" int feature_fold_launch(
     int n_leaves, const void* const* w, const void* const* d,
     void* const* w_out, void* const* rec, const int* numel, int first,
     int rows, int cols, const void* n, void* n_out, int n_len,
-    const void* idx, const void* n_vis, int S, int n_real, int normalize,
-    void* stream) {
+    const void* idx, const void* n_vis, const void* reps, int S, int n_real,
+    int normalize, void* stream) {
   if (n_leaves < 1 || n_leaves > kMaxLeaves || first < 0 ||
       first >= n_leaves || rows < 1 || cols < 1 || n_len < 1 ||
       n_real < 1 || n_real > S || numel[first] != rows * cols)
@@ -548,6 +589,7 @@ extern "C" int feature_fold_launch(
   p.n_out = static_cast<float*>(n_out);
   p.idx = static_cast<const long long*>(idx);
   p.n_vis = static_cast<const float*>(n_vis);
+  p.reps = static_cast<const int*>(reps);
   p.w1 = static_cast<const float*>(w[first]);
   p.d1 = static_cast<const float*>(d[first]);
   p.w1_out = static_cast<float*>(w_out[first]);
@@ -564,9 +606,9 @@ extern "C" int feature_fold_launch(
     p.block_end[L] = static_cast<int>(blocks);
   }
   const long long grid = (blocks + kCluster - 1) / kCluster * kCluster;
-  // three (S,) arrays, and a wide row padded to whole warps' columns
+  // four (S,) arrays, and a wide row padded to whole warps' columns
   const size_t smem = sizeof(float) *
-      (3ULL * S + (vpl ? 0 : (cols + 31) / 32 * 32ULL));
+      (4ULL * S + (vpl ? 0 : (cols + 31) / 32 * 32ULL));
   if (grid >= (1LL << 31) || smem > 232448)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -17,7 +17,7 @@ went through the kernel.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -88,7 +88,8 @@ def _fold_entry():
     fn = lib.feature_fold_launch
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i, p, p, p, p, p, i, i, i, p, p, i, p, p, i, i, i, p]
+        fn.argtypes = [i, p, p, p, p, p, i, i, i, p, p, i, p, p, p, i, i, i,
+                       p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -97,7 +98,8 @@ def feature_fold_kernel(w: Sequence[torch.Tensor],
                         deltas: Sequence[torch.Tensor], first: int,
                         rows: int, cols: int, n: torch.Tensor,
                         idx: torch.Tensor, n_vis: torch.Tensor, n_real: int,
-                        normalize: bool = True
+                        normalize: bool = True,
+                        reps: Optional[torch.Tensor] = None
                         ) -> Tuple[List[torch.Tensor], torch.Tensor,
                                    List[torch.Tensor]]:
     """ASO-Fed's sequential server fold of one tick, in one launch.
@@ -105,11 +107,14 @@ def feature_fold_kernel(w: Sequence[torch.Tensor],
     w: the server's leaves; deltas: the uploads, ``(S, *leaf.shape)`` per
     leaf; ``w[first]`` is the first layer, ``rows * cols`` elements whose
     rows take the feature pass; n: the ``(n_len,)`` counts; idx (int64)
-    and n_vis: ``(S,)``; the first ``n_real`` slots are real.  All
-    contiguous CUDA tensors on one device, fp32 but idx.  Returns (the
-    post-tick leaves, the post-tick counts, the received models stacked
-    ``(S, *leaf.shape)``, slots past ``n_real`` a copy of the last real
-    one).  Raises on anything else."""
+    and n_vis: ``(S,)``; the first ``n_real`` slots are real; reps: None
+    (every real slot folds once) or the ``(S,)`` int32 fold count of each
+    slot (0, 1 or 2), read by the kernel from device memory.  All
+    contiguous CUDA tensors on one device, fp32 but idx and reps.
+    Returns (the post-tick leaves, the post-tick counts, the received
+    models stacked ``(S, *leaf.shape)``, slots past ``n_real`` a copy of
+    the last real one; a slot that does not fold receives the model as
+    it stands).  Raises on anything else."""
     L = len(w)
     if not 1 <= L <= FOLD_MAX_LEAVES or len(deltas) != L \
             or not 0 <= first < L:
@@ -118,21 +123,26 @@ def feature_fold_kernel(w: Sequence[torch.Tensor],
             f"one upload each and the first layer among them; got {L} "
             f"leaves, {len(deltas)} uploads, first={first}")
     floats = [*w, *deltas, n, n_vis]
-    if not all(t.is_cuda for t in floats + [idx]):
+    ints = [idx] + ([] if reps is None else [reps])
+    if not all(t.is_cuda for t in floats + ints):
         raise ValueError("feature_fold_kernel needs CUDA tensors, got "
-                         f"{sorted({str(t.device) for t in floats + [idx]})}")
+                         f"{sorted({str(t.device) for t in floats + ints})}")
     dev = n.device
-    if any(t.device != dev for t in floats + [idx]):
+    if any(t.device != dev for t in floats + ints):
         raise ValueError("feature_fold_kernel takes tensors on one device")
     if any(t.dtype != torch.float32 for t in floats) \
-            or idx.dtype != torch.int64:
+            or idx.dtype != torch.int64 \
+            or (reps is not None and reps.dtype != torch.int32):
         raise ValueError(
             "feature_fold_kernel takes float32 leaves, uploads, n and "
-            "n_vis and an int64 idx (the engine's state is fp32); got "
-            f"{sorted({str(t.dtype) for t in floats + [idx]})}")
-    if not all(t.is_contiguous() for t in floats + [idx]):
+            "n_vis, an int64 idx and an int32 reps (the engine's state is "
+            f"fp32); got {sorted({str(t.dtype) for t in floats + ints})}")
+    if not all(t.is_contiguous() for t in floats + ints):
         raise ValueError("feature_fold_kernel takes contiguous tensors")
     S = deltas[0].shape[0] if deltas[0].dim() else 0
+    if reps is not None and reps.shape != (S,):
+        raise ValueError(f"feature_fold_kernel takes reps of shape ({S},), "
+                         f"got {tuple(reps.shape)}")
     if n.dim() != 1 or idx.shape != (S,) or n_vis.shape != (S,) \
             or any(tuple(d.shape) != (S,) + tuple(x.shape)
                    for x, d in zip(w, deltas)):
@@ -150,7 +160,7 @@ def feature_fold_kernel(w: Sequence[torch.Tensor],
     if max(x.numel() for x in w) >= 2 ** 31 or n.numel() >= 2 ** 31:
         raise ValueError("a leaf or n exceeds the kernel's 32-bit "
                          "element counts")
-    smem = 4 * (3 * S + (0 if cols <= 1024 else -(-cols // 32) * 32))
+    smem = 4 * (4 * S + (0 if cols <= 1024 else -(-cols // 32) * 32))
     if smem > _SMEM_LIMIT:
         raise ValueError(
             f"feature_fold_kernel: S={S} and cols={cols} need {smem} bytes "
@@ -166,7 +176,8 @@ def feature_fold_kernel(w: Sequence[torch.Tensor],
     args = (L, ptrs(w), ptrs(deltas), ptrs(w_out), ptrs(rec),
             (ctypes.c_int * L)(*[x.numel() for x in w]), first, rows, cols,
             n.data_ptr(), n_out.data_ptr(), n.numel(), idx.data_ptr(),
-            n_vis.data_ptr(), S, n_real, int(bool(normalize)))
+            n_vis.data_ptr(), None if reps is None else reps.data_ptr(), S,
+            n_real, int(bool(normalize)))
     if n.get_device() == torch.cuda.current_device():
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     else:  # the runtime launches on its current device: switch to n's

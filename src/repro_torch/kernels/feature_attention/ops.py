@@ -54,7 +54,8 @@ def feature_attention(w: torch.Tensor, normalize: bool = True, *,
 def feature_fold(w: Dict[str, torch.Tensor], deltas: Dict[str, torch.Tensor],
                  first: str, n: torch.Tensor, idx: torch.Tensor,
                  n_vis: torch.Tensor, n_real: int, normalize: bool = True, *,
-                 use_kernel: Optional[bool] = None
+                 use_kernel: Optional[bool] = None,
+                 reps: Optional[torch.Tensor] = None
                  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
                             Dict[str, torch.Tensor]]:
     """ASO-Fed's sequential server fold of one tick (Eq. 4 on every leaf,
@@ -63,8 +64,12 @@ def feature_fold(w: Dict[str, torch.Tensor], deltas: Dict[str, torch.Tensor],
 
     ``w``: the server's flat dict of fp32 leaves; ``deltas``: the uploads,
     ``(S, *leaf.shape)``; ``n``: the counts; ``idx`` / ``n_vis``: ``(S,)``;
-    the first ``n_real`` slots are real.  On the card one launch of the
-    fused kernel; on the CPU the plain per-arrival loop
+    the first ``n_real`` slots are real.  ``reps``: None, or each slot's
+    fold count as an ``(S,)`` int32 tensor on the fold's device (0 skips
+    the slot, 1 folds it, 2 folds it twice: the chaos layer's admission
+    and duplicate delivery), read by the kernel from device memory, so
+    the host never waits on the admission decision.  On the card one
+    launch of the fused kernel; on the CPU the plain per-arrival loop
     (``feature_fold_ref``).  ``use_kernel`` as in
     :func:`feature_attention`."""
     on_card = _check_device(use_kernel, w[first])
@@ -76,13 +81,21 @@ def feature_fold(w: Dict[str, torch.Tensor], deltas: Dict[str, torch.Tensor],
     if not 1 <= n_real <= S:
         raise ValueError(f"feature_fold folds 1 to S={S} real slots, got "
                          f"n_real={n_real}")
+    if reps is not None and (reps.dtype != torch.int32
+                             or tuple(reps.shape) != (S,)
+                             or reps.device != w[first].device):
+        raise ValueError(
+            f"feature_fold takes reps as an ({S},) int32 tensor on "
+            f"{w[first].device}; got {tuple(reps.shape)} {reps.dtype} on "
+            f"{reps.device}")
     if not on_card:
         return feature_fold_ref(w, deltas, first, n, idx, n_vis, n_real,
-                                normalize)
+                                normalize, reps)
     keys = list(w)
     cols = w[first].shape[-1]
     w_out, n_out, rec = feature_fold_kernel(
         [w[k].contiguous() for k in keys],
         [deltas[k].contiguous() for k in keys], keys.index(first),
-        w[first].numel() // cols, cols, n, idx, n_vis, n_real, normalize)
+        w[first].numel() // cols, cols, n, idx, n_vis, n_real, normalize,
+        reps)
     return dict(zip(keys, w_out)), n_out, dict(zip(keys, rec))

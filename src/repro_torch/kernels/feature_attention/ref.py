@@ -15,7 +15,7 @@ sequential server fold of one tick, one arrival at a time.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -41,7 +41,8 @@ def feature_attention_ref(w: torch.Tensor, normalize: bool = True
 def feature_fold_ref(w: Dict[str, torch.Tensor],
                      deltas: Dict[str, torch.Tensor], first: str,
                      n: torch.Tensor, idx: torch.Tensor, n_vis: torch.Tensor,
-                     n_real: int, normalize: bool = True
+                     n_real: int, normalize: bool = True,
+                     reps: Optional[torch.Tensor] = None
                      ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor,
                                 Dict[str, torch.Tensor]]:
     """ASO-Fed's sequential fold of a tick's first ``n_real`` slots, in
@@ -50,15 +51,25 @@ def feature_fold_ref(w: Dict[str, torch.Tensor],
     (rows over its last axis).  The same torch ops in the same order as
     ``AsoFedStrategy.build_fold`` folded one arrival at a time, with the
     received models stacked ``(S, ...)`` and slots past ``n_real`` a copy
-    of the last real one.  Returns (w', n', received)."""
+    of the last real one.  Returns (w', n', received).
+
+    ``reps``, an ``(S,)`` integer tensor, is each slot's fold count (the
+    chaos layer's admission and duplicate delivery, as the JAX tick's
+    ``tree_where(mk & dp, ...)`` folds them): 0 leaves the server and
+    ``n`` untouched (the slot receives the current model), 1 folds once,
+    2 folds twice in a row with the same weight (the count is replaced
+    twice by the same ``n_vis``).  None folds every real slot once."""
+    counts = [1] * n_real if reps is None else reps.tolist()
     received = []
     for s in range(n_real):
-        n = n.index_copy(0, idx[s].reshape(1), n_vis[s].reshape(1))
-        weight = n_vis[s] / torch.clamp(n.sum(), min=1e-9)  # n'_k / N'
-        w = tree_axpy(-weight, tree_map(lambda u: u[s], deltas), w)
-        shape = w[first].shape
-        w[first] = feature_attention_ref(w[first].reshape(-1, shape[-1]),
-                                         normalize).reshape(shape)
+        if counts[s]:
+            n = n.index_copy(0, idx[s].reshape(1), n_vis[s].reshape(1))
+            weight = n_vis[s] / torch.clamp(n.sum(), min=1e-9)  # n'_k / N'
+        for _ in range(counts[s]):
+            w = tree_axpy(-weight, tree_map(lambda u: u[s], deltas), w)
+            shape = w[first].shape
+            w[first] = feature_attention_ref(
+                w[first].reshape(-1, shape[-1]), normalize).reshape(shape)
         received.append(w)
     pad = (received[-1],) * (deltas[first].shape[0] - n_real)
     return w, n, tree_map(lambda *rs: torch.stack(rs), *received, *pad)

@@ -5,7 +5,10 @@ asynchronous, synchronous and sweep schedules, the sequential and associative
 server folds, the stacked client state stored in fp32, bf16, fp16, int8
 or int4 (``state_dtype``) on the device or, for the async schedule, in a
 host pool (``state_residency="host"``, ``repro_torch.sim.state_pool``),
-the identity upload codec, no faults or admission guards, one device.
+the lossy upload codecs (``upload_codec``) and the chaos layer (faults
+from each client's ``FaultSpec``: crash-restart, wire corruption,
+duplicate delivery; the server's admission guards ``max_staleness`` /
+``max_delta_norm``), one device.
 The host layer — schedulers, streams, staging buffers, prefetch thread,
 telemetry log — is the JAX package's, copied unchanged, so both engines
 replay the same arrival stream draw for draw; the device side is plain
@@ -24,8 +27,8 @@ one pooled member (Global).
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``): with no card present ``run_strategy`` raises instead
-of falling back.  Knobs outside this slice raise ``ValueError`` naming
-the knob.
+of falling back.  Knobs outside this slice (checkpoints, a mesh) raise
+``ValueError`` naming the knob.
 """
 from __future__ import annotations
 
@@ -121,11 +124,15 @@ class RunConfig:
     # `feature_kernel`, for the fold's linear-recurrence kernel
     fold_mode: str = "sequential"
     fold_kernel: Optional[bool] = None
-    # upload compression: only "identity" in this slice
+    # upload compression of each arrival's wire delta: "identity" |
+    # "topk_sparse" | "random_mask" (keep `upload_frac` of each leaf) |
+    # "quantized_delta" (`upload_bits`-bit codes)
     upload_codec: str = "identity"
     upload_frac: float = 0.1
     upload_bits: int = 8
-    # admission guards (chaos layer): not in this slice
+    # admission guards (chaos layer): reject (or, under "downweight",
+    # rescale) arrivals staler than `max_staleness`, clip wire deltas to
+    # the L2 norm `max_delta_norm`; non-finite deltas are always rejected
     max_staleness: Optional[float] = None
     staleness_policy: str = "reject"
     max_delta_norm: Optional[float] = None
@@ -155,9 +162,10 @@ class Strategy:
       :meth:`telemetry_slots` to a (P,) tensor
     * fold(server, upload, idx, n_vis, t_arr) -> (server', received)
       for ONE arrival (``idx``/``n_vis``/``t_arr`` are 0-d tensors)
-    * fold_tick(server, uploads, idx, n_vis, t_arr, n_real)
+    * fold_tick(server, uploads, idx, n_vis, t_arr, n_real, reps=None)
           -> (server', received)   (optional: the whole sequential fold
-      of a tick, received stacked over the P slots)
+      of a tick, received stacked over the P slots; ``reps`` the (P,)
+      int32 fold count of each slot under the chaos layer)
     * merge(state, received) -> state   (post-fold download, stacked)
     * finalize(server) -> server        (sync barrier, e.g. FedAvg average)
     """
@@ -171,7 +179,8 @@ class Strategy:
     # run_strategy's init_params is one mapping per client
     per_client_init: bool = False
     # whether build_fold_affine stays exact under duplicate / rejected
-    # arrivals (the chaos layer, not ported yet)
+    # arrivals (the chaos layer): a declining strategy folds sequentially
+    # under faults ("auto") or raises ("associative")
     fold_affine_supports_faults: bool = True
 
     def telemetry_slots(self, cfg: RunConfig) -> Tuple[str, ...]:
@@ -208,6 +217,21 @@ class Strategy:
         state directly — the bitwise-replayable path."""
         return None
 
+    def upload_codec_view(self, model, cfg: RunConfig):
+        """Optional ``(extract, rebuild)`` pair exposing the strategy's
+        wire delta, the model-shaped tree each arrival transmits, for the
+        upload codecs and the chaos layer (``repro.sim.engine.Strategy.
+        upload_codec_view``), over trees stacked on the cohort axis:
+
+        * ``extract(upload, carry0, bcast) -> delta`` (``carry0``: the
+          clients' pre-round state, ``bcast``: the tick's broadcast);
+        * ``rebuild(upload, delta, carry0, bcast) -> upload'``: the upload
+          with its delta replaced (version stamps pass through).
+
+        None (the default): no compressible upload (the sweep baselines);
+        a lossy codec, faults or guards then fail fast."""
+        return None
+
     def build_local(self, model, cfg: RunConfig):
         raise NotImplementedError
 
@@ -217,10 +241,12 @@ class Strategy:
     def build_fold_tick(self, model, cfg_model, cfg: RunConfig):
         """Optional fused form of the sequential fold: None declines (the
         engine folds one arrival at a time with :meth:`build_fold`), else
-        ``(server, uploads, idx, n_vis, t_arr, n_real) -> (server',
-        received)`` folding the tick's first ``n_real`` slots in order,
-        exactly as that loop does, with ``received`` stacked over all P
-        slots and each padded slot a copy of the last real one."""
+        ``(server, uploads, idx, n_vis, t_arr, n_real, reps=None) ->
+        (server', received)`` folding the tick's first ``n_real`` slots in
+        order, exactly as that loop does, with ``received`` stacked over
+        all P slots and each padded slot a copy of the last real one.
+        ``reps`` (the chaos layer), a (P,) int32 tensor on the device,
+        folds slot ``s`` ``reps[s]`` times (0: skipped, 2: duplicated)."""
         return None
 
     def build_fold_affine(self, model, cfg_model, cfg: RunConfig):
@@ -316,15 +342,6 @@ def _check_slice(strategy: Strategy, cfg: RunConfig,
     if strategy.schedule not in ("async", "sync", "sweep"):
         refuse("strategy.schedule", strategy.schedule,
                "'async', 'sync' and 'sweep' strategies")
-    if cfg.upload_codec != "identity":
-        refuse("upload_codec", cfg.upload_codec, "upload_codec='identity'")
-    if cfg.max_staleness is not None:
-        refuse("max_staleness", cfg.max_staleness, "no admission guards")
-    if cfg.max_delta_norm is not None:
-        refuse("max_delta_norm", cfg.max_delta_norm, "no admission guards")
-    if any(c.profile.faults is not None and c.profile.faults.active
-           for c in clients):
-        refuse("profile.faults", "active", "fault-free clients")
     if checkpoint_path is not None:
         refuse("checkpoint_path", checkpoint_path, "without checkpoints")
     if resume_from is not None:
@@ -355,6 +372,53 @@ def _check_slice(strategy: Strategy, cfg: RunConfig,
         raise ValueError(
             f"eval_every must be >= 0 (0 disables evaluation), "
             f"got {cfg.eval_every}")
+    if cfg.staleness_policy not in ("reject", "downweight"):
+        raise ValueError(
+            f"unknown staleness_policy {cfg.staleness_policy!r}; "
+            "accepted: 'reject' | 'downweight'")
+
+
+def faults_active(clients: Sequence[SimClient]) -> bool:
+    """Whether any client carries an active ``FaultSpec``: the run's
+    ticks are then fault-aware (crash-restart, wire corruption, duplicate
+    double folds), and the admission guards act with them."""
+    return any(c.profile.faults is not None and c.profile.faults.active
+               for c in clients)
+
+
+def _check_chaos(strategy: Strategy, model, cfg: RunConfig,
+                 faults_on: bool):
+    """The run's ``UploadCodec`` and whether its ticks are chaos ticks,
+    after ``repro.sim.engine.run_strategy``'s checks (same messages): a
+    lossy codec, faults or guards on a strategy with no wire-delta view,
+    and faults on an async strategy that cannot rebuild a crashed row,
+    fail before any work is done."""
+    # imported here: the strategy modules import Strategy from this
+    # module, so a top-level import of repro_torch.core would be circular
+    from repro_torch.core.algorithms.common import resolve_upload_codec
+
+    ucodec = resolve_upload_codec(cfg)
+    uview = strategy.upload_codec_view(model, cfg)
+    if not ucodec.identity and uview is None:
+        raise ValueError(
+            f"upload_codec={cfg.upload_codec!r} requires a strategy with "
+            f"a compressible upload, but {strategy.name!r} provides no "
+            "upload_codec_view (the Local/Global sweep baselines upload "
+            "nothing)")
+    chaos = faults_on or cfg.max_staleness is not None \
+        or cfg.max_delta_norm is not None
+    if chaos and strategy.schedule != "sweep" and uview is None:
+        raise ValueError(
+            "fault injection / admission guards act on the strategy's "
+            f"wire-delta view, but {strategy.name!r} provides no "
+            "upload_codec_view")
+    if faults_on and strategy.schedule == "async" \
+            and strategy.build_init_client(model, cfg) is None:
+        raise ValueError(
+            f"fault injection needs {strategy.name!r} to provide "
+            "build_init_client: crash-restart rebuilds the crashed "
+            "client's state row inside the tick")
+    return ucodec, uview
 
 
 def run_strategy(
@@ -399,10 +463,14 @@ def run_strategy(
             f"(0..{K - 1}); got {[c.cid for c in clients]}")
     _check_slice(strategy, cfg, clients, mesh=mesh,
                  checkpoint_path=checkpoint_path, resume_from=resume_from)
+    faults_on = faults_active(clients)
     dev = resolve_device(device)
-    # fail fast on the fold mode, before any state is built
+    # fail fast on the fold mode and the chaos knobs, before any state is
+    # built
     associative = compile_lib.resolve_fold_affine(
-        strategy, model, cfg_model, cfg, dev) is not None
+        strategy, model, cfg_model, cfg, dev,
+        faults_on=faults_on) is not None
+    ucodec, uview = _check_chaos(strategy, model, cfg, faults_on)
     eval_report = resolve_eval_report(cfg)
     E, B = cfg.local_epochs, cfg.batch_size
     max_cohort = max_cohort if max_cohort is not None else cfg.max_cohort
@@ -429,15 +497,19 @@ def run_strategy(
                              f"mappings for {K} clients")
         starts = [params_from_numpy(p, device=dev) for p in init_params]
         w0 = starts[0]
-    # identity upload codec: one arrival transmits the fp32 delta; the
-    # sweep baselines (Local-S, Global) upload nothing
-    upload_bytes = float(sum(v.numel() * v.element_size()
-                             for v in w0.values())) \
-        if strategy.schedule != "sweep" else 0.0
+    # simulated wire bytes of one arrival's encoded upload, which the
+    # schedulers' bandwidth-metered delay draws consume; the sweep
+    # baselines (Local-S, Global) upload nothing
+    upload_bytes = ucodec.tree_bytes(w0) if uview is not None else 0.0
     client_slots = tuple(strategy.telemetry_slots(cfg))
     server_slots = tuple(strategy.server_telemetry_slots(cfg))
-    # the engine-owned fold-depth slot rides between the two blocks
+    # the engine-owned fold-depth slot rides between the two blocks; a
+    # chaos tick appends the admission counts (tick_body's condition)
     slots = client_slots + ("folds_per_tick",) + server_slots
+    chaos_tick = compile_lib.chaos_tick(strategy, model, cfg_model, cfg,
+                                        faults_on)
+    if chaos_tick:
+        slots = slots + ("rejected_per_tick", "clipped_per_tick")
     drop = cfg.dropout_frac if strategy.uses_dropout else 0.0
     skip = cfg.periodic_dropout if strategy.uses_dropout else 0.0
 
@@ -518,7 +590,8 @@ def run_strategy(
     server = strategy.init_server(model, cfg_model, cfg, w0, clients, active)
     run_block = compile_lib.window_fn(strategy, model, cfg_model, cfg,
                                       client_slots, server_slots, dev,
-                                      windowed=windowed, codec=codec)
+                                      windowed=windowed, codec=codec,
+                                      faults_on=faults_on, w0=w0)
     evaluator = Evaluator(model, clients, eval_report, dev,
                           per_client=strategy.eval_per_client) \
         if cfg.eval_every > 0 else None
@@ -764,11 +837,26 @@ def run_strategy(
                 availability_utilization(active, sim_time), 4),
             deferred_arrivals=int(getattr(sched, "deferred", 0)),
             retired_clients=int(getattr(sched, "retired", 0)),
-            upload_codec="identity",
-            upload_bytes=upload_bytes,
+            # the schedulers' fault counters (0 for fault-free runs)
+            lost_uploads=int(getattr(sched, "lost", 0)),
+            retried_uploads=int(getattr(sched, "retried", 0)),
+            crashed_clients=int(getattr(sched, "crashed", 0)),
+            duplicated_arrivals=int(getattr(sched, "duplicated", 0)),
+            corrupted_arrivals=int(getattr(sched, "corrupted", 0)),
+            upload_codec=ucodec.name,
+            upload_bytes=float(upload_bytes),
             # async iterations each fold exactly one upload
-            upload_bytes_total=upload_bytes * (t if windowed else n_uploads),
+            upload_bytes_total=float(upload_bytes) * (
+                t if windowed else n_uploads),
         )
         for k, v in telem.summary().items():
             stats[k] = round(v, 6) if isinstance(v, float) else v
+        if chaos_tick:
+            # the in-tick admission counts, totalled over the run
+            stats["rejected_uploads"] = int(round(sum(
+                r.values.get("rejected_per_tick", 0.0)
+                for r in telem.records)))
+            stats["clipped_uploads"] = int(round(sum(
+                r.values.get("clipped_per_tick", 0.0)
+                for r in telem.records)))
     return history

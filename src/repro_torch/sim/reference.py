@@ -11,13 +11,15 @@ fold), and a blocking host read — which makes them both the numerical
 oracle for the engine's equivalence tests and the honest per-arrival
 baseline for throughput.
 
-The slice covers every state codec (``state_dtype``: each stored row
-makes the engine's ``decode(encode(.))`` round trip), the identity
-upload codec, no faults and no admission guards; a config that needs
-more raises ``ValueError`` naming the knob.  Every entry point takes
-``device`` (None: the CUDA card) and ``init_params`` (a name -> array
-mapping that replaces the seeded draw of ``w0``), and returns ``{t:
-{name: numpy weight}}``.
+They cover every state codec (``state_dtype``: each stored row makes
+the engine's ``decode(encode(.))`` round trip), every upload codec
+(``upload_codec``: each arrival's wire delta round-trips through it under
+the slot key the engine derives) and the chaos layer: crash rejoin,
+wire corruption, duplicate delivery (folded twice) and the admission
+guards, decided one arrival at a time on the host from the same helpers
+the engine's tick uses.  Every entry point takes ``device`` (None: the
+CUDA card) and ``init_params`` (a name -> array mapping that replaces the
+seeded draw of ``w0``), and returns ``{t: {name: numpy weight}}``.
 """
 from __future__ import annotations
 
@@ -27,15 +29,21 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.common import prng
 from repro_torch.common.device import resolve_device
 from repro_torch.common.dtypes import resolve_state_dtype
 from repro_torch.common.pytree import (tree_axpy, tree_map, tree_sub,
                                        tree_zeros_like)
 from repro_torch.core import client as client_lib
-from repro_torch.core.algorithms.common import avg_surrogate_grad, sgd_epochs
+from repro_torch.core.algorithms.common import (admission,
+                                                avg_surrogate_grad,
+                                                corrupt_wire_delta,
+                                                corruption_key,
+                                                resolve_upload_codec,
+                                                sgd_epochs, upload_keys)
 from repro_torch.core.server import aggregate, init_server
 from repro_torch.models.convert import params_from_numpy
-from repro_torch.sim.engine import RunConfig, stack_batches
+from repro_torch.sim.engine import RunConfig, faults_active, stack_batches
 from repro_torch.sim.prefetch import StalenessMeter
 from repro_torch.sim.scheduler import AsyncScheduler, SyncScheduler
 from repro_torch.sim.traces import utilization
@@ -51,9 +59,10 @@ class _ChurnStats:
         self.meter = StalenessMeter()
         self.sim_time = 0.0
 
-    def arrival(self, cid: int, t: int, time: float) -> None:
-        self.meter.observe(cid, t)
+    def arrival(self, cid: int, t: int, time: float) -> int:
+        stal = self.meter.observe(cid, t)
         self.sim_time = time
+        return stal  # the admission-guard staleness (engine's stal column)
 
     def update(self, stats: Dict, sched: AsyncScheduler) -> None:
         stats.update(
@@ -67,37 +76,102 @@ class _ChurnStats:
         )
 
 
-def _check_slice(cfg: RunConfig, clients) -> None:
-    """Raise ``ValueError`` naming the first knob outside this slice (the
-    engine's ``_check_slice`` refusals that concern the oracles)."""
-    def refuse(knob: str, value, accepted: str):
-        raise ValueError(f"{knob}={value!r} is not ported yet (the port's "
-                         f"oracles run {accepted})")
-
+def _check_knobs(cfg: RunConfig) -> None:
+    """The engine's validation of the knobs the oracles read, with its
+    messages: the state dtype, the upload codec, the staleness policy."""
     resolve_state_dtype(cfg.state_dtype)
-    if cfg.upload_codec != "identity":
-        refuse("upload_codec", cfg.upload_codec, "upload_codec='identity'")
-    if cfg.max_staleness is not None:
-        refuse("max_staleness", cfg.max_staleness, "no admission guards")
-    if cfg.max_delta_norm is not None:
-        refuse("max_delta_norm", cfg.max_delta_norm, "no admission guards")
-    if any(c.profile.faults is not None and c.profile.faults.active
-           for c in clients):
-        refuse("profile.faults", "active", "fault-free clients")
+    resolve_upload_codec(cfg)
+    if cfg.staleness_policy not in ("reject", "downweight"):
+        raise ValueError(
+            f"unknown staleness_policy {cfg.staleness_policy!r}; "
+            "accepted: 'reject' | 'downweight'")
 
 
 def _setup(model, cfg: RunConfig, clients, device,
            init_params: Optional[Mapping[str, Any]]):
-    """(device, w0, one arrival's upload bytes) after the slice check."""
-    _check_slice(cfg, clients)
+    """(device, w0, one arrival's upload bytes) after the knob check."""
+    _check_knobs(cfg)
     dev = resolve_device(device)
     if init_params is not None:
         w0 = params_from_numpy(init_params, device=dev)
     else:
         w0 = model.init(torch.Generator().manual_seed(cfg.seed), device=dev)
-    # identity upload codec: one arrival transmits the fp32 delta
-    nbytes = float(sum(v.numel() * v.element_size() for v in w0.values()))
-    return dev, w0, nbytes
+    # simulated wire bytes of one arrival's encoded upload
+    return dev, w0, resolve_upload_codec(cfg).tree_bytes(w0)
+
+
+def _upload_encoder(cfg: RunConfig, dev: torch.device):
+    """Per-arrival oracle of the engine's in-tick upload compression:
+    ``enc(delta, t, cid) -> delta'`` round-tripping one wire delta through
+    the run's ``UploadCodec`` as a cohort of one, under the slot key the
+    engine's tick derives (``fold_in(fold_in(PRNGKey(seed), t), cid)``),
+    so both mask the same coordinates.  None for the identity codec."""
+    codec = resolve_upload_codec(cfg)
+    if codec.identity:
+        return None
+    key0 = prng.prng_key(cfg.seed, dev)
+
+    def enc(delta, t: int, cid: int):
+        keys = (upload_keys(key0, *_stamp(t, cid, dev))
+                if codec.uses_rng else None)
+        return _first(codec.encode(_one(delta), keys))
+
+    return enc
+
+
+def _stamp(t: int, cid: int, dev: torch.device):
+    """(t, cid) as the (1,) columns of a cohort of one."""
+    return (torch.tensor([float(t)], dtype=torch.float32, device=dev),
+            torch.tensor([cid], dtype=torch.int64, device=dev))
+
+
+class _ChaosTools:
+    """Per-arrival oracle of the engine tick's chaos ops: the wire
+    corruption and the server's admission guard, from the same helpers
+    the tick uses (``corrupt_wire_delta``, ``corruption_key``, the guard's
+    fp32 arithmetic) on a cohort of one, so every admit / clip decision
+    and every corrupted payload matches the engine's."""
+
+    def __init__(self, cfg: RunConfig, dev: torch.device):
+        self.cfg, self.dev = cfg, dev
+        self.key0 = prng.prng_key(cfg.seed, dev)
+        # admission counts, as the engine's stats total them
+        self.rejected = self.clipped = 0
+
+    def corrupt(self, delta, code: int, t: int, cid: int):
+        """The arrival's corrupted wire delta (the delta itself when
+        ``code`` is 0: the engine's ``where`` selects the original)."""
+        if not code:
+            return delta
+        keys = corruption_key(self.key0, *_stamp(t, cid, self.dev))
+        return _first(corrupt_wire_delta(
+            _one(delta), torch.tensor([code], device=self.dev), keys))
+
+    def guard(self, delta, stal: int):
+        """(admit, scale): the tick's admission decision for one arrival,
+        read on the host.  ``scale < 1``: the caller folds
+        ``self.scale(delta, scale)`` instead (norm clip / staleness
+        downweight); an admitted ``scale >= 1`` arrival folds its delta
+        untouched."""
+        ok, sc = admission(_one(delta), torch.tensor(
+            [float(stal)], dtype=torch.float32, device=self.dev), self.cfg)
+        admit = bool(ok[0])
+        self.rejected += not admit
+        self.clipped += admit and float(sc[0]) < 1.0
+        return admit, sc[0]
+
+    def scale(self, delta, sc: torch.Tensor):
+        return tree_map(lambda x: x * sc, delta)
+
+
+def _chaos_tools(cfg: RunConfig, clients, dev: torch.device
+                 ) -> Optional[_ChaosTools]:
+    """The run's :class:`_ChaosTools`, or None when no client carries an
+    active FaultSpec and no admission knob is set (the engine's ``chaos``
+    flag), so fault-free oracle loops run the ops they ran before."""
+    guards = cfg.max_staleness is not None or cfg.max_delta_norm is not None
+    return (_ChaosTools(cfg, dev) if faults_active(clients) or guards
+            else None)
 
 
 def _state_roundtripper(cfg: RunConfig, alg: str, model, w0):
@@ -181,10 +255,16 @@ def _make_scheduler(clients, cfg: RunConfig,
     )
 
 
-def _upload_stats(stats: Dict, nbytes: float, n_uploads: int) -> None:
-    """The engine's resource-accounting stats columns, oracle-side."""
-    stats.update(upload_codec="identity", upload_bytes=nbytes,
-                 upload_bytes_total=nbytes * n_uploads)
+def _upload_stats(stats: Dict, cfg: RunConfig, nbytes: float,
+                  n_uploads: int, chaos: Optional[_ChaosTools]) -> None:
+    """The engine's resource-accounting and admission stats columns,
+    oracle-side."""
+    stats.update(upload_codec=resolve_upload_codec(cfg).name,
+                 upload_bytes=float(nbytes),
+                 upload_bytes_total=float(nbytes) * n_uploads)
+    if chaos is not None:
+        stats.update(rejected_uploads=chaos.rejected,
+                     clipped_uploads=chaos.clipped)
 
 
 def run_asofed_reference(model, cfg_model, clients, cfg: RunConfig, *,
@@ -212,7 +292,7 @@ def run_asofed_reference(model, cfg_model, clients, cfg: RunConfig, *,
     if srt is not None:  # the engine stores the initial stack encoded
         cstate = {cid: srt(st) for cid, st in cstate.items()}
     grad_fn = avg_surrogate_grad(model, cfg)
-    n_evals = 0
+    n_evals = n_folds = 0
 
     def local_round(st, xs, ys, delay, n_new):
         g, loss = grad_fn(_one(st.params), _one(st.server_params), xs, ys)
@@ -230,6 +310,8 @@ def run_asofed_reference(model, cfg_model, clients, cfg: RunConfig, *,
         ), loss[0]
 
     trainable = {c.cid for c in active if c.stream.n > 0}
+    enc = _upload_encoder(cfg, dev)
+    chaos = _chaos_tools(cfg, clients, dev)
     traj: Dict[int, Dict[str, np.ndarray]] = {}
     churn = _ChurnStats()
     t = 0
@@ -240,10 +322,12 @@ def run_asofed_reference(model, cfg_model, clients, cfg: RunConfig, *,
         (a,) = tick
         if a.cid not in trainable:  # empty split: engine drops it too
             continue
-        churn.arrival(a.cid, t, a.time)
+        stal = churn.arrival(a.cid, t, a.time)
         c = sched.by_id[a.cid]
         st = cstate[a.cid]
         n_vis = c.stream.visible(t)
+        if a.fresh:  # crash rejoin: the device lost its local state
+            st = client_lib.init_client_state(w0, n_vis)
         n_new = max(n_vis - float(st.n_samples), 0.0)  # blocking host read
         xs, ys = _batches(c, t, cfg, dev)
         st_before = st.params
@@ -254,12 +338,33 @@ def run_asofed_reference(model, cfg_model, clients, cfg: RunConfig, *,
         if losses is not None:
             losses[t] = float(loss)  # keyed by the pre-fold iteration stamp
         delta = tree_sub(st_before, st.params)
-        server = aggregate(  # eager delta + the server fold, as in seed
-            server, a.cid, delta, n_vis, cfg_model, upload_is_delta=True,
-            feature_learning=cfg.feature_learning,
-            use_kernel=cfg.feature_kernel)
+        if enc is not None:  # lossy upload: the engine's (seed, t, cid) key
+            delta = enc(delta, t, a.cid)
+        admit = True
+        if chaos is not None:
+            delta = chaos.corrupt(delta, a.corrupt, t, a.cid)
+            admit, sc = chaos.guard(delta, stal)
+            if admit and float(sc) < 1.0:
+                delta = chaos.scale(delta, sc)
+        if admit:
+            # a duplicated delivery folds the same upload twice but takes
+            # one global iteration (t is set back)
+            t_once = server.t + 1
+            for _ in range(2 if a.dup else 1):
+                n_folds += 1
+                server = aggregate(  # eager delta + the server fold
+                    server, a.cid, delta, n_vis, cfg_model,
+                    upload_is_delta=True,
+                    feature_learning=cfg.feature_learning,
+                    use_kernel=cfg.feature_kernel)
+            server = dataclasses.replace(server, t=t_once)
+            cstate[a.cid] = client_lib.receive_server_model(st, server.w)
+        else:
+            # rejected: no fold, no download; the client keeps its
+            # post-round state and the iteration stamp still advances
+            server = dataclasses.replace(server, t=server.t + 1)
+            cstate[a.cid] = st
         t = server.t
-        cstate[a.cid] = client_lib.receive_server_model(st, server.w)
         if srt is not None:  # the row is scattered back encoded
             cstate[a.cid] = srt(cstate[a.cid])
         if collect_trace:
@@ -270,7 +375,9 @@ def run_asofed_reference(model, cfg_model, clients, cfg: RunConfig, *,
     if stats is not None:
         stats.update(iters=t, ticks=t, evals=n_evals)
         churn.update(stats, sched)
-        _upload_stats(stats, upload_bytes, t)
+        _upload_stats(stats, cfg, upload_bytes, t, chaos)
+        if chaos is not None:  # server folds: a duplicate folds twice
+            stats["folds"] = n_folds
     return traj
 
 
@@ -289,10 +396,13 @@ def run_fedasync_reference(model, cfg_model, clients, cfg: RunConfig, *,
     dev, w, upload_bytes = _setup(model, cfg, clients, device, init_params)
     sched = _make_scheduler(clients, cfg, upload_bytes)
     sgd = sgd_epochs(model, cfg, mu=0.005)
+    w0_init = w
     rt_w = _stale_copy_roundtripper(cfg, "fedasync", model, w)
     version = {c.cid: 0 for c in sched.active}
     local_w = {c.cid: rt_w(w, 0) for c in sched.active}
     trainable = {c.cid for c in sched.active if c.stream.n > 0}
+    enc = _upload_encoder(cfg, dev)
+    chaos = _chaos_tools(cfg, clients, dev)
     traj: Dict[int, Dict[str, np.ndarray]] = {}
     churn = _ChurnStats()
     t, n_evals = 0, 0
@@ -303,20 +413,53 @@ def run_fedasync_reference(model, cfg_model, clients, cfg: RunConfig, *,
         (a,) = tick
         if a.cid not in trainable:  # empty split: engine drops it too
             continue
-        churn.arrival(a.cid, t, a.time)
+        stal = churn.arrival(a.cid, t, a.time)
         c = sched.by_id[a.cid]
+        if a.fresh:  # crash rejoin: stale copy and version back to init
+            local_w[a.cid] = w0_init
+            version[a.cid] = 0
         xs, ys = _batches(c, t, cfg, dev)
         wk, loss = sgd(_one(local_w[a.cid]), _one(local_w[a.cid]), xs, ys)
         wk = _first(wk)
         if losses is not None:
             losses[t] = float(loss[0])
-        staleness = t - version[a.cid]
-        alpha_t = cfg.fedasync_alpha * (1.0 + staleness) ** (
-            -cfg.fedasync_staleness_exp)
-        w = tree_map(lambda x, y: (1 - alpha_t) * x + alpha_t * y, w, wk)
-        t += 1
-        version[a.cid] = t
-        local_w[a.cid] = rt_w(w, t)  # the row is scattered back encoded
+        admit = True
+        if enc is not None or chaos is not None:
+            # wire delta: the local progress against the stale copy; the
+            # upload is recomposed only where the delta changed, so clean
+            # identity-codec arrivals stay bitwise (w + (wk - w) != wk)
+            d = tree_sub(wk, local_w[a.cid])
+            modified = False
+            if enc is not None:
+                d = enc(d, t, a.cid)
+                modified = True
+            if chaos is not None:
+                if a.corrupt:
+                    d = chaos.corrupt(d, a.corrupt, t, a.cid)
+                    modified = True
+                admit, sc = chaos.guard(d, stal)
+                if admit and float(sc) < 1.0:
+                    d = chaos.scale(d, sc)
+                    modified = True
+            if modified:
+                wk = tree_map(torch.add, local_w[a.cid], d)
+        if admit:
+            staleness = t - version[a.cid]
+            alpha_t = cfg.fedasync_alpha * (1.0 + staleness) ** (
+                -cfg.fedasync_staleness_exp)
+            # a duplicated delivery mixes the same upload twice
+            for _ in range(2 if a.dup else 1):
+                w = tree_map(lambda x, y: (1 - alpha_t) * x + alpha_t * y,
+                             w, wk)
+            t += 1
+            version[a.cid] = t
+            local_w[a.cid] = w
+        else:
+            # rejected: no mix, no download; the stale copy and version
+            # stay, and the iteration stamp still advances
+            t += 1
+        # the row is scattered back encoded
+        local_w[a.cid] = rt_w(local_w[a.cid], version[a.cid])
         if collect_trace:
             traj[t] = _host(w)
         if _evaluates(cfg, t):
@@ -325,7 +468,7 @@ def run_fedasync_reference(model, cfg_model, clients, cfg: RunConfig, *,
     if stats is not None:
         stats.update(iters=t, ticks=t, evals=n_evals)
         churn.update(stats, sched)
-        _upload_stats(stats, upload_bytes, t)
+        _upload_stats(stats, cfg, upload_bytes, t, chaos)
     return traj
 
 
@@ -347,6 +490,7 @@ def run_fedbuff_reference(model, cfg_model, clients, cfg: RunConfig, *,
     dev, w, upload_bytes = _setup(model, cfg, clients, device, init_params)
     sched = _make_scheduler(clients, cfg, upload_bytes)
     sgd = sgd_epochs(model, cfg, mu=0.0)
+    w0_init = w
     rt_w = _stale_copy_roundtripper(cfg, "fedbuff", model, w)
     version = {c.cid: 0 for c in sched.active}
     local_w = {c.cid: rt_w(w, 0) for c in sched.active}
@@ -354,6 +498,8 @@ def run_fedbuff_reference(model, cfg_model, clients, cfg: RunConfig, *,
     M = int(cfg.buffer_size)
     buf = tree_zeros_like(w)
     count = 0
+    enc = _upload_encoder(cfg, dev)
+    chaos = _chaos_tools(cfg, clients, dev)
     traj: Dict[int, Dict[str, np.ndarray]] = {}
     churn = _ChurnStats()
     t, n_evals = 0, 0
@@ -364,8 +510,11 @@ def run_fedbuff_reference(model, cfg_model, clients, cfg: RunConfig, *,
         (a,) = tick
         if a.cid not in trainable:  # empty split: engine drops it too
             continue
-        churn.arrival(a.cid, t, a.time)
+        stal = churn.arrival(a.cid, t, a.time)
         c = sched.by_id[a.cid]
+        if a.fresh:  # crash rejoin: stale copy and version back to init
+            local_w[a.cid] = w0_init
+            version[a.cid] = 0
         xs, ys = _batches(c, t, cfg, dev)
         wk, loss = sgd(_one(local_w[a.cid]), _one(local_w[a.cid]), xs, ys)
         wk = _first(wk)
@@ -374,15 +523,34 @@ def run_fedbuff_reference(model, cfg_model, clients, cfg: RunConfig, *,
         staleness = t - version[a.cid]
         s_w = float(1.0 / np.sqrt(1.0 + np.float32(staleness)))
         delta = tree_sub(local_w[a.cid], wk)
-        buf = tree_axpy(s_w, delta, buf)
-        count += 1
-        if count >= M:
-            w = tree_axpy(-cfg.fedbuff_lr / M, buf, w)
-            buf = tree_zeros_like(w)
-            count = 0
-        t += 1
-        version[a.cid] = t
-        local_w[a.cid] = rt_w(w, t)  # the row is scattered back encoded
+        if enc is not None:  # the buffered deposit is the wire delta
+            delta = enc(delta, t, a.cid)
+        admit = True
+        if chaos is not None:
+            if a.corrupt:
+                delta = chaos.corrupt(delta, a.corrupt, t, a.cid)
+            admit, sc = chaos.guard(delta, stal)
+            if admit and float(sc) < 1.0:
+                delta = chaos.scale(delta, sc)
+        if admit:
+            # a duplicated delivery deposits twice (the count runs twice,
+            # so a flush can land between the two deposits)
+            for _ in range(2 if a.dup else 1):
+                buf = tree_axpy(s_w, delta, buf)
+                count += 1
+                if count >= M:
+                    w = tree_axpy(-cfg.fedbuff_lr / M, buf, w)
+                    buf = tree_zeros_like(w)
+                    count = 0
+            t += 1
+            version[a.cid] = t
+            local_w[a.cid] = w
+        else:
+            # rejected: no deposit, no download; the iteration stamp still
+            # advances
+            t += 1
+        # the row is scattered back encoded
+        local_w[a.cid] = rt_w(local_w[a.cid], version[a.cid])
         if collect_trace:
             traj[t] = _host(w)
         if _evaluates(cfg, t):
@@ -391,7 +559,7 @@ def run_fedbuff_reference(model, cfg_model, clients, cfg: RunConfig, *,
     if stats is not None:
         stats.update(iters=t, ticks=t, evals=n_evals)
         churn.update(stats, sched)
-        _upload_stats(stats, upload_bytes, t)
+        _upload_stats(stats, cfg, upload_bytes, t, chaos)
     return traj
 
 
@@ -418,6 +586,9 @@ def run_fedavg_reference(model, cfg_model, clients, cfg: RunConfig, *,
     )
     by_id = {c.cid: c for c in sched.active}
     sgd = sgd_epochs(model, cfg, mu=prox_mu)
+    enc = _upload_encoder(cfg, dev)
+    chaos = _chaos_tools(cfg, clients, dev)
+    meter = StalenessMeter()  # the engine's per-arrival stal column
     traj: Dict[int, Dict[str, np.ndarray]] = {}
     sim_time, n_evals, n_uploads = 0.0, 0, 0
     t = 0
@@ -433,15 +604,43 @@ def run_fedavg_reference(model, cfg_model, clients, cfg: RunConfig, *,
         new_ws, weights = [], []
         for a in arrivals:
             c = by_id[a.cid]
+            stal = meter.observe(a.cid, t)
             xs, ys = _batches(c, t, cfg, dev)
-            new_ws.append(_first(sgd(_one(w), _one(w), xs, ys)[0]))
-            weights.append(c.stream.visible(t))
+            wk = _first(sgd(_one(w), _one(w), xs, ys)[0])
+            admit = True
+            if enc is not None or chaos is not None:
+                # wire delta against the round's broadcast; the engine
+                # stamps every participant with the round index t.  The
+                # upload is recomposed only where the delta changed
+                d = tree_sub(wk, w)
+                modified = False
+                if enc is not None:
+                    d = enc(d, t, a.cid)
+                    modified = True
+                if chaos is not None:
+                    if getattr(a, "corrupt", 0):
+                        d = chaos.corrupt(d, a.corrupt, t, a.cid)
+                        modified = True
+                    admit, sc = chaos.guard(d, stal)
+                    if admit and float(sc) < 1.0:
+                        d = chaos.scale(d, sc)
+                        modified = True
+                if modified:
+                    wk = tree_map(torch.add, w, d)
+            if admit:
+                # a duplicated delivery weighs the participant twice
+                for _ in range(2 if getattr(a, "dup", False) else 1):
+                    new_ws.append(wk)
+                    weights.append(c.stream.visible(t))
         n_uploads += len(arrivals)
         sim_time += round_time
-        tot = sum(weights)
-        w = tree_map(
-            lambda *xs_: sum(wi / tot * x for wi, x in zip(weights, xs_)),
-            *new_ws)
+        if new_ws:
+            tot = sum(weights)
+            w = tree_map(
+                lambda *xs_: sum(wi / tot * x for wi, x in zip(weights,
+                                                                xs_)),
+                *new_ws)
+        # else: every upload rejected, and finalize keeps the old model
         if collect_trace:
             traj[t] = _host(w)
         if _evaluates(cfg, t):
@@ -449,5 +648,5 @@ def run_fedavg_reference(model, cfg_model, clients, cfg: RunConfig, *,
             _eval_all_per_client(model, w, clients, cfg, dev)
     if stats is not None:
         stats.update(iters=t, ticks=t, evals=n_evals)
-        _upload_stats(stats, upload_bytes, n_uploads)
+        _upload_stats(stats, cfg, upload_bytes, n_uploads, chaos)
     return traj

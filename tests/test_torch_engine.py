@@ -197,16 +197,27 @@ def test_seeded_init_is_reproducible():
 
 @pytest.mark.parametrize("cfg_kw,run_kw,knob", [
     (dict(fold_mode="associative"), {}, "fold_mode"),
-    (dict(upload_codec="quantized_delta"), {}, "upload_codec"),
-    # host residency and the bf16 / fp16 / int8 / int4 codecs are ported
-    # (tests/test_torch_state_pool.py): their knobs still refuse a value
-    # they do not know, with the JAX engine's message
+    # host residency, the bf16 / fp16 / int8 / int4 codecs, the upload
+    # codecs and the admission guards are ported
+    # (tests/test_torch_state_pool.py, tests/test_torch_upload_codecs.py,
+    # tests/test_torch_faults.py): their knobs still refuse a value they
+    # do not know, with the JAX engine's message
+    pytest.param(dict(upload_codec="quantized_delta", upload_bits=1), {},
+                 r"upload_bits must be in \[2, 16\], got 1",
+                 id="cfg_kw1-run_kw1-upload_codec"),
     (dict(state_residency="disk"), {}, "state_residency"),
     pytest.param(dict(state_dtype="int3"), {}, "unknown state dtype 'int3'",
                  id="cfg_kw3-run_kw3-state_dtype"),
-    (dict(upload_codec="topk_sparse"), {}, "upload_codec"),
-    (dict(max_staleness=4.0), {}, "max_staleness"),
-    (dict(max_delta_norm=1.0), {}, "max_delta_norm"),
+    pytest.param(dict(upload_codec="topk"), {},
+                 "unknown upload_codec 'topk'",
+                 id="cfg_kw4-run_kw4-upload_codec"),
+    pytest.param(dict(max_staleness=4.0, staleness_policy="drop"), {},
+                 "unknown staleness_policy 'drop'",
+                 id="cfg_kw5-run_kw5-max_staleness"),
+    pytest.param(dict(max_delta_norm=1.0, upload_codec="random_mask",
+                      upload_frac=0.0), {},
+                 r"upload_frac must be in \(0, 1\], got 0.0",
+                 id="cfg_kw6-run_kw6-max_delta_norm"),
     ({}, dict(checkpoint_path="ckpt"), "checkpoint_path"),
     ({}, dict(resume_from="ckpt"), "resume_from"),
     ({}, dict(mesh="auto"), "mesh"),
@@ -224,9 +235,15 @@ def test_faults_and_other_schedules_raise():
     clients = wl.make_clients(3, n_per=20, seed=0)
     clients[1].profile = dataclasses.replace(
         clients[1].profile, faults=FaultSpec.uniform(0.2))
-    with pytest.raises(ValueError, match="faults"):
-        run_strategy(get_strategy("asofed"), model, cfg_model, clients,
-                     _cfg(wl, 4), device="cpu")
+    # faults are ported (tests/test_torch_faults.py); a strategy that
+    # cannot rebuild a crashed client's row still fails fast, with the
+    # JAX engine's message
+    no_init = get_strategy("asofed")
+    no_init.build_init_client = lambda model, cfg: None
+    with pytest.raises(ValueError, match="fault injection needs 'asofed' "
+                       "to provide build_init_client"):
+        run_strategy(no_init, model, cfg_model, clients, _cfg(wl, 4),
+                     device="cpu")
     other = get_strategy("asofed")
     other.schedule = "gossip"
     with pytest.raises(ValueError, match="strategy.schedule='gossip'"):

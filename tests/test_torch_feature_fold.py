@@ -282,3 +282,145 @@ def test_cuda_kernel_matches_plain_version(case):
             err = float((got[part][k] - want[part][k]).abs().max())
             scale = max(1.0, float(want[part][k].abs().max()))
             assert err <= n_real * 1e-6 * scale, (part, err)
+
+
+# ---------------------------------------------------------------------------
+# reps: the chaos layer's per-slot fold count (0 rejected, 1, 2 duplicated)
+# ---------------------------------------------------------------------------
+
+REPS_PATTERNS = ["mixed", "skip_all", "dup_all"]
+
+
+def _reps(pattern, S, n_real, seed=0):
+    """(S,) int32 fold counts: the real slots' from a seeded draw over
+    {0, 1, 2} (mixed), all 0 or all 2; padded slots 0, as the engine's
+    ``admit * (1 + dup)`` gives them."""
+    reps = np.zeros(S, np.int32)
+    if pattern == "mixed":
+        reps[:n_real] = np.random.default_rng(seed).integers(0, 3, n_real)
+    else:
+        reps[:n_real] = 0 if pattern == "skip_all" else 2
+    return reps
+
+
+def _jax_scan_reps(name, w, d, n, idx, n_vis, reps, use_kernel):
+    """The JAX tick's sequential fold under the chaos layer
+    (``repro.sim.compile``: a second fold under ``mk & dp``, the server
+    untouched where ``mk`` is False), ``mk = reps > 0``, ``dp = reps ==
+    2``."""
+    jwl = jax_get_workload(name)
+    cfg_model, jmodel = jwl.build(hidden=12)
+    cfg = jwl.run_config(feature_kernel=use_kernel,
+                         feature_kernel_interpret=use_kernel)
+    fold = JaxAsoFed().build_fold(jmodel, cfg_model, cfg)
+    S = idx.shape[0]
+
+    def step(sv, inp):
+        up, ix, nv, ta, mk, dp = inp
+        sv2, rec = fold(sv, up, ix, nv, ta)
+        sv3, rec2 = fold(sv2, up, ix, nv, ta)
+        sv2 = jax_tree_where(mk & dp, sv3, sv2)
+        rec = jax_tree_where(mk & dp, rec2, rec)
+        return jax_tree_where(mk, sv2, sv), rec
+
+    server, received = jax.jit(lambda sv, xs: jax.lax.scan(step, sv, xs))(
+        {"w": {k: jnp.asarray(v) for k, v in w.items()},
+         "n": jnp.asarray(n)},
+        ({k: jnp.asarray(v) for k, v in d.items()},
+         jnp.asarray(idx.astype(np.int32)), jnp.asarray(n_vis),
+         jnp.zeros(S, jnp.float32), jnp.asarray(reps > 0),
+         jnp.asarray(reps == 2)))
+    return jax.tree.map(np.asarray, (server["w"], server["n"], received))
+
+
+@pytest.mark.parametrize("name", WORKLOADS)
+@pytest.mark.parametrize("pattern", REPS_PATTERNS)
+@pytest.mark.parametrize("lowering", ["pallas_interpret", "jnp"])
+def test_ref_with_reps_matches_jax_sequential_scan(name, pattern, lowering):
+    S, n_real, repeat = CASES["repeat"]  # a client twice in the tick
+    cfg_model, _, shapes = _shapes(name)
+    inputs = _tick(shapes, S, n_real, repeat, seed=2)
+    reps = _reps(pattern, S, n_real, seed=3)
+    w_j, n_j, rec_j = _jax_scan_reps(name, *inputs, reps,
+                                     lowering == "pallas_interpret")
+    w_t, n_t, rec_t = feature_fold(
+        *_torch(*inputs)[:2], first_layer_path(cfg_model),
+        *_torch(*inputs)[2:], n_real, reps=torch.tensor(reps))
+    np.testing.assert_array_equal(n_t.numpy(), n_j)
+    for k in shapes:
+        np.testing.assert_allclose(w_t[k].numpy(), w_j[k], atol=ATOL,
+                                   rtol=RTOL, err_msg=k)
+        # the folded slots' downloads (a skipped slot's is any finite
+        # copy: the engine's merge is masked by admission)
+        fold = reps[:n_real] > 0
+        np.testing.assert_allclose(rec_t[k][:n_real][fold].numpy(),
+                                   rec_j[k][:n_real][fold], atol=ATOL,
+                                   rtol=RTOL, err_msg=k)
+        assert np.all(np.isfinite(rec_t[k].numpy()))
+
+
+@pytest.mark.parametrize("name", WORKLOADS)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_reps_none_bitwise_equals_reps_all_ones(name, case):
+    S, n_real, repeat = CASES[case]
+    cfg_model, _, shapes = _shapes(name)
+    args = _torch(*_tick(shapes, S, n_real, repeat, seed=4))
+    first = first_layer_path(cfg_model)
+    want = feature_fold(args[0], args[1], first, *args[2:], n_real)
+    got = feature_fold(args[0], args[1], first, *args[2:], n_real,
+                       reps=torch.ones(S, dtype=torch.int32))
+    assert torch.equal(got[1], want[1])
+    for part in (0, 2):
+        for k in shapes:
+            assert torch.equal(got[part][k], want[part][k]), (part, k)
+
+
+@pytest.mark.parametrize("reps,match", [
+    (torch.ones(4, dtype=torch.int64), "int32"),
+    (torch.ones(3, dtype=torch.int32), r"\(4,\) int32"),
+    (torch.ones((4, 1), dtype=torch.int32), r"\(4,\) int32"),
+])
+def test_bad_reps_raise(reps, match):
+    w, d, n, idx, n_vis = _small_args()  # S = 4
+    with pytest.raises(ValueError, match=match):
+        feature_fold(w, d, "w_x", n, idx, n_vis, 3, reps=reps)
+
+
+def test_kernel_wrapper_refuses_bad_reps():
+    w, d, n, idx, n_vis = _small_args()
+    before = feature_fold_kernel.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        feature_fold_kernel([w["w_x"], w["b"]], [d["w_x"], d["b"]], 0, 4,
+                            16, n, idx, n_vis, 3,
+                            reps=torch.ones(4, dtype=torch.int32))
+    assert feature_fold_kernel.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(CUDA_CASES))
+@pytest.mark.parametrize("pattern", REPS_PATTERNS)
+def test_cuda_kernel_with_reps_matches_plain_version(case, pattern):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    shapes, first, S, n_real, repeat = CUDA_CASES[case]
+    args = [tree_map(lambda t: t.cuda(), a)
+            for a in _torch(*_tick(shapes, S, n_real, repeat,
+                                   clients=256))]
+    reps = torch.tensor(_reps(pattern, S, n_real), device="cuda")
+    before = feature_fold_kernel.launches
+    got = feature_fold(args[0], args[1], first, *args[2:], n_real,
+                       reps=reps)
+    torch.cuda.synchronize()
+    assert feature_fold_kernel.launches == before + 1
+    want = feature_fold_ref(args[0], args[1], first, *args[2:], n_real,
+                            reps=reps)
+    assert torch.equal(got[1], want[1])
+    folds = int(reps.sum())
+    for part in (0, 2):
+        for k in shapes:
+            if k != first:
+                assert torch.equal(got[part][k], want[part][k]), (part, k)
+                continue
+            err = float((got[part][k] - want[part][k]).abs().max())
+            scale = max(1.0, float(want[part][k].abs().max()))
+            assert err <= max(folds, 1) * 1e-6 * scale, (part, err)

@@ -228,30 +228,39 @@ def test_client_step_matches_jax():
     assert got.v is st.v and st.params is not server_w
 
 
-@pytest.mark.parametrize("cfg_kw,knob", [
-    (dict(upload_codec="topk_sparse"), "upload_codec"),
-    # the state codecs are ported (tests/test_torch_state_pool.py): an
-    # unknown state dtype still raises, with the JAX package's message
+# the state codecs, the upload codecs, the guards and faults are ported
+# (tests/test_torch_state_pool.py, tests/test_torch_upload_codecs.py,
+# tests/test_torch_faults.py): their knobs still refuse a value they do
+# not know, with the JAX package's messages, faults attached or not
+@pytest.mark.parametrize("cfg_kw,knob,faulty", [
+    pytest.param(dict(upload_codec="topk"), "unknown upload_codec 'topk'",
+                 False, id="cfg_kw0-upload_codec"),
     pytest.param(dict(state_dtype="int3"), "unknown state dtype 'int3'",
-                 id="cfg_kw1-state_dtype"),
-    (dict(max_staleness=4.0), "max_staleness"),
-    (dict(max_delta_norm=1.0), "max_delta_norm"),
-    (None, "faults"),
+                 False, id="cfg_kw1-state_dtype"),
+    pytest.param(dict(max_staleness=4.0, staleness_policy="drop"),
+                 "unknown staleness_policy 'drop'", False,
+                 id="cfg_kw2-max_staleness"),
+    pytest.param(dict(max_delta_norm=1.0, upload_codec="random_mask",
+                      upload_frac=0.0),
+                 r"upload_frac must be in \(0, 1\], got 0.0", False,
+                 id="cfg_kw3-max_delta_norm"),
+    pytest.param(dict(upload_codec="quantized_delta", upload_bits=17),
+                 r"upload_bits must be in \[2, 16\], got 17", True,
+                 id="cfg_kw4-faults"),
 ])
 @pytest.mark.parametrize("alg", ["asofed", "fedasync", "fedbuff", "fedavg"])
-def test_oracle_knobs_outside_the_slice_raise(alg, cfg_kw, knob):
+def test_oracle_knobs_outside_the_slice_raise(alg, cfg_kw, knob, faulty):
     from repro_torch.sim.faults import FaultSpec
 
     wl = get_workload("lstm_regression")
     cfg_model, model = wl.build(hidden=4)
     clients = wl.make_clients(3, n_per=20, seed=0)
-    if cfg_kw is None:
+    if faulty:
         clients[1].profile = dataclasses.replace(
             clients[1].profile, faults=FaultSpec.uniform(0.2))
     with pytest.raises(ValueError, match=knob):
         _oracle_fn(reference, alg)(model, cfg_model, clients,
-                                   _cfg(wl, alg, **(cfg_kw or {})),
-                                   device="cpu")
+                                   _cfg(wl, alg, **cfg_kw), device="cpu")
 
 
 @pytest.mark.parametrize("alg", ["asofed", "fedasync", "fedbuff", "fedavg"])
