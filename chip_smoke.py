@@ -36,6 +36,15 @@ drives the port's paths through its entry points:
   (``feature_fold`` once a tick) and fedasync's associative one (K2),
   host and device bit for bit, pool bytes from the leaf table, and the
   int8 host engine against the port's oracle on the card;
+* ``resume_path``: crash-resume at main_path's shape: asofed (sequential
+  fold), fedasync (associative) and asofed under chaos_path's faults,
+  each run plain, checkpointing every 128 iterations (bit for bit the
+  plain run) and resumed from the last snapshot (the plain run's final
+  weights bit for bit, ``feature_fold`` or K2 launched on every resumed
+  tick); then residency_path's int8 host pool at K=10,000 the same way;
+* ``serve_path_phi4``: ``serve`` on phi4-mini-3.8B at full width and
+  depth in bf16 (head dim 128, 24 heads over 8 KV heads), which runs
+  K3's bf16 hd-128 instance once per layer of the prefill;
 * ``chaos_path``: main_path's shape under the chaos layer
   (``tests/test_faults.py``'s mixed faults at rate 0.15 and its guards,
   ``max_staleness`` 8 and ``max_delta_norm`` 0.5): asofed with the
@@ -63,6 +72,7 @@ before that line; without a CUDA card it exits non-zero at once.
 from __future__ import annotations
 
 import dataclasses
+import importlib.util
 import json
 import math
 import os
@@ -1463,6 +1473,163 @@ def phase_chaos_path():
     return fold_a, scan_b, k1_oracle
 
 
+# ---------------------------------------------------------------------------
+# Crash-resume snapshots (repro_torch.checkpoint) at the main path's shape
+# ---------------------------------------------------------------------------
+
+# (name, strategy, RunConfig overrides, under chaos_path (a)'s faults):
+# (a) asofed, the sequential fold (feature_fold once a tick); (b)
+# fedasync, the associative fold (K2 once a carrier leaf a tick); (c)
+# asofed under chaos_path (a)'s faults, codec and guards (feature_fold
+# with reps)
+RESUME_RUNS = [("a", "asofed", {}, False),
+               ("b", "fedasync", {"fold_mode": "associative"}, False),
+               ("c", "asofed", dict(CHAOS_RUNS[0][3]), True)]
+# snapshot interval of the checkpointing runs (iterations), and their
+# window: the engine takes a snapshot where a window starts (before its
+# peek), and at window 32 each of these runs is one window (main_path: 10
+# ticks of ~51 arrivals), so they run 4 ticks a window (the trajectory is
+# the same at any window, bit for bit)
+RESUME_EVERY, RESUME_WINDOW = 128, 4
+
+
+def _resume_run(T: int, alg: str, cfg_kw: dict, faulty: bool,
+                device="cuda", setup=None, **run_kw):
+    """(trace, wall seconds, stats) of one engine run at the main path's
+    shape (``setup``: another shape's setup function, called with T and
+    ``cfg_kw``), with chaos_path (a)'s faults when ``faulty``."""
+    from repro_torch.core.algorithms import get_strategy
+    from repro_torch.sim.engine import run_strategy
+    from repro_torch.sim.faults import FaultSpec, with_faults
+
+    model, cfg_model, clients, cfg = (setup or _main_setup)(T, **cfg_kw)
+    if faulty:
+        clients = with_faults(clients, [FaultSpec.uniform(
+            CHAOS_FAULT_RATE, seed=42, corrupt_kind="nan")] * len(clients))
+    trace, stats = [], {}
+    t0 = time.perf_counter()
+    run_strategy(get_strategy(alg), model, cfg_model, clients, cfg,
+                 stats=stats, trace=trace, device=device,
+                 window=RESUME_WINDOW, **run_kw)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return trace, time.perf_counter() - t0, stats
+
+
+def _bitwise(tr_a, tr_b) -> bool:
+    return [t for t, _ in tr_a] == [t for t, _ in tr_b] and all(
+        np.array_equal(wa[k], wb[k])
+        for (_, wa), (_, wb) in zip(tr_a, tr_b) for k in wa)
+
+
+def _resume_triple(tag: str, T: int, alg: str, cfg_kw: dict, faulty: bool,
+                   snap: str, device="cuda", setup=None):
+    """The plain run, the checkpointing run (bit for bit the plain one)
+    and the resumed run (the plain run's final weights bit for bit),
+    with the launches of each counted from 0.  Returns the record."""
+    runs = {}
+    for kind, run_kw in (("plain", {}),
+                         ("checkpointing", dict(checkpoint_path=snap,
+                                                checkpoint_every=RESUME_EVERY)),
+                         ("resumed", dict(resume_from=snap))):
+        _reset_launches()
+        trace, wall, stats = _resume_run(T, alg, cfg_kw, faulty, device,
+                                         setup, **run_kw)
+        k1, k2 = _launches()
+        runs[kind] = (trace, wall, stats, (_fold_launches(), k1, k2))
+    (tr_p, wall_p, st_p, _), (tr_c, wall_c, st_c, _) = (runs["plain"],
+                                                         runs["checkpointing"])
+    tr_r, wall_r, st_r, (fold, k1, k2) = runs["resumed"]
+    if not _bitwise(tr_c, tr_p):
+        raise AssertionError(f"resume path ({tag}): the checkpointing run's "
+                             "trajectory differs from the plain run's")
+    if not (0 < st_r["resumed_from_t"] < T and st_r["iters"] == T
+            and st_c["ckpt_writes"] >= 1 and tr_r
+            and _bitwise(tr_r[-1:], tr_p[-1:])):
+        raise AssertionError(
+            f"resume path ({tag}): resumed from t="
+            f"{st_r.get('resumed_from_t')} to {st_r['iters']} of {T} after "
+            f"{st_c['ckpt_writes']} snapshots; final weights equal: "
+            f"{bool(tr_r) and _bitwise(tr_r[-1:], tr_p[-1:])}")
+    ticks = st_r["ticks"]
+    want = ((0, 0, LSTM_LEAVES * ticks) if cfg_kw.get("fold_mode")
+            == "associative" else (ticks, 0, 0))
+    if (fold, k1, k2) != want:
+        raise AssertionError(
+            f"resume path ({tag}): the resumed run launched feature_fold "
+            f"{fold}, per-row K1 {k1}, K2 {k2} in {ticks} ticks; expected "
+            f"{want}")
+    return {"phase": "resume_path", "run": tag, "strategy": alg,
+            "faults": faulty, **cfg_kw, "T": T, "bitwise": True,
+            "checkpoint_every": RESUME_EVERY, "window": RESUME_WINDOW,
+            "resumed_from_t": st_r["resumed_from_t"],
+            "resumed_ticks": ticks, "ckpt_writes": st_c["ckpt_writes"],
+            "ckpt_write_s": st_c["ckpt_write_s"],
+            "ckpt_bytes": st_c["ckpt_bytes"],
+            "host_pool_bytes": st_c["host_pool_bytes"],
+            "plain_iters_per_s": T / wall_p,
+            "checkpointing_iters_per_s": T / wall_c,
+            "checkpointing_over_plain": wall_p / wall_c,
+            "resumed_wall_s": wall_r, "resumed_setup_s": st_r["setup_s"],
+            "plain_setup_s": st_p["setup_s"],
+            "resumed_feature_fold_launches": fold,
+            "resumed_feature_kernel_launches": k1,
+            "resumed_scan_kernel_launches": k2}
+
+
+def phase_resume_path(device="cuda"):
+    """Crash-resume at the main path's shape: runs (a)-(c) of
+    RESUME_RUNS, each plain, checkpointing every RESUME_EVERY iterations
+    (bit for bit the plain run) and resumed from the last snapshot (the
+    plain run's final weights bit for bit, the kernels launched on the
+    resumed ticks); then residency_path's host shape with the int8 pool
+    at K=10,000.  Snapshots go to a temporary directory, removed at the
+    end.  Returns (feature_fold launches of every resumed run, of (c)'s
+    alone, K2 launches of the resumed run (b))."""
+    import functools
+    import shutil
+    import tempfile
+
+    phase_t0 = time.perf_counter()
+    _resume_run(64, "asofed", {}, False, device)  # warm-up
+    root = tempfile.mkdtemp(prefix="resume_path_")
+    fold_resumed = fold_c = scan_b = 0
+    try:
+        for tag, alg, kw, faulty in RESUME_RUNS:
+            rec = _resume_triple(tag, MAIN_T, alg, kw, faulty,
+                                 os.path.join(root, tag), device)
+            emit({**rec, "workload": "lstm_regression",
+                  "hidden": MAIN_HIDDEN, "clients": MAIN_CLIENTS,
+                  "batch_size": 32, "local_epochs": 2})
+            fold_resumed += rec["resumed_feature_fold_launches"]
+            if tag == "c":
+                fold_c = rec["resumed_feature_fold_launches"]
+            if tag == "b":
+                scan_b = rec["resumed_scan_kernel_launches"]
+        # the host pool: residency_path's int8 cell at K=10,000 registered
+        # clients (a 0.75 GB pool on disk per snapshot)
+        setup = functools.partial(_res_setup, hidden=MAIN_HIDDEN, K=RES_K)
+        rec = _resume_triple(
+            "host_int8", RES_T, "asofed",
+            {"state_residency": "host", "state_dtype": "int8"}, False,
+            os.path.join(root, "host_int8"), device, setup)
+        if rec["ckpt_bytes"] < rec["host_pool_bytes"] \
+                or rec["host_pool_bytes"] != RES_POOL_BYTES["int8"]:
+            raise AssertionError(
+                f"resume path (host_int8): {rec['ckpt_bytes']} snapshot "
+                f"bytes on disk for a pool of {rec['host_pool_bytes']} "
+                f"bytes (expected {RES_POOL_BYTES['int8']})")
+        fold_resumed += rec["resumed_feature_fold_launches"]
+        emit({**rec, "workload": "lstm_regression", "hidden": MAIN_HIDDEN,
+              "clients": RES_K, "real_clients": RES_REAL, "batch_size": 8,
+              "local_epochs": 2})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit({"phase": "resume_path_total",
+          "wall_s": time.perf_counter() - phase_t0})
+    return fold_resumed, fold_c, scan_b
+
+
 AFFINE = [("fedasync", {}, 60), ("fedbuff", {"buffer_size": 3}, 60),
           ("asofed", {"feature_learning": False}, 60),
           ("fedavg", {"participation": 0.6}, 10),
@@ -1558,10 +1725,18 @@ SERVE_ARCH = "tinyllama-1.1b"
 # prompt + generated = 2048, TinyLlama's whole context
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 2016, 32
 SERVE_REPEATS = 3
+# serve_path_phi4's architecture (head dim 128) and its flash_vs_plain case
+PHI4_ARCH, PHI4_CASE = "phi4-mini-3.8b", "phi4_layer0"
 # K3 vs its plain version: max abs error per unit of the output's largest
 # magnitude (at least 1), tests/test_kernels.py's bounds.  The online and
 # the dense softmax sum in different orders; bf16 outputs round once.
 FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+# and per (b, s, kv, g) output row: max abs error over hd per unit of that
+# row's largest |want|.  Causal rows past the first few hundred keys are
+# ~20x smaller than row 0 (v[0] itself), so a fault confined to late rows
+# or tiles hides under FLASH_TOL; this gate sees it.  bf16 outputs differ
+# by up to one ulp, 2^-7 of a row's largest |value|
+ROW_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # (name, B, Sq, Skv, KV, G, hd, causal, window), positions arange; the
 # first five are tests/test_kernels.py's CASES.  Then, at every head dim,
 # the edges of both designs: a ragged length (the last 64-key tile and
@@ -1577,6 +1752,9 @@ FLASH_CASES = [
     ("ragged", 2, 100, 100, 4, 8, 64, True, 0),
     ("window", 2, SERVE_PROMPT, SERVE_PROMPT, 4, 8, 64, True, 512),
     ("hd128", 2, 512, 512, 4, 8, 128, True, 0),
+    # phi4-mini-3.8B's prefill attention (24 heads over 8 KV heads, head
+    # dim 128): the bf16 hd-128 instance serve_path_phi4 launches
+    (PHI4_CASE, SERVE_B, SERVE_PROMPT, SERVE_PROMPT, 8, 3, 128, True, 0),
 ] + [case for hd in (32, 64, 128) for case in (
     (f"ragged100_hd{hd}", 2, 100, 100, 2, 2, hd, True, 0),
     (f"ragged2016_hd{hd}", 1, SERVE_PROMPT, SERVE_PROMPT, 2, 2, hd, True,
@@ -1637,18 +1815,28 @@ def _flash_case(name, q, k, v, q_pos, k_pos, causal, window, contiguous,
     got = flash_attention(q, k, v, **kw)
     want = plain()
     torch.cuda.synchronize()
-    err = float((got.float() - want.float()).abs().max())
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
     tol = FLASH_TOL[q.dtype] * max(1.0, float(want.float().abs().max()))
+    row_err = float((diff.amax(-1) / want.float().abs().amax(-1).clamp_min(
+        1e-6)).max())
     if not (got.dtype == q.dtype and got.shape == q.shape and err <= tol):
         raise AssertionError(
             f"flash_attention kernel disagrees with its plain version in "
             f"case {name} {q.dtype}: max abs err {err} (tolerance {tol})")
+    if not row_err <= ROW_TOL[q.dtype]:
+        raise AssertionError(
+            f"flash_attention kernel disagrees with its plain version in "
+            f"case {name} {q.dtype}: a row's max abs err is {row_err} of "
+            f"its largest |value| (tolerance {ROW_TOL[q.dtype]})")
     bound_ms, bound_by = flash_bound(q, k, q_pos, k_pos, causal, window)
     rec = {"phase": "flash_vs_plain", "kernel": "flash_attention",
            "case": name, "B": B, "Sq": Sq, "Skv": k.shape[1], "KV": KV,
            "G": G, "hd": hd, "causal": causal, "window": window,
            "contiguous": contiguous, "dtype": str(q.dtype),
            "max_abs_err": err, "tolerance": tol,
+           "row_err_per_unit": row_err,
+           "row_tolerance": ROW_TOL[q.dtype],
            "bound_ms": bound_ms, "bound_by": bound_by}
     if timed:
         kern = lambda: flash_attention_kernel(  # noqa: E731
@@ -1704,7 +1892,8 @@ def phase_flash_vs_plain(layer0_qkv):
                 B, Skv, KV, hd)
             out[(name, dtype)] = _flash_case(
                 name, q, k, v, _arange_pos(B, Sq), _arange_pos(B, Skv),
-                causal, window, True, timed=name == "main")
+                causal, window, True, timed=name == "main" or (
+                    name == PHI4_CASE and dtype == torch.bfloat16))
             del q, k, v
         q, k, v = (t.to(dtype) for t in layer0_qkv)
         out[("main_model", dtype)] = _flash_case(
@@ -1750,13 +1939,14 @@ def phase_flash_vs_plain(layer0_qkv):
     return out
 
 
-def _serve_setup(dtype=torch.float32):
-    """TinyLlama-1.1B at full width and depth, random weights from seed
-    0 on the card in ``dtype``, and the serve batch's prompt tokens."""
+def _serve_setup(dtype=torch.float32, arch: str = SERVE_ARCH):
+    """``arch`` (TinyLlama-1.1B) at full width and depth, random weights
+    from seed 0 on the card in ``dtype``, and the serve batch's prompt
+    tokens."""
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model, make_batch
 
-    cfg = get_arch(SERVE_ARCH)
+    cfg = get_arch(arch)
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=DEV).manual_seed(0),
@@ -1796,13 +1986,16 @@ def _serve_once(model, params, tokens):
 
 
 def phase_serve_path(cfg, model, params, tokens, init_s: float,
-                     dtype=torch.float32):
+                     dtype=torch.float32, sfx=None):
     """serve() at full width and depth in the weights' ``dtype``: K3 once
     per layer of the prefill, never in decode; the rates of
     SERVE_REPEATS runs; then one profiled run.  Phases ``serve_path``,
     ``serve_path_spread``, ``serve_profile`` (fp32) or the same names
-    with ``_bf16``."""
-    sfx = "" if dtype == torch.float32 else "_bf16"
+    with the suffix ``sfx`` (default ``_bf16`` for bf16 weights)."""
+    from repro_torch.common.pytree import tree_leaves
+
+    if sfx is None:
+        sfx = "" if dtype == torch.float32 else "_bf16"
     _serve_once(model, params, tokens)  # warm-up: cuBLAS, allocator
     runs = []
     for _ in range(SERVE_REPEATS):
@@ -1834,6 +2027,8 @@ def phase_serve_path(cfg, model, params, tokens, init_s: float,
                "prefill_tokens_per_s": SERVE_B * SERVE_PROMPT
                / stats["prefill_s"],
                "peak_device_bytes": torch.cuda.max_memory_allocated(),
+               "weight_bytes": sum(t.numel() * t.element_size()
+                                   for t in tree_leaves(params)),
                "flash_attention_launches": k3, "init_s": init_s,
                "first_request_tokens": gen[0, :8].tolist()}
         emit(rec)
@@ -1931,16 +2126,18 @@ def phase_serve_card_vs_cpu():
 
 
 # the dense serve phases, which --only can run alone
-SERVE_PHASES = ("flash_vs_plain", "serve_path", "serve_path_bf16")
+SERVE_PHASES = ("flash_vs_plain", "serve_path", "serve_path_bf16",
+                "serve_path_phi4")
 # the phases --only can run alone (after the build), in this order
 ONLY_PHASES = ("main_path", "assoc_path", "oracle_path", "sweep_path",
-               "paper_rows", "residency_path", "chaos_path") + SERVE_PHASES
+               "paper_rows", "residency_path", "chaos_path",
+               "resume_path") + SERVE_PHASES
 
 
 def serve_phases(names):
     """Run the named phases of SERVE_PHASES: (flash_vs_plain's records,
-    K3 launches on serve_path, on serve_path_bf16)."""
-    fv, k3, k3_bf16 = {}, 0, 0
+    K3 launches on serve_path, on serve_path_bf16, on serve_path_phi4)."""
+    fv, k3, k3_bf16, k3_phi4 = {}, 0, 0, 0
     if "flash_vs_plain" in names or "serve_path" in names:
         cfg, model, params, tokens, init_s = _serve_setup()
         if "flash_vs_plain" in names:
@@ -1953,7 +2150,14 @@ def serve_phases(names):
         k3_bf16 = phase_serve_path(cfg, model, params, tokens, init_s,
                                    torch.bfloat16)
         del model, params, tokens
-    return fv, k3, k3_bf16
+    if "serve_path_phi4" in names:
+        # phi4-mini-3.8B in bf16 (~7.7 GB of weights): K3's hd-128 build
+        cfg, model, params, tokens, init_s = _serve_setup(torch.bfloat16,
+                                                          PHI4_ARCH)
+        k3_phi4 = phase_serve_path(cfg, model, params, tokens, init_s,
+                                   torch.bfloat16, sfx="_phi4")
+        del model, params, tokens
+    return fv, k3, k3_bf16, k3_phi4
 
 
 def _flash_entry(name, rec, launches, by_path, design):
@@ -1964,6 +2168,7 @@ def _flash_entry(name, rec, launches, by_path, design):
                   "flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/kernel.py:95",
         "launches": launches, "max_abs_err": rec["max_abs_err"],
+        "row_err_per_unit": rec["row_err_per_unit"],
         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "library_ms": rec["library_ms"], "library": rec["library"],
@@ -1974,6 +2179,8 @@ def _flash_entry(name, rec, launches, by_path, design):
         "launches_by_path": {"main_path": 0, "assoc_path": 0,
                              "oracle_path": 0, "sweep_path": 0,
                              "residency_path": 0, "chaos_path": 0,
+                             "resume_path": 0, "serve_path": 0,
+                             "serve_path_bf16": 0, "serve_path_phi4": 0,
                              **by_path}}
 
 
@@ -2000,6 +2207,9 @@ def main(argv=None) -> int:
     card = card_line()
     print(card, flush=True)
     emit({"phase": "setup", "torch": torch.__version__,
+          # whether this machine has ml_dtypes (the port never imports it)
+          "ml_dtypes_installed":
+          importlib.util.find_spec("ml_dtypes") is not None,
           "cuda": torch.version.cuda,
           "device": torch.cuda.get_device_name(0),
           "cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
@@ -2022,6 +2232,8 @@ def main(argv=None) -> int:
             phase_residency_path()
         if "chaos_path" in only:
             phase_chaos_path()
+        if "resume_path" in only:
+            phase_resume_path()
         serve_phases(only)
         print(card_line(), flush=True)
         emit({"ok": True, "only": only, "device": {
@@ -2041,8 +2253,10 @@ def main(argv=None) -> int:
     phase_paper_rows()
     res_fold, res_scan, res_k1 = phase_residency_path()
     chaos_fold, chaos_scan, chaos_k1 = phase_chaos_path()
+    resume_fold, resume_fold_reps, resume_scan = phase_resume_path()
     phase_card_vs_cpu()
-    fv, flash_launches, flash_launches_bf16 = serve_phases(SERVE_PHASES)
+    fv, flash_launches, flash_launches_bf16, flash_launches_phi4 = \
+        serve_phases(SERVE_PHASES)
     phase_serve_card_vs_cpu()
     main_rec = kv[((8, 256), torch.float32, True)]
     fold_rec = fv_fold["main_tick"]
@@ -2069,7 +2283,9 @@ def main(argv=None) -> int:
                              "oracle_path": 0, "sweep_path": 0,
                              "residency_path": res_fold,
                              "chaos_path": chaos_fold,
-                             "serve_path": 0, "serve_path_bf16": 0}}, {
+                             "resume_path": resume_fold,
+                             "serve_path": 0, "serve_path_bf16": 0,
+                             "serve_path_phi4": 0}}, {
         # the same kernel with the chaos layer's per-slot fold counts
         # (reps, read on the card) at the main path's tick; chaos_path's
         # run (a) launches it once a tick
@@ -2088,7 +2304,9 @@ def main(argv=None) -> int:
         "launches_by_path": {"main_path": 0, "assoc_path": 0,
                              "oracle_path": 0, "sweep_path": 0,
                              "residency_path": 0, "chaos_path": chaos_fold,
-                             "serve_path": 0, "serve_path_bf16": 0}}, {
+                             "resume_path": resume_fold_reps,
+                             "serve_path": 0, "serve_path_bf16": 0,
+                             "serve_path_phi4": 0}}, {
         # the per-row K1 at the first layer's shape (8, 256), held against
         # its plain version; oracle_path reaches it once a fold
         # (core.server.aggregate -> apply_feature_learning)
@@ -2103,8 +2321,9 @@ def main(argv=None) -> int:
         "launches_by_path": {"main_path": 0, "assoc_path": 0,
                              "oracle_path": k1_oracle, "sweep_path": 0,
                              "residency_path": res_k1,
-                             "chaos_path": chaos_k1,
-                             "serve_path": 0, "serve_path_bf16": 0}}, {
+                             "chaos_path": chaos_k1, "resume_path": 0,
+                             "serve_path": 0, "serve_path_bf16": 0,
+                             "serve_path_phi4": 0}}, {
         "name": "linear_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
         "replaces": "src/repro/kernels/linear_scan/kernel.py:56",
@@ -2117,16 +2336,23 @@ def main(argv=None) -> int:
                              "oracle_path": 0, "sweep_path": 0,
                              "residency_path": res_scan,
                              "chaos_path": chaos_scan,
-                             "serve_path": 0, "serve_path_bf16": 0}},
+                             "resume_path": resume_scan,
+                             "serve_path": 0, "serve_path_bf16": 0,
+                             "serve_path_phi4": 0}},
         # K3 at the serve path's shape, N(0, 1) inputs: the fp32 design
         # on serve_path, the bf16 (tensor-core) design on serve_path_bf16
         _flash_entry("flash_attention", fv[("main", torch.float32)],
-                     flash_launches,
-                     {"serve_path": flash_launches, "serve_path_bf16": 0},
+                     flash_launches, {"serve_path": flash_launches},
                      "fa_f32.cuh"),
         _flash_entry("flash_attention_bf16", fv[("main", torch.bfloat16)],
                      flash_launches_bf16,
-                     {"serve_path": 0, "serve_path_bf16": flash_launches_bf16},
+                     {"serve_path_bf16": flash_launches_bf16},
+                     "fa_bf16.cuh"),
+        # the bf16 design's head-dim-128 instance at phi4-mini's prefill
+        # shape, which serve_path_phi4 launches once a layer
+        _flash_entry("flash_attention_bf16_hd128",
+                     fv[(PHI4_CASE, torch.bfloat16)], flash_launches_phi4,
+                     {"serve_path_phi4": flash_launches_phi4},
                      "fa_bf16.cuh")]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {

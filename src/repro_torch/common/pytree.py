@@ -67,6 +67,20 @@ def tree_leaves(tree: Tree) -> List[torch.Tensor]:
     return [leaf for kid in _children(tree)[1] for leaf in tree_leaves(kid)]
 
 
+def tree_flatten_with_path(tree: Tree, _prefix: Tuple[str, ...] = ()
+                           ) -> List[Tuple[Tuple[str, ...], Any]]:
+    """``[(path, leaf)]`` in :func:`tree_leaves` order.  A path entry is
+    printed as ``jax.tree.flatten_with_path``'s key prints: a dict key as
+    the key itself, a dataclass field as ``.name`` — so ``"/".join(path)``
+    is the JAX package's checkpoint key (``repro.checkpoint``)."""
+    if not _is_node(tree):
+        return [(_prefix, tree)]
+    keys, kids = _children(tree)
+    fmt = (str if isinstance(tree, dict) else (lambda k: f".{k}"))
+    return [pl for k, kid in zip(keys, kids)
+            for pl in tree_flatten_with_path(kid, _prefix + (fmt(k),))]
+
+
 def tree_stack(trees: Sequence[Tree]) -> Tree:
     """Stack trees of one structure along a new leading axis."""
     return tree_map(lambda *xs: torch.stack(xs), *trees)

@@ -40,6 +40,11 @@ class ModelConfig:
     # long-context variant for dense archs (0 = full attention)
     sliding_window: int = 0
 
+    # the JAX package's mesh layout ("tp" | "seqp" | ...): stored as given
+    # and read by nothing, the port runs on one card.  Every dense config
+    # sets it as its JAX config does; the default is JAX's
+    parallel_strategy: str = "tp"
+
     # paper-scale models (LSTM / CNN)
     in_features: int = 0
     out_features: int = 0

@@ -22,4 +22,5 @@ def qwen2_0_5b() -> ModelConfig:
         rope_theta=1_000_000.0,
         norm="rmsnorm",
         act="swiglu",
+        parallel_strategy="seqp",
     )

@@ -20,4 +20,5 @@ def tinyllama_1_1b() -> ModelConfig:
         rope_theta=10000.0,
         norm="rmsnorm",
         act="swiglu",
+        parallel_strategy="tp",
     )

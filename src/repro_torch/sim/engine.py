@@ -8,7 +8,9 @@ host pool (``state_residency="host"``, ``repro_torch.sim.state_pool``),
 the lossy upload codecs (``upload_codec``) and the chaos layer (faults
 from each client's ``FaultSpec``: crash-restart, wire corruption,
 duplicate delivery; the server's admission guards ``max_staleness`` /
-``max_delta_norm``), one device.
+``max_delta_norm``), crash-resume snapshots of the async schedule
+(``checkpoint_path`` / ``resume_from``, ``repro_torch.checkpoint``), one
+device.
 The host layer — schedulers, streams, staging buffers, prefetch thread,
 telemetry log — is the JAX package's, copied unchanged, so both engines
 replay the same arrival stream draw for draw; the device side is plain
@@ -27,8 +29,8 @@ one pooled member (Global).
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``device="cpu"``): with no card present ``run_strategy`` raises instead
-of falling back.  Knobs outside this slice (checkpoints, a mesh) raise
-``ValueError`` naming the knob.
+of falling back.  A knob outside the port (a mesh) raises ``ValueError``
+naming the knob.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from typing import (Any, Dict, List, Mapping, Optional, Sequence, Tuple,
 import numpy as np
 import torch
 
+from repro_torch import checkpoint as ckpt_lib
 from repro_torch.common.device import resolve_device
 from repro_torch.common.dtypes import (resolve_state_dtype,
                                        resolve_state_storage)
@@ -331,8 +334,8 @@ def stack_batches(stream: OnlineStream, t: int, batch_size: int,
 
 
 def _check_slice(strategy: Strategy, cfg: RunConfig,
-                 clients: Sequence[SimClient], *, mesh, checkpoint_path,
-                 resume_from) -> None:
+                 clients: Sequence[SimClient], *, mesh,
+                 checkpointed: bool) -> None:
     """Raise ``ValueError`` naming the first knob outside this slice, or
     the first malformed one."""
     def refuse(knob: str, value, accepted: str):
@@ -342,10 +345,10 @@ def _check_slice(strategy: Strategy, cfg: RunConfig,
     if strategy.schedule not in ("async", "sync", "sweep"):
         refuse("strategy.schedule", strategy.schedule,
                "'async', 'sync' and 'sweep' strategies")
-    if checkpoint_path is not None:
-        refuse("checkpoint_path", checkpoint_path, "without checkpoints")
-    if resume_from is not None:
-        refuse("resume_from", resume_from, "without checkpoints")
+    if checkpointed and strategy.schedule != "async":
+        raise ValueError(
+            "run checkpointing / resume is supported for async schedules "
+            f"only ({strategy.name!r} is {strategy.schedule!r})")
     if mesh is not None:
         refuse("mesh", mesh, "on a single device")
     # the state storage knobs, validated as the JAX engine does
@@ -436,6 +439,7 @@ def run_strategy(
     window: Optional[int] = None,
     mesh=None,
     checkpoint_path: Optional[str] = None,
+    checkpoint_every: Optional[int] = None,
     resume_from: Optional[str] = None,
     device=None,
     init_params: Union[Mapping[str, Any], Sequence[Mapping[str, Any]],
@@ -453,6 +457,21 @@ def run_strategy(
     a list, receives ``(t, {name: numpy server weight})`` after every
     window; ``stats``, when a dict, is filled with the run's counters and
     per-phase wall times; ``telemetry`` receives one record per tick.
+
+    ``checkpoint_path`` (async schedules only) writes a resumable
+    snapshot (``repro_torch.checkpoint.save_run_state``: the stacked
+    client state or the host pool, the server state, and the host cursor
+    of scheduler, stream rngs and staleness meter) every
+    ``checkpoint_every`` iterations (default ``cfg.eval_every``, or
+    ``cfg.T`` with evaluation off), in the JAX package's format.
+    ``resume_from`` restores one (written by either package) and
+    continues: the rest of the arrival stream replays, so the final
+    weights equal the uninterrupted run's bit for bit (``history`` and
+    ``trace`` cover the windows after the resume only).  ``stats`` then
+    carries ``resumed_from_t``; ``ckpt_writes``, ``ckpt_write_s`` (wall
+    seconds spent writing) and ``ckpt_bytes`` (the last snapshot's bytes
+    on disk) are the port's own counters, not the JAX engine's; none of
+    them changes a result.
     """
     entry = time.perf_counter()
     clients = list(clients)
@@ -462,7 +481,8 @@ def run_strategy(
             "run_strategy requires clients with cid == position "
             f"(0..{K - 1}); got {[c.cid for c in clients]}")
     _check_slice(strategy, cfg, clients, mesh=mesh,
-                 checkpoint_path=checkpoint_path, resume_from=resume_from)
+                 checkpointed=checkpoint_path is not None
+                 or resume_from is not None)
     faults_on = faults_active(clients)
     dev = resolve_device(device)
     # fail fast on the fold mode and the chaos knobs, before any state is
@@ -623,11 +643,32 @@ def run_strategy(
     if on_card:
         torch.cuda.reset_peak_memory_stats(dev)
 
+    resume_t, resume_sim_time = 0, 0.0
+    if resume_from is not None:
+        # the snapshot's device state replaces the fresh one (on this
+        # run's device), its host cursor the fresh scheduler, streams
+        # and staleness meter
+        stacked, server, host = ckpt_lib.load_run_state(
+            resume_from, stacked, server, pool=pool, device=dev)
+        if host.get("strategy") != strategy.name \
+                or int(host.get("seed", cfg.seed)) != cfg.seed:
+            raise ValueError(
+                f"snapshot at {resume_from!r} was written by "
+                f"strategy={host.get('strategy')!r} "
+                f"seed={host.get('seed')}; this run is "
+                f"{strategy.name!r} seed={cfg.seed}")
+        sched.load_state_dict(host["sched"])
+        for cid_s, st_rng in host["streams"].items():
+            by_id[int(cid_s)].stream.set_rng_state(st_rng)
+        builder.staleness.load_state_dict(host["staleness"])
+        resume_t, resume_sim_time = int(host["t"]), float(host["sim_time"])
+
     history: List[HistoryPoint] = []
     pending_evals: List[Tuple[int, float, float, Any]] = []
     device_s = 0.0
     eval_s = 0.0
-    n_ticks, n_windows, t, sim_time = 0, 0, 0, 0.0
+    n_ticks, n_windows = 0, 0
+    t, sim_time = resume_t, resume_sim_time
     n_uploads = 0  # arrivals of the sync and sweep schedules
     t0 = time.perf_counter()
 
@@ -684,6 +725,7 @@ def run_strategy(
                     for k, v in eval_params().items()})
 
     use_prefetch = False
+    ckpt_writes, ckpt_write_s, ckpt_bytes = 0, 0.0, 0
     if windowed:
         # a client with an empty local split can never train: its
         # arrivals are dropped so fabricated zero batches are never folded
@@ -698,14 +740,32 @@ def run_strategy(
 
         def produce():
             """Pop + filter + build each window (worker thread when
-            prefetching) — the JAX engine's producer, without the
-            checkpoint snapshot: same peek/commit speculation, same split
-            of a window into same-bucket runs and power-of-two chunks, so
-            every tick keeps the bucket a ``window=1`` run gives it."""
-            tp = 0
+            prefetching) — the JAX engine's producer: same peek/commit
+            speculation, same split of a window into same-bucket runs and
+            power-of-two chunks, so every tick keeps the bucket a
+            ``window=1`` run gives it, and the same checkpoint cursor."""
+            tp = resume_t
+            sim_prod = resume_sim_time
             kept_count = lambda tk: sum(  # noqa: E731
                 a.cid in trainable for a in tk)
             while tp < cfg.T:
+                snap = None
+                if checkpoint_path is not None:
+                    # the whole host cursor, taken at the one clean point:
+                    # the previous window is committed (no speculation in
+                    # flight) and no stream draw of the next window has
+                    # been made.  It rides the window's first tick to the
+                    # consumer, which saves it with the device state
+                    # before dispatching that tick
+                    snap = {
+                        "t": tp, "sim_time": sim_prod,
+                        "strategy": strategy.name, "seed": cfg.seed,
+                        "state_residency": cfg.state_residency,
+                        "sched": sched.state_dict(),
+                        "streams": {str(c.cid): c.stream.rng_state()
+                                    for c in active},
+                        "staleness": builder.staleness.state_dict(),
+                    }
                 ticks = sched.peek_window(W, pad, total_limit=cfg.T - tp,
                                           count=kept_count)
                 if not ticks:
@@ -740,6 +800,10 @@ def run_strategy(
                                 chunk, t_start=tp, window=W,
                                 sim_time=chunk[-1][-1].time)
                             tp = pt.t_end
+                            sim_prod = pt.sim_time
+                            if snap is not None:
+                                pt.host_snapshot = snap
+                                snap = None
                             yield pt
 
         if not trainable:
@@ -748,9 +812,29 @@ def run_strategy(
             source = TickPrefetcher(produce(), depth=1)
         else:
             source = produce()
-        next_eval = cfg.eval_every if cfg.eval_every > 0 else cfg.T + 1
+        next_eval = (resume_t // cfg.eval_every + 1) * cfg.eval_every \
+            if cfg.eval_every > 0 else cfg.T + 1
+        ckpt_every = int(checkpoint_every) if checkpoint_every \
+            else (cfg.eval_every or cfg.T)
+        next_ckpt = resume_t + ckpt_every if checkpoint_path is not None \
+            else None
         try:
             for pt in source:
+                if (next_ckpt is not None and pt.host_snapshot is not None
+                        and pt.host_snapshot["t"] >= next_ckpt):
+                    # write before dispatch: the state on disk is the
+                    # state after the snapshot's t folds.  Under host
+                    # residency the pool is the client-state payload, and
+                    # every earlier window has scattered back into it
+                    # (dispatch copies the block back synchronously); an
+                    # asynchronous copy-back must wait on its event here
+                    c0 = time.perf_counter()
+                    ckpt_bytes = ckpt_lib.save_run_state(
+                        checkpoint_path, stacked, server, pt.host_snapshot,
+                        pool=pool)
+                    ckpt_write_s += time.perf_counter() - c0
+                    ckpt_writes += 1
+                    next_ckpt = pt.host_snapshot["t"] + ckpt_every
                 dispatch(pt)
                 t = pt.t_end
                 sim_time = pt.sim_time
@@ -806,7 +890,8 @@ def run_strategy(
         stats.update(
             ticks=n_ticks, windows=n_windows, iters=t, sim_time=sim_time,
             # wall seconds before the first window: state init (the
-            # host pool's chunked fill), scheduler, evaluator
+            # host pool's chunked fill), scheduler, evaluator, and the
+            # load of a resumed snapshot
             setup_s=round(t0 - entry, 6),
             host_build_s=round(builder.host_build_s, 6),
             device_s=round(device_s, 6), eval_s=round(eval_s, 6),
@@ -848,7 +933,11 @@ def run_strategy(
             # async iterations each fold exactly one upload
             upload_bytes_total=float(upload_bytes) * (
                 t if windowed else n_uploads),
+            ckpt_writes=ckpt_writes, ckpt_write_s=round(ckpt_write_s, 6),
+            ckpt_bytes=int(ckpt_bytes),
         )
+        if resume_from is not None:
+            stats["resumed_from_t"] = resume_t
         for k, v in telem.summary().items():
             stats[k] = round(v, 6) if isinstance(v, float) else v
         if chaos_tick:
