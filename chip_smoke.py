@@ -45,6 +45,11 @@ drives the port's paths through its entry points:
 * ``serve_path_phi4``: ``serve`` on phi4-mini-3.8B at full width and
   depth in bf16 (head dim 128, 24 heads over 8 KV heads), which runs
   K3's bf16 hd-128 instance once per layer of the prefill;
+* ``serve_path_mamba``: ``serve`` on Falcon-Mamba-7B (Mamba-1 SSM) at
+  full width and depth in bf16, batch 8, prompt 2016, 32 greedy tokens,
+  which runs the linear-recurrence kernel (K2) once per layer of the
+  prefill as the selective scan over (8, 2016, 8192 x 16) fp32
+  coefficients, and never in decode;
 * ``chaos_path``: main_path's shape under the chaos layer
   (``tests/test_faults.py``'s mixed faults at rate 0.15 and its guards,
   ``max_staleness`` 8 and ``max_delta_norm`` 0.5): asofed with the
@@ -63,11 +68,14 @@ fold count (``reps``: 0, 1 or 2 folds a slot).  Each path is driven with
 the launch counts set to 0 just before it and read just after.  Then
 the card's trajectories are held against the CPU's for every ported
 strategy, the associative fold against the sequential one on the card,
-and the card's prefill and teacher-forced decode logits against the
-CPU's.  Prints one JSON line per phase, then a
-``{"kernels": [...]}`` line, the card's name and power limit, and as the
-last line ``{"ok": true, "device": {...}}``.  Any failure exits non-zero
-before that line; without a CUDA card it exits non-zero at once.
+and the card's prefill and teacher-forced decode logits and caches
+against the CPU's (TinyLlama and Falcon-Mamba).  ``scan_vs_plain`` also
+holds K2 at the Mamba prefill's shape bit for bit against its plain
+version, before any model's weights are on the card.  Prints one JSON
+line per phase, then a ``{"kernels": [...]}`` line, the card's name and
+power limit, and as the last line ``{"ok": true, "device": {...}}``.
+Any failure exits non-zero before that line; without a CUDA card it
+exits non-zero at once.
 """
 from __future__ import annotations
 
@@ -352,7 +360,63 @@ def phase_scan_vs_plain():
                    library_ms=device_ms(lib), library_max_abs_err=lib_err)
         emit(rec)
         rows_out[(shape, torch.float32, "ones")] = rec
+    rows_out["mamba"] = _mamba_scan_case()
     return rows_out
+
+
+def _max_abs_diff(x: torch.Tensor, y: torch.Tensor) -> float:
+    """max |x - y| a batch row at a time (no full-size temporary)."""
+    return max(float((x[i] - y[i]).abs().max()) for i in range(x.shape[0]))
+
+
+def _mamba_scan_case():
+    """K2 at the Mamba prefill's shape: Falcon-Mamba-7B's (B, S, d_inner x
+    N) = (8, 2016, 131072) fp32, 2.11e9 elements, drawn on the card (a in
+    [0, 1), as dA = exp(dt A) with dt > 0 and A < 0 gives; b N(0, 1)).
+    Held bit for bit against its plain version (the kernel's fp32
+    contract); timed with MAMBA_SCAN_REPS launches a graph; torch.cumsum
+    along S on the same b as the library yardstick (a = 1)."""
+    from repro_torch.kernels.linear_scan.kernel import linear_scan_kernel
+    from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+
+    B, S, C = MAMBA_SCAN_SHAPE
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    a = torch.rand((B, S, C), generator=gen, device=DEV)
+    b = torch.randn((B, S, C), generator=gen, device=DEV)
+    h, h_last = linear_scan_kernel(a, b)
+    want, want_last = linear_scan_ref(a, b)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(h, want) and torch.equal(h_last, want_last)
+    err = max(_max_abs_diff(h, want), _max_abs_diff(h_last, want_last))
+    finite = bool(torch.isfinite(h_last).all())
+    del h, h_last, want, want_last
+    if not (bitwise and finite):
+        raise AssertionError(
+            f"linear_scan kernel at the Mamba shape {MAMBA_SCAN_SHAPE} fp32 "
+            f"is not bit for bit its plain version: max abs err {err}, "
+            f"finite {finite}")
+    kern = lambda: linear_scan_kernel(a, b)  # noqa: E731
+    # the library yardstick against the kernel at a = 1 (broadcast over C)
+    ones = torch.ones((B, S, 1), device=DEV)
+    lib = lambda: torch.cumsum(b, dim=1)  # noqa: E731
+    lib_err = _max_abs_diff(lib(), linear_scan_kernel(ones, b)[0])
+    bound_ms, bound_by = scan_bound(a, b)
+    rec = {"phase": "kernel_vs_plain", "kernel": "linear_scan",
+           "case": "mamba_prefill", "shape": [B, S, C],
+           "a_shape": [B, S, C], "dtype": str(b.dtype), "bitwise": bitwise,
+           "max_abs_err": err, "tolerance": 0.0,
+           "ms": device_ms(kern, reps=MAMBA_SCAN_REPS),
+           "call_ms": call_ms(kern, reps=MAMBA_SCAN_REPS),
+           # the plain loop issues 2 S + 1 ops: one call a graph
+           "plain_ms": device_ms(lambda: linear_scan_ref(a, b), reps=1),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library": "torch.cumsum along S",
+           "library_ms": device_ms(lib, reps=MAMBA_SCAN_REPS),
+           "library_max_abs_err_vs_a1": lib_err}
+    emit(rec)
+    del a, b, ones
+    torch.cuda.empty_cache()
+    return rec
 
 
 def fold_bound(w, S: int, n_real: int, rows: int, cols: int, n_len: int,
@@ -1727,6 +1791,16 @@ SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 2016, 32
 SERVE_REPEATS = 3
 # serve_path_phi4's architecture (head dim 128) and its flash_vs_plain case
 PHI4_ARCH, PHI4_CASE = "phi4-mini-3.8b", "phi4_layer0"
+# serve_path_mamba's architecture, and K2 at its prefill's scan: (B, S,
+# d_inner x N) = (8, 2016, 8192 x 16), timed with a few launches a graph
+# (~10 ms each)
+MAMBA_ARCH = "falcon-mamba-7b"
+MAMBA_SCAN_SHAPE = (SERVE_B, SERVE_PROMPT, 8192 * 16)
+MAMBA_SCAN_REPS = 5
+# decode steps of serve_path_mamba's profiled run: the profiler's cost
+# grows with the ~3,000 eager ops of each of its 64-layer decode steps
+# (~85 s for 32 steps); K2's share of the prefill needs none of them
+MAMBA_PROFILE_GEN = 4
 # K3 vs its plain version: max abs error per unit of the output's largest
 # magnitude (at least 1), tests/test_kernels.py's bounds.  The online and
 # the dense softmax sum in different orders; bf16 outputs round once.
@@ -1977,25 +2051,31 @@ def _layer0_qkv(cfg, params, tokens):
             k.contiguous(), v.contiguous())
 
 
-def _serve_once(model, params, tokens):
+def _serve_once(model, params, tokens, gen: int = SERVE_GEN):
     from repro_torch.launch.serve import serve
 
     with torch.no_grad():
-        return serve(model, params, tokens, SERVE_GEN, temperature=0.0,
+        return serve(model, params, tokens, gen, temperature=0.0,
                      device=DEV)
 
 
 def phase_serve_path(cfg, model, params, tokens, init_s: float,
                      dtype=torch.float32, sfx=None):
-    """serve() at full width and depth in the weights' ``dtype``: K3 once
-    per layer of the prefill, never in decode; the rates of
-    SERVE_REPEATS runs; then one profiled run.  Phases ``serve_path``,
-    ``serve_path_spread``, ``serve_profile`` (fp32) or the same names
-    with the suffix ``sfx`` (default ``_bf16`` for bf16 weights)."""
+    """serve() at full width and depth in the weights' ``dtype``: the
+    family's kernel (K3 for a dense model, K2 for the SSM) once per layer
+    of the prefill, no kernel in decode; the rates of SERVE_REPEATS runs;
+    then one profiled run (of MAMBA_PROFILE_GEN decode steps for the
+    SSM).  Phases ``serve_path``, ``serve_path_spread``,
+    ``serve_profile`` (fp32) or the same names with the suffix ``sfx``
+    (default ``_bf16`` for bf16 weights).  Returns the family kernel's
+    launches in one run."""
     from repro_torch.common.pytree import tree_leaves
 
     if sfx is None:
         sfx = "" if dtype == torch.float32 else "_bf16"
+    ssm = cfg.family == "ssm"
+    # (K3, K2) launches expected in the prefill
+    want = (0, cfg.n_layers) if ssm else (cfg.n_layers, 0)
     _serve_once(model, params, tokens)  # warm-up: cuBLAS, allocator
     runs = []
     for _ in range(SERVE_REPEATS):
@@ -2005,21 +2085,24 @@ def phase_serve_path(cfg, model, params, tokens, init_s: float,
         k1, k2 = _launches()
         k1 += _fold_launches()
         k3 = _flash_launches()
-        if not (k3 == cfg.n_layers and stats["k3_launches"] == cfg.n_layers
-                and stats["k3_decode_launches"] == 0 and k1 == 0
-                and k2 == 0):
+        # an older checkout's serve() counts no K2 (--only A/B)
+        got = (stats["k3_launches"], stats.get("k2_launches", 0))
+        decode = (stats["k3_decode_launches"],
+                  stats.get("k2_decode_launches", 0))
+        if not ((k3, k2) == want == got and decode == (0, 0) and k1 == 0):
             raise AssertionError(
-                f"serve path{sfx}: {k3} flash-attention launches ("
-                f"{stats['k3_launches']} in the prefill, "
-                f"{stats['k3_decode_launches']} in decode; expected "
-                f"{cfg.n_layers} and 0), K1 {k1}, K2 {k2}")
+                f"serve path{sfx}: (K3, K2) launches {(k3, k2)}, "
+                f"{got} in the prefill and {decode} in decode; expected "
+                f"{want} and (0, 0); K1 {k1}")
         if not stats["finite_logits"] or tuple(gen.shape) != (
                 SERVE_B, SERVE_GEN + 1):
             raise AssertionError(f"serve path{sfx}: non-finite logits or "
                                  f"tokens of shape {tuple(gen.shape)}")
+        shape = ({"d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state}
+                 if ssm else {"n_heads": cfg.n_heads,
+                              "n_kv_heads": cfg.n_kv_heads})
         rec = {"phase": "serve_path" + sfx, "arch": cfg.name,
-               "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-               "n_heads": cfg.n_heads, "n_kv_heads": cfg.n_kv_heads,
+               "n_layers": cfg.n_layers, "d_model": cfg.d_model, **shape,
                "batch": SERVE_B, "prompt_len": SERVE_PROMPT,
                "gen": SERVE_GEN, "max_len": SERVE_PROMPT + SERVE_GEN,
                "temperature": 0.0, "dtype": str(dtype).split(".")[-1],
@@ -2029,7 +2112,8 @@ def phase_serve_path(cfg, model, params, tokens, init_s: float,
                "peak_device_bytes": torch.cuda.max_memory_allocated(),
                "weight_bytes": sum(t.numel() * t.element_size()
                                    for t in tree_leaves(params)),
-               "flash_attention_launches": k3, "init_s": init_s,
+               "flash_attention_launches": k3, "linear_scan_launches": k2,
+               "init_s": init_s,
                "first_request_tokens": gen[0, :8].tolist()}
         emit(rec)
         runs.append(rec)
@@ -2042,17 +2126,27 @@ def phase_serve_path(cfg, model, params, tokens, init_s: float,
     emit({"phase": f"serve_path{sfx}_spread", "runs": len(runs),
           **spread("prefill_s"), **spread("ttft_s"),
           **spread("tokens_per_s")})
+    gen = MAMBA_PROFILE_GEN if ssm else SERVE_GEN
     (_, stats), wall, per = _device_profile(
-        lambda: _serve_once(model, params, tokens))
-    emit({"phase": "serve_profile" + sfx, "arch": cfg.name, "wall_s": wall,
-          "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
-          **_profile_record(per, wall, ("fa_fwd_f32", "fa_fwd_bf16"))})
-    return runs[-1]["flash_attention_launches"]
+        lambda: _serve_once(model, params, tokens, gen))
+    rec = {"phase": "serve_profile" + sfx, "arch": cfg.name, "gen": gen,
+           "wall_s": wall, "prefill_s": stats["prefill_s"],
+           "decode_s": stats["decode_s"],
+           **_profile_record(per, wall, ("fa_fwd_f32", "fa_fwd_bf16",
+                                         "linear_scan_channels"))}
+    if ssm:  # K2 runs only in the prefill: its share of the prefill's time
+        k2_ms = sum(ms for k, ms, _ in per if "linear_scan_channels" in k)
+        rec.update(k2_ms=k2_ms,
+                   k2_share_of_prefill=k2_ms / 1e3 / stats["prefill_s"])
+    emit(rec)
+    return runs[-1]["linear_scan_launches" if ssm
+                   else "flash_attention_launches"]
 
 
 def _teacher_forced(model, params, tokens, device: str):
     """Prefill the first FORCED_PROMPT tokens, then FORCED_STEPS decode
-    steps fed the next tokens: ([logits per step], cache) on the CPU."""
+    steps fed the next tokens: ([logits per step], cache) on the CPU (the
+    KV cache of a dense model, the recurrent state of the SSM)."""
     tokens = tokens.to(device)
     B = tokens.shape[0]
     with torch.no_grad():
@@ -2067,21 +2161,26 @@ def _teacher_forced(model, params, tokens, device: str):
                 params, cache,
                 tokens[:, FORCED_PROMPT + i:FORCED_PROMPT + i + 1], idx)
             out.append(logits.cpu())
-    return out, {k: t.cpu() for k, t in cache["kv"].items()}
+    (part,) = cache.values()
+    return out, {k: t.cpu() for k, t in part.items()}
 
 
 def phase_serve_card_vs_cpu():
-    """The port on the card against the port on the CPU: prefill logits,
-    every teacher-forced decode step's logits and the KV cache, at full
-    width with the depth cut to 2 layers, and on the reduced config."""
+    """The port on the card against the port on the CPU, for TinyLlama
+    and Falcon-Mamba in fp32: prefill logits, every teacher-forced decode
+    step's logits and the cache (K/V, or the SSM's h and conv window), at
+    full width with the depth cut to 2 layers, and on the reduced config.
+    The card's prefill launches the family's kernel once a layer."""
     from repro_torch.common.pytree import tree_map
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model, make_batch
 
-    full = get_arch(SERVE_ARCH)
-    for tag, cfg in (("full_width_2_layers",
-                      dataclasses.replace(full, n_layers=2)),
-                     ("reduced", full.reduced())):
+    cases = [(tag, cfg) for full in map(get_arch, (SERVE_ARCH, MAMBA_ARCH))
+             for tag, cfg in (("full_width_2_layers",
+                               dataclasses.replace(full, n_layers=2)),
+                              ("reduced", full.reduced()))]
+    for tag, cfg in cases:
+        ssm = cfg.family == "ssm"
         model = build_model(cfg)
         params = model.init(torch.Generator(device=DEV).manual_seed(0),
                             device=DEV)
@@ -2090,44 +2189,45 @@ def phase_serve_card_vs_cpu():
                             device="cpu")["tokens"]
         _reset_launches()
         got, cache_gpu = _teacher_forced(model, params, tokens, DEV)
-        k3 = _flash_launches()
+        k3, k2 = _flash_launches(), _launches()[1]
         want, cache_cpu = _teacher_forced(model, params_cpu, tokens, "cpu")
-        if k3 != cfg.n_layers:
-            raise AssertionError(f"{tag}: {k3} K3 launches in the card's "
-                                 f"prefill, expected {cfg.n_layers}")
+        expect = (0, cfg.n_layers) if ssm else (cfg.n_layers, 0)
+        if (k3, k2) != expect:
+            raise AssertionError(
+                f"{cfg.name} {tag}: (K3, K2) launches {(k3, k2)} in the "
+                f"card's prefill and decode, expected {expect}")
         errs = []
         for step, (g, w) in enumerate(zip(got, want)):
             rel = float((g - w).abs().max()) / float(w.abs().max())
             errs.append(rel)
             if not (torch.isfinite(g).all() and rel <= SERVE_TOL):
                 raise AssertionError(
-                    f"serve card vs CPU ({tag}): logits of step {step} "
-                    f"differ by {rel} per unit of max |logits| "
+                    f"serve card vs CPU ({cfg.name} {tag}): logits of step "
+                    f"{step} differ by {rel} per unit of max |logits| "
                     f"(tolerance {SERVE_TOL})")
         cache_errs = {}
-        for name in ("k", "v"):
+        for name in (("h", "conv") if ssm else ("k", "v")):
             w = cache_cpu[name]
             cache_errs[name] = float((cache_gpu[name] - w).abs().max()) \
                 / float(w.abs().max())
-        if max(cache_errs.values()) > SERVE_TOL or not torch.equal(
-                cache_gpu["pos"], cache_cpu["pos"]):
+        pos_equal = ssm or torch.equal(cache_gpu["pos"], cache_cpu["pos"])
+        if max(cache_errs.values()) > SERVE_TOL or not pos_equal:
             raise AssertionError(
-                f"serve card vs CPU ({tag}): KV cache differs: "
-                f"{cache_errs}, pos equal: "
-                f"{torch.equal(cache_gpu['pos'], cache_cpu['pos'])}")
+                f"serve card vs CPU ({cfg.name} {tag}): cache differs: "
+                f"{cache_errs}, pos equal: {pos_equal}")
         emit({"phase": "serve_card_vs_cpu", "case": tag, "arch": cfg.name,
               "n_layers": cfg.n_layers, "d_model": cfg.d_model,
               "batch": 2, "prompt_len": FORCED_PROMPT,
               "forced_steps": FORCED_STEPS,
               "logits_rel_err_per_step": errs,
               "cache_rel_err": cache_errs, "tolerance": SERVE_TOL,
-              "flash_attention_launches": k3})
+              "flash_attention_launches": k3, "linear_scan_launches": k2})
         del params, params_cpu
 
 
-# the dense serve phases, which --only can run alone
+# the serve phases, which --only can run alone
 SERVE_PHASES = ("flash_vs_plain", "serve_path", "serve_path_bf16",
-                "serve_path_phi4")
+                "serve_path_phi4", "serve_path_mamba")
 # the phases --only can run alone (after the build), in this order
 ONLY_PHASES = ("main_path", "assoc_path", "oracle_path", "sweep_path",
                "paper_rows", "residency_path", "chaos_path",
@@ -2136,8 +2236,9 @@ ONLY_PHASES = ("main_path", "assoc_path", "oracle_path", "sweep_path",
 
 def serve_phases(names):
     """Run the named phases of SERVE_PHASES: (flash_vs_plain's records,
-    K3 launches on serve_path, on serve_path_bf16, on serve_path_phi4)."""
-    fv, k3, k3_bf16, k3_phi4 = {}, 0, 0, 0
+    K3 launches on serve_path, on serve_path_bf16, on serve_path_phi4, K2
+    launches on serve_path_mamba)."""
+    fv, k3, k3_bf16, k3_phi4, k2_mamba = {}, 0, 0, 0, 0
     if "flash_vs_plain" in names or "serve_path" in names:
         cfg, model, params, tokens, init_s = _serve_setup()
         if "flash_vs_plain" in names:
@@ -2157,7 +2258,16 @@ def serve_phases(names):
         k3_phi4 = phase_serve_path(cfg, model, params, tokens, init_s,
                                    torch.bfloat16, sfx="_phi4")
         del model, params, tokens
-    return fv, k3, k3_bf16, k3_phi4
+    if "serve_path_mamba" in names:
+        # Falcon-Mamba-7B in bf16 (~14 GB of weights); each layer's scan
+        # holds three 8.46 GB fp32 tensors
+        torch.cuda.empty_cache()
+        cfg, model, params, tokens, init_s = _serve_setup(torch.bfloat16,
+                                                          MAMBA_ARCH)
+        k2_mamba = phase_serve_path(cfg, model, params, tokens, init_s,
+                                    torch.bfloat16, sfx="_mamba")
+        del model, params, tokens
+    return fv, k3, k3_bf16, k3_phi4, k2_mamba
 
 
 def _flash_entry(name, rec, launches, by_path, design):
@@ -2181,7 +2291,7 @@ def _flash_entry(name, rec, launches, by_path, design):
                              "residency_path": 0, "chaos_path": 0,
                              "resume_path": 0, "serve_path": 0,
                              "serve_path_bf16": 0, "serve_path_phi4": 0,
-                             **by_path}}
+                             "serve_path_mamba": 0, **by_path}}
 
 
 def main(argv=None) -> int:
@@ -2255,8 +2365,8 @@ def main(argv=None) -> int:
     chaos_fold, chaos_scan, chaos_k1 = phase_chaos_path()
     resume_fold, resume_fold_reps, resume_scan = phase_resume_path()
     phase_card_vs_cpu()
-    fv, flash_launches, flash_launches_bf16, flash_launches_phi4 = \
-        serve_phases(SERVE_PHASES)
+    fv, flash_launches, flash_launches_bf16, flash_launches_phi4, \
+        scan_launches_mamba = serve_phases(SERVE_PHASES)
     phase_serve_card_vs_cpu()
     main_rec = kv[((8, 256), torch.float32, True)]
     fold_rec = fv_fold["main_tick"]
@@ -2265,6 +2375,7 @@ def main(argv=None) -> int:
     # library yardstick (torch.cumsum); the kernel's time does not depend
     # on the values of a
     scan_rec = sv[((1, 64, 16384), torch.float32, "ones")]
+    mamba_rec = sv["mamba"]
     emit({"kernels": [{
         # K1 redesigned for the main path: the tick's whole sequential fold
         "name": "feature_fold", "route": "cuda",
@@ -2285,7 +2396,8 @@ def main(argv=None) -> int:
                              "chaos_path": chaos_fold,
                              "resume_path": resume_fold,
                              "serve_path": 0, "serve_path_bf16": 0,
-                             "serve_path_phi4": 0}}, {
+                             "serve_path_phi4": 0,
+                             "serve_path_mamba": 0}}, {
         # the same kernel with the chaos layer's per-slot fold counts
         # (reps, read on the card) at the main path's tick; chaos_path's
         # run (a) launches it once a tick
@@ -2306,7 +2418,8 @@ def main(argv=None) -> int:
                              "residency_path": 0, "chaos_path": chaos_fold,
                              "resume_path": resume_fold_reps,
                              "serve_path": 0, "serve_path_bf16": 0,
-                             "serve_path_phi4": 0}}, {
+                             "serve_path_phi4": 0,
+                             "serve_path_mamba": 0}}, {
         # the per-row K1 at the first layer's shape (8, 256), held against
         # its plain version; oracle_path reaches it once a fold
         # (core.server.aggregate -> apply_feature_learning)
@@ -2323,7 +2436,8 @@ def main(argv=None) -> int:
                              "residency_path": res_k1,
                              "chaos_path": chaos_k1, "resume_path": 0,
                              "serve_path": 0, "serve_path_bf16": 0,
-                             "serve_path_phi4": 0}}, {
+                             "serve_path_phi4": 0,
+                             "serve_path_mamba": 0}}, {
         "name": "linear_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
         "replaces": "src/repro/kernels/linear_scan/kernel.py:56",
@@ -2338,7 +2452,8 @@ def main(argv=None) -> int:
                              "chaos_path": chaos_scan,
                              "resume_path": resume_scan,
                              "serve_path": 0, "serve_path_bf16": 0,
-                             "serve_path_phi4": 0}},
+                             "serve_path_phi4": 0,
+                             "serve_path_mamba": 0}},
         # K3 at the serve path's shape, N(0, 1) inputs: the fp32 design
         # on serve_path, the bf16 (tensor-core) design on serve_path_bf16
         _flash_entry("flash_attention", fv[("main", torch.float32)],
@@ -2353,7 +2468,25 @@ def main(argv=None) -> int:
         _flash_entry("flash_attention_bf16_hd128",
                      fv[(PHI4_CASE, torch.bfloat16)], flash_launches_phi4,
                      {"serve_path_phi4": flash_launches_phi4},
-                     "fa_bf16.cuh")]})
+                     "fa_bf16.cuh"), {
+        # K2 at Falcon-Mamba-7B's prefill scan, (8, 2016, 8192 x 16) fp32:
+        # serve_path_mamba launches it once a layer of the prefill
+        "name": "linear_scan_mamba", "route": "cuda",
+        "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
+        "replaces": "src/repro/kernels/linear_scan/kernel.py:56",
+        "launches": scan_launches_mamba,
+        "max_abs_err": mamba_rec["max_abs_err"],
+        "ms": mamba_rec["ms"], "plain_ms": mamba_rec["plain_ms"],
+        "bound_ms": mamba_rec["bound_ms"],
+        "bound_by": mamba_rec["bound_by"],
+        "library_ms": mamba_rec["library_ms"],
+        "library": mamba_rec["library"], "shape": mamba_rec["shape"],
+        "launches_by_path": {"main_path": 0, "assoc_path": 0,
+                             "oracle_path": 0, "sweep_path": 0,
+                             "residency_path": 0, "chaos_path": 0,
+                             "resume_path": 0, "serve_path": 0,
+                             "serve_path_bf16": 0, "serve_path_phi4": 0,
+                             "serve_path_mamba": scan_launches_mamba}}]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,6 +2,7 @@
 from repro_torch.configs.base import ARCHS, ModelConfig, get_arch
 
 # Register the architectures (import side effect).
+from repro_torch.configs import falcon_mamba_7b  # noqa: F401,E402
 from repro_torch.configs import internlm2_20b  # noqa: F401,E402
 from repro_torch.configs import paper_models  # noqa: F401,E402
 from repro_torch.configs import phi4_mini_3_8b  # noqa: F401,E402

@@ -2,14 +2,15 @@
 
 ``ModelConfig`` keeps the JAX package's field names
 (``repro.configs.base``) for the families the port runs: the paper-scale
-LSTM / CNN and the dense transformer trunk.  Architectures register in
-``ARCHS`` by name and ``get_arch`` builds a fresh config; ``reduced()``
-derives the same family at CPU-test size, exactly as the JAX package's
-does for these fields.
+LSTM / CNN, the dense transformer trunk and the Mamba-1 SSM.
+Architectures register in ``ARCHS`` by name and ``get_arch`` builds a
+fresh config; ``reduced()`` derives the same family at CPU-test size,
+exactly as the JAX package's does for these fields.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 from repro_torch.common.registry import Registry
 
@@ -20,7 +21,7 @@ ARCHS: Registry["ModelConfig"] = Registry("architecture")
 class ModelConfig:
     # identity
     name: str
-    family: str  # dense | lstm | cnn
+    family: str  # dense | ssm | lstm | cnn
     citation: str = ""
 
     # transformer trunk
@@ -36,6 +37,13 @@ class ModelConfig:
     act: str = "swiglu"  # swiglu | gelu
     tie_embeddings: bool = False
     rope_theta: float = 10000.0
+
+    # SSM (Mamba-1): state size N, d_inner = ssm_expand * d_model, the
+    # causal conv's taps, and dt's rank (derived: ceil(d_model / 16))
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_conv: int = 4
+    ssm_dt_rank: int = 0
 
     # long-context variant for dense archs (0 = full attention)
     sliding_window: int = 0
@@ -53,6 +61,13 @@ class ModelConfig:
     def __post_init__(self):
         if self.n_heads and not self.head_dim:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
+        if self.family == "ssm" and not self.ssm_dt_rank and self.d_model:
+            object.__setattr__(self, "ssm_dt_rank",
+                               math.ceil(self.d_model / 16))
+
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
 
     def with_sliding_window(self, window: int = 8192) -> "ModelConfig":
         return dataclasses.replace(self, sliding_window=window)
@@ -74,6 +89,8 @@ class ModelConfig:
         # recompute derived head_dim for the reduced trunk
         if r.n_heads:
             object.__setattr__(r, "head_dim", r.d_model // r.n_heads)
+        if r.family == "ssm":
+            object.__setattr__(r, "ssm_dt_rank", math.ceil(r.d_model / 16))
         return r
 
 

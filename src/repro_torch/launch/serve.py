@@ -9,8 +9,10 @@ then ``gen`` one-token decode steps, each sampled greedily (temperature
 0) or from ``softmax(logits / temperature)`` with an explicit
 ``torch.Generator``.  Runs on the CUDA card unless given
 ``device="cpu"`` / ``--device cpu``; without a card it raises.  On the
-card every prefill launches the flash-attention kernel (K3) once per
-layer and decode launches it never; the stats count both.  Computes in
+card every prefill launches one kernel per layer, the flash-attention
+kernel (K3) for a dense model and the linear-recurrence kernel (K2, the
+selective scan) for Falcon-Mamba (``--arch falcon-mamba-7b``), and
+decode launches neither; the stats count both.  Computes in
 the weights' dtype (``Model.init(..., dtype=torch.bfloat16)`` serves in
 bf16, K3's tensor-core design); ``main`` serves fp32 with full-fp32
 matrix products (TF32 off).
@@ -28,6 +30,7 @@ from repro_torch.common.device import resolve_device
 from repro_torch.configs import get_arch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
+from repro_torch.kernels.linear_scan.kernel import linear_scan_kernel
 from repro_torch.models import Model, build_model, make_batch
 
 
@@ -54,7 +57,8 @@ def serve(model: Model, params, tokens, gen: int, *,
     per decode step) on the CPU, and the stats: ``prefill_s``,
     ``decode_s``, ``tokens_per_s`` (decoded tokens over ``decode_s``),
     ``ttft_s`` (until the first token is known), ``k3_launches`` (K3
-    launches in the prefill), ``k3_decode_launches`` and
+    launches in the prefill), ``k3_decode_launches``, ``k2_launches``
+    and ``k2_decode_launches`` (K2's, the same way) and
     ``finite_logits`` (every step's logits were finite)."""
     dev = resolve_device(device)
     if temperature > 0 and generator is None:
@@ -62,8 +66,9 @@ def serve(model: Model, params, tokens, gen: int, *,
     tokens = torch.as_tensor(tokens, dtype=torch.int32).to(dev)
     B, S = tokens.shape
     on_card = dev.type == "cuda"
-    if on_card:
-        build.load("flash_attention")  # build outside the timed region
+    if on_card:  # build the family's kernel outside the timed region
+        build.load("linear_scan" if model.cfg.family == "ssm"
+                   else "flash_attention")
 
     def sync():
         if on_card:
@@ -71,6 +76,7 @@ def serve(model: Model, params, tokens, gen: int, *,
 
     sync()
     k3_0 = flash_attention_kernel.launches
+    k2_0 = linear_scan_kernel.launches
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, {"tokens": tokens},
                                   max_len=S + gen)
@@ -81,6 +87,7 @@ def serve(model: Model, params, tokens, gen: int, *,
     sync()
     ttft = time.perf_counter() - t0
     k3_prefill = flash_attention_kernel.launches - k3_0
+    k2_prefill = linear_scan_kernel.launches - k2_0
 
     out = [nxt]
     t1 = time.perf_counter()
@@ -98,6 +105,9 @@ def serve(model: Model, params, tokens, gen: int, *,
         "k3_launches": k3_prefill,
         "k3_decode_launches": (flash_attention_kernel.launches - k3_0
                                - k3_prefill),
+        "k2_launches": k2_prefill,
+        "k2_decode_launches": (linear_scan_kernel.launches - k2_0
+                               - k2_prefill),
         "finite_logits": bool(finite),
     }
     return torch.cat(out, dim=1).cpu(), stats

@@ -1,16 +1,22 @@
-"""Serving path of the dense trunk: KV cache, prefill, one-token decode.
+"""Serving path of the dense trunk and the Mamba-1 SSM: caches, prefill,
+one-token decode.
 
-Mirrors the dense family of ``repro.models.decode``.  Caches are
-fixed-shape: ``min(max_len, window)`` slots per layer with absolute-
-position tags (``INT_SENTINEL`` = unwritten, masked by the causal check),
-circular for the sliding-window variant, stacked over a leading layer
-axis.  Prefill runs every layer's attention through flash attention (K3
-on the card, one launch per layer); decode is plain PyTorch.
+Mirrors the dense and ssm families of ``repro.models.decode``.  Dense
+caches are fixed-shape: ``min(max_len, window)`` slots per layer with
+absolute-position tags (``INT_SENTINEL`` = unwritten, masked by the
+causal check), circular for the sliding-window variant, stacked over a
+leading layer axis.  Prefill runs every layer's attention through flash
+attention (K3 on the card, one launch per layer).  The SSM cache is the
+recurrent state, ``{"state": {"h": (L, B, d_inner, N) fp32, "conv": (L,
+B, K-1, d_inner)}}`` in the compute dtype, whatever ``max_len``; its
+prefill runs every layer's selective scan through K2 (one launch per
+layer on the card).  Decode is plain PyTorch in both.
 
 One difference from the JAX code, which returns a new cache:
-``decode_step`` writes the new token's K/V into the cache it is given
-and returns that same cache.  On the card a copy of the whole cache per
-token would double the step's cache traffic.
+``decode_step`` writes the new token's K/V (dense) or the new recurrent
+state (ssm) into the cache it is given and returns that same cache.  On
+the card a copy of the whole cache per token would double the step's
+cache traffic.
 """
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.transformer import (_embed_inputs, _head_matrix,
                                             check_family, layer)
 
@@ -46,9 +53,18 @@ def _gqa_cache(cfg: ModelConfig, B: int, slots: int, dtype, layers,
     }
 
 
+def _ssm_state(cfg: ModelConfig, B: int, dtype, layers: int, device):
+    """The layer-stacked recurrent state: ``h`` in fp32, the conv window
+    in ``dtype`` (the JAX layout)."""
+    st = ssm_lib.mamba_init_state(cfg, B, dtype, device)
+    return {k: t.expand((layers,) + t.shape).clone() for k, t in st.items()}
+
+
 def init_cache(cfg: ModelConfig, B: int, max_len: int,
                dtype=torch.bfloat16, device=None):
     check_family(cfg)
+    if cfg.family == "ssm":
+        return {"state": _ssm_state(cfg, B, dtype, cfg.n_layers, device)}
     return {"kv": _gqa_cache(cfg, B, _attn_slots(cfg, max_len), dtype,
                              cfg.n_layers, device)}
 
@@ -77,15 +93,25 @@ def _kv_to_cache(k, v, positions, slots: int):
     }
 
 
-def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None):
-    """Returns (last-token logits (B, V), cache).  The cache holds K/V in
-    the compute dtype (the parameters')."""
-    tokens = batch["tokens"]
-    B, S = tokens.shape
-    max_len = max_len or S
-    x, positions = _embed_inputs(params, cfg, batch)
-    slots = _attn_slots(cfg, max_len)
-    kv = _gqa_cache(cfg, B, slots, x.dtype, cfg.n_layers, x.device)
+def _ssm_prefill(params, cfg: ModelConfig, x):
+    """The ssm layers over the prompt's embeddings: (final hidden x, the
+    cache with the layer-stacked recurrent state)."""
+    state = _ssm_state(cfg, x.shape[0], x.dtype, cfg.n_layers, x.device)
+    for i in range(cfg.n_layers):
+        p = layer(params["blocks"], i)
+        hh = L.apply_norm(cfg.norm, p["ln"], x)
+        out, st = ssm_lib.mamba_forward(p["mamba"], hh, cfg,
+                                        return_state=True)
+        x = x + out
+        for name, t in st.items():
+            state[name][i].copy_(t)
+    return x, {"state": state}
+
+
+def _dense_prefill(params, cfg: ModelConfig, x, positions, slots: int):
+    """The dense layers over the prompt's embeddings: (final hidden x,
+    the cache with ``slots`` K/V slots a layer)."""
+    kv = _gqa_cache(cfg, x.shape[0], slots, x.dtype, cfg.n_layers, x.device)
     for i in range(cfg.n_layers):
         p = layer(params["blocks"], i)
         hh = L.apply_norm(cfg.norm, p["ln1"], x)
@@ -97,9 +123,23 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None):
         x = x + L.mlp(p["mlp"], hh, cfg.act)
         for name, t in _kv_to_cache(k, v, kpos, slots).items():
             kv[name][i].copy_(t)
+    return x, {"kv": kv}
+
+
+def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None):
+    """Returns (last-token logits (B, V), cache).  The cache holds K/V
+    (dense) or the conv window (ssm) in the compute dtype (the
+    parameters'); the ssm cache ignores ``max_len``."""
+    S = batch["tokens"].shape[1]
+    x, positions = _embed_inputs(params, cfg, batch)
+    if cfg.family == "ssm":
+        x, cache = _ssm_prefill(params, cfg, x)
+    else:
+        x, cache = _dense_prefill(params, cfg, x, positions,
+                                  _attn_slots(cfg, max_len or S))
     # the norm is row-wise: normalizing only the last position is exact
     last = L.apply_norm(cfg.norm, params["final_norm"], x[:, -1])
-    return last @ _head_matrix(params, cfg), {"kv": kv}
+    return last @ _head_matrix(params, cfg), cache
 
 
 def _commit_kv(kv_cache, k_new, v_new, cur_index):
@@ -116,24 +156,47 @@ def _commit_kv(kv_cache, k_new, v_new, cur_index):
     return kv_cache
 
 
-def decode_step(params, cfg: ModelConfig, cache, tokens, cur_index):
-    """tokens (B, 1) int, cur_index (B,) int -> (logits (B, V), cache);
-    the new token's K/V are written into ``cache`` in place."""
-    check_family(cfg)
-    x = L.embed(params["embed"], tokens)  # (B, 1, d)
+def _ssm_decode(params, cfg: ModelConfig, state, x):
+    """One token through the ssm layers; each layer's new state is
+    written into ``state`` in place."""
+    for i in range(cfg.n_layers):
+        p = layer(params["blocks"], i)
+        hh = L.apply_norm(cfg.norm, p["ln"], x)
+        out, new = ssm_lib.mamba_decode(p["mamba"], hh, layer(state, i), cfg)
+        x = x + out
+        for name, t in new.items():
+            state[name][i].copy_(t)
+    return x
+
+
+def _dense_decode(params, cfg: ModelConfig, kv, x, cur_index):
+    """One token through the dense layers; the new K/V of every layer are
+    committed into ``kv`` in place at the end."""
     k_new, v_new = [], []
     for i in range(cfg.n_layers):
         p = layer(params["blocks"], i)
         hh = L.apply_norm(cfg.norm, p["ln1"], x)
         a, (kn, vn) = attn.gqa_decode(
-            p["attn"], hh, layer(cache["kv"], i), cur_index, cfg,
+            p["attn"], hh, layer(kv, i), cur_index, cfg,
             window=cfg.sliding_window, defer_write=True)
         x = x + a
         hh = L.apply_norm(cfg.norm, p["ln2"], x)
         x = x + L.mlp(p["mlp"], hh, cfg.act)
         k_new.append(kn)
         v_new.append(vn)
-    _commit_kv(cache["kv"], torch.stack(k_new), torch.stack(v_new),
-               cur_index)
+    _commit_kv(kv, torch.stack(k_new), torch.stack(v_new), cur_index)
+    return x
+
+
+def decode_step(params, cfg: ModelConfig, cache, tokens, cur_index):
+    """tokens (B, 1) int, cur_index (B,) int -> (logits (B, V), cache);
+    the new token's K/V (dense) or the new recurrent state (ssm, which
+    ignores ``cur_index``) are written into ``cache`` in place."""
+    check_family(cfg)
+    x = L.embed(params["embed"], tokens)  # (B, 1, d)
+    if cfg.family == "ssm":
+        x = _ssm_decode(params, cfg, cache["state"], x)
+    else:
+        x = _dense_decode(params, cfg, cache["kv"], x, cur_index)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
     return x[:, 0] @ _head_matrix(params, cfg), cache

@@ -21,7 +21,7 @@ Spec = Any  # ParamDef | Dict[str, Spec]
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: Tuple[int, ...]
-    init: str = "normal"  # normal | zeros | ones | fan_in
+    init: str = "normal"  # normal | zeros | ones | fan_in | uniform_scaled
     scale: float = 0.02
 
 
@@ -39,6 +39,9 @@ def _init_leaf(d: ParamDef, generator: torch.Generator,
         return torch.zeros(d.shape, dtype=dtype, device=gdev)
     if d.init == "ones":
         return torch.ones(d.shape, dtype=dtype, device=gdev)
+    if d.init == "uniform_scaled":
+        v = torch.empty(d.shape, dtype=torch.float32, device=gdev)
+        return v.uniform_(-d.scale, d.scale, generator=generator).to(dtype)
     if d.init == "normal":
         std = d.scale
     elif d.init == "fan_in":
@@ -48,7 +51,9 @@ def _init_leaf(d: ParamDef, generator: torch.Generator,
         raise ValueError(f"unknown init {d.init!r}")
     v = torch.randn(d.shape, generator=generator, dtype=torch.float32,
                     device=gdev)
-    return (v * std).to(dtype)
+    # scaled in place: Falcon-Mamba's stacked (64, 4096, 8192) in-projections
+    # are 8.6 GB in fp32, and a second fp32 temporary would double that
+    return v.mul_(std).to(dtype)
 
 
 def init_params(spec: Spec, generator: torch.Generator,
@@ -56,11 +61,12 @@ def init_params(spec: Spec, generator: torch.Generator,
                 ) -> Dict[str, Any]:
     """Materialize a spec tree with the JAX package's rules
     (``repro/models/spec.py``): ``normal`` is N(0, scale), ``fan_in`` is
-    N(0, 1) / sqrt(shape[-2]) (shape[-1] for vectors), ``zeros`` /
-    ``ones`` are constant.  Leaves are drawn in sorted key order (the
-    order ``jax.tree`` flattens in) from ``generator`` on the generator's
-    own device, then moved to ``device`` (``None``: the CUDA card), so one
-    seed on one generator device gives the same weights on every device.
+    N(0, 1) / sqrt(shape[-2]) (shape[-1] for vectors), ``uniform_scaled``
+    is U(-scale, scale), ``zeros`` / ``ones`` are constant.  Leaves are
+    drawn in sorted key order (the order ``jax.tree`` flattens in) from
+    ``generator`` on the generator's own device, then moved to ``device``
+    (``None``: the CUDA card), so one seed on one generator device gives
+    the same weights on every device.
     The values differ from ``jax.random``'s; to start from the JAX
     package's weights use ``repro_torch.models.convert.params_from_numpy``.
     """

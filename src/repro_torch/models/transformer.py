@@ -1,11 +1,11 @@
-"""Model assembly for the dense transformer trunk.
+"""Model assembly for the dense transformer trunk and the Mamba-1 SSM.
 
-Mirrors the dense family of ``repro.models.transformer``: the per-layer
-parameters stay stacked under ``"blocks"`` with a leading layer axis (the
-JAX layout, so ``params_from_numpy`` carries a JAX tree across leaf for
-leaf), and the forward walks them with a Python loop over views where the
-JAX code scans.  The other families (MoE / MLA, SSM, hybrid, VLM, audio)
-belong to later slices of the port and raise by name.
+Mirrors the dense and ssm families of ``repro.models.transformer``: the
+per-layer parameters stay stacked under ``"blocks"`` with a leading layer
+axis (the JAX layout, so ``params_from_numpy`` carries a JAX tree across
+leaf for leaf), and the forward walks them with a Python loop over views
+where the JAX code scans.  The other families (MoE / MLA, hybrid, VLM,
+audio) belong to later slices of the port and raise by name.
 """
 from __future__ import annotations
 
@@ -16,17 +16,19 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.spec import stack_spec
 
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "ssm")
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"the port runs the dense transformer family; {cfg.name!r} is "
-            f"{cfg.family!r}, not ported yet (MoE and MLA, SSM, the "
-            "RG-LRU hybrid, VLM and audio come in later slices)")
+            "the port runs the dense transformer and the Mamba-1 SSM "
+            f"families; {cfg.name!r} is {cfg.family!r}, not ported yet (MoE "
+            "and MLA, the RG-LRU hybrid, VLM and audio come in later "
+            "slices)")
 
 
 def dense_block_spec(cfg: ModelConfig):
@@ -36,6 +38,11 @@ def dense_block_spec(cfg: ModelConfig):
             "mlp": L.mlp_spec(cfg.d_model, cfg.d_ff, cfg.act)}
 
 
+def ssm_block_spec(cfg: ModelConfig):
+    return {"ln": L.norm_spec(cfg.norm, cfg.d_model),
+            "mamba": ssm_lib.mamba_spec(cfg)}
+
+
 def build_spec(cfg: ModelConfig) -> Dict[str, Any]:
     check_family(cfg)
     V, d = cfg.vocab_size, cfg.d_model
@@ -43,7 +50,8 @@ def build_spec(cfg: ModelConfig) -> Dict[str, Any]:
                             "final_norm": L.norm_spec(cfg.norm, d)}
     if not cfg.tie_embeddings:
         spec["lm_head"] = L.lm_head_spec(d, V)
-    spec["blocks"] = stack_spec(dense_block_spec(cfg), cfg.n_layers)
+    block = ssm_block_spec if cfg.family == "ssm" else dense_block_spec
+    spec["blocks"] = stack_spec(block(cfg), cfg.n_layers)
     return spec
 
 
@@ -77,8 +85,13 @@ def forward_hidden(params, cfg: ModelConfig, batch) -> torch.Tensor:
     """Token inputs -> final hidden states (B, S, d)."""
     x, positions = _embed_inputs(params, cfg, batch)
     for i in range(cfg.n_layers):
-        x = _dense_block(layer(params["blocks"], i), x, cfg,
-                         positions=positions, window=cfg.sliding_window)
+        p = layer(params["blocks"], i)
+        if cfg.family == "ssm":
+            x = x + ssm_lib.mamba_forward(
+                p["mamba"], L.apply_norm(cfg.norm, p["ln"], x), cfg)
+        else:
+            x = _dense_block(p, x, cfg, positions=positions,
+                             window=cfg.sliding_window)
     return L.apply_norm(cfg.norm, params["final_norm"], x)
 
 
