@@ -50,6 +50,12 @@ drives the port's paths through its entry points:
   which runs the linear-recurrence kernel (K2) once per layer of the
   prefill as the selective scan over (8, 2016, 8192 x 16) fp32
   coefficients, and never in decode;
+* ``serve_path_rgemma``: ``serve`` on RecurrentGemma-9B (RG-LRU + local
+  MQA hybrid, 38 layers) at full width and depth in bf16, batch 8,
+  prompt 2016, 32 greedy tokens, which runs K2 once per RG-LRU layer (26
+  launches at (8, 2016, 4096) fp32) and K3's head-dim-256 instance once
+  per local-attention layer (12 launches) of the prefill, and neither in
+  decode;
 * ``chaos_path``: main_path's shape under the chaos layer
   (``tests/test_faults.py``'s mixed faults at rate 0.15 and its guards,
   ``max_staleness`` 8 and ``max_delta_norm`` 0.5): asofed with the
@@ -69,9 +75,11 @@ the launch counts set to 0 just before it and read just after.  Then
 the card's trajectories are held against the CPU's for every ported
 strategy, the associative fold against the sequential one on the card,
 and the card's prefill and teacher-forced decode logits and caches
-against the CPU's (TinyLlama and Falcon-Mamba).  ``scan_vs_plain`` also
-holds K2 at the Mamba prefill's shape bit for bit against its plain
-version, before any model's weights are on the card.  Prints one JSON
+against the CPU's (TinyLlama, Falcon-Mamba and RecurrentGemma, whose
+reduced config wraps its local-attention ring on the card).
+``scan_vs_plain`` also holds K2 at the Mamba and RG-LRU prefills' shapes
+bit for bit against its plain version, before any model's weights are
+on the card.  Prints one JSON
 line per phase, then a ``{"kernels": [...]}`` line, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line; without a CUDA card it
@@ -360,7 +368,10 @@ def phase_scan_vs_plain():
                    library_ms=device_ms(lib), library_max_abs_err=lib_err)
         emit(rec)
         rows_out[(shape, torch.float32, "ones")] = rec
-    rows_out["mamba"] = _mamba_scan_case()
+    rows_out["mamba"] = _model_scan_case("mamba_prefill", MAMBA_SCAN_SHAPE,
+                                         MAMBA_SCAN_REPS)
+    rows_out["rglru"] = _model_scan_case("rglru_prefill", RGEMMA_SCAN_SHAPE,
+                                         RGEMMA_SCAN_REPS)
     return rows_out
 
 
@@ -369,17 +380,19 @@ def _max_abs_diff(x: torch.Tensor, y: torch.Tensor) -> float:
     return max(float((x[i] - y[i]).abs().max()) for i in range(x.shape[0]))
 
 
-def _mamba_scan_case():
-    """K2 at the Mamba prefill's shape: Falcon-Mamba-7B's (B, S, d_inner x
-    N) = (8, 2016, 131072) fp32, 2.11e9 elements, drawn on the card (a in
-    [0, 1), as dA = exp(dt A) with dt > 0 and A < 0 gives; b N(0, 1)).
-    Held bit for bit against its plain version (the kernel's fp32
-    contract); timed with MAMBA_SCAN_REPS launches a graph; torch.cumsum
-    along S on the same b as the library yardstick (a = 1)."""
+def _model_scan_case(case: str, shape, reps: int):
+    """K2 at a model prefill's scan, fp32, drawn on the card (a in [0, 1),
+    as Mamba's dA = exp(dt A) with dt > 0 and A < 0 and RG-LRU's a =
+    exp(-c softplus(lam) sigmoid(.)) give; b N(0, 1)): Falcon-Mamba-7B's
+    (B, S, d_inner x N) = (8, 2016, 131072), 2.11e9 elements, and
+    RecurrentGemma-9B's (B, S, lru_width) = (8, 2016, 4096).  Held bit for
+    bit against its plain version (the kernel's fp32 contract); timed
+    with ``reps`` launches a graph; torch.cumsum along S on the same b as
+    the library yardstick (a = 1)."""
     from repro_torch.kernels.linear_scan.kernel import linear_scan_kernel
     from repro_torch.kernels.linear_scan.ref import linear_scan_ref
 
-    B, S, C = MAMBA_SCAN_SHAPE
+    B, S, C = shape
     gen = torch.Generator(device=DEV).manual_seed(0)
     a = torch.rand((B, S, C), generator=gen, device=DEV)
     b = torch.randn((B, S, C), generator=gen, device=DEV)
@@ -392,9 +405,9 @@ def _mamba_scan_case():
     del h, h_last, want, want_last
     if not (bitwise and finite):
         raise AssertionError(
-            f"linear_scan kernel at the Mamba shape {MAMBA_SCAN_SHAPE} fp32 "
-            f"is not bit for bit its plain version: max abs err {err}, "
-            f"finite {finite}")
+            f"linear_scan kernel at the {case} shape {shape} fp32 is not "
+            f"bit for bit its plain version: max abs err {err}, finite "
+            f"{finite}")
     kern = lambda: linear_scan_kernel(a, b)  # noqa: E731
     # the library yardstick against the kernel at a = 1 (broadcast over C)
     ones = torch.ones((B, S, 1), device=DEV)
@@ -402,16 +415,16 @@ def _mamba_scan_case():
     lib_err = _max_abs_diff(lib(), linear_scan_kernel(ones, b)[0])
     bound_ms, bound_by = scan_bound(a, b)
     rec = {"phase": "kernel_vs_plain", "kernel": "linear_scan",
-           "case": "mamba_prefill", "shape": [B, S, C],
+           "case": case, "shape": [B, S, C],
            "a_shape": [B, S, C], "dtype": str(b.dtype), "bitwise": bitwise,
            "max_abs_err": err, "tolerance": 0.0,
-           "ms": device_ms(kern, reps=MAMBA_SCAN_REPS),
-           "call_ms": call_ms(kern, reps=MAMBA_SCAN_REPS),
+           "ms": device_ms(kern, reps=reps),
+           "call_ms": call_ms(kern, reps=reps),
            # the plain loop issues 2 S + 1 ops: one call a graph
            "plain_ms": device_ms(lambda: linear_scan_ref(a, b), reps=1),
            "bound_ms": bound_ms, "bound_by": bound_by,
            "library": "torch.cumsum along S",
-           "library_ms": device_ms(lib, reps=MAMBA_SCAN_REPS),
+           "library_ms": device_ms(lib, reps=reps),
            "library_max_abs_err_vs_a1": lib_err}
     emit(rec)
     del a, b, ones
@@ -1797,10 +1810,18 @@ PHI4_ARCH, PHI4_CASE = "phi4-mini-3.8b", "phi4_layer0"
 MAMBA_ARCH = "falcon-mamba-7b"
 MAMBA_SCAN_SHAPE = (SERVE_B, SERVE_PROMPT, 8192 * 16)
 MAMBA_SCAN_REPS = 5
-# decode steps of serve_path_mamba's profiled run: the profiler's cost
-# grows with the ~3,000 eager ops of each of its 64-layer decode steps
-# (~85 s for 32 steps); K2's share of the prefill needs none of them
-MAMBA_PROFILE_GEN = 4
+# decode steps of every serve path's profiled run: the profiler's cost
+# grows with the eager ops of each decode step (~3,000 a step over
+# Falcon-Mamba's 64 layers: ~85 s for 32 steps; phi4-mini's 32 took 65
+# s); the kernels' shares of the prefill need none of them
+SERVE_PROFILE_GEN = 4
+# serve_path_rgemma's architecture (RG-LRU + local MQA hybrid, head dim
+# 256), its flash_vs_plain cases and K2 at its prefill's RG-LRU scan:
+# (B, S, lru_width) = (8, 2016, 4096)
+RGEMMA_ARCH, RGEMMA_CASE = "recurrentgemma-9b", "rgemma_layer0"
+RGEMMA_WINDOW_CASE = "rgemma_window_binds"
+RGEMMA_SCAN_SHAPE = (SERVE_B, SERVE_PROMPT, 4096)
+RGEMMA_SCAN_REPS = 20
 # K3 vs its plain version: max abs error per unit of the output's largest
 # magnitude (at least 1), tests/test_kernels.py's bounds.  The online and
 # the dense softmax sum in different orders; bf16 outputs round once.
@@ -1829,7 +1850,14 @@ FLASH_CASES = [
     # phi4-mini-3.8B's prefill attention (24 heads over 8 KV heads, head
     # dim 128): the bf16 hd-128 instance serve_path_phi4 launches
     (PHI4_CASE, SERVE_B, SERVE_PROMPT, SERVE_PROMPT, 8, 3, 128, True, 0),
-] + [case for hd in (32, 64, 128) for case in (
+    # RecurrentGemma-9B's local attention (16 heads over 1 KV head, head
+    # dim 256, window 2048): the hd-256 instances serve_path_rgemma (bf16)
+    # and serve_card_vs_cpu (fp32) launch; at 2016 keys the window does
+    # not bind, at 4096 it does and the window's tile skip runs
+    (RGEMMA_CASE, SERVE_B, SERVE_PROMPT, SERVE_PROMPT, 1, 16, 256, True,
+     2048),
+    (RGEMMA_WINDOW_CASE, 1, 4096, 4096, 1, 16, 256, True, 2048),
+] + [case for hd in (32, 64, 128, 256) for case in (
     (f"ragged100_hd{hd}", 2, 100, 100, 2, 2, hd, True, 0),
     (f"ragged2016_hd{hd}", 1, SERVE_PROMPT, SERVE_PROMPT, 2, 2, hd, True,
      0),
@@ -1920,6 +1948,8 @@ def _flash_case(name, q, k, v, q_pos, k_pos, causal, window, contiguous,
         ks = k.permute(0, 2, 1, 3).contiguous()
         vs = v.permute(0, 2, 1, 3).contiguous()
         sdpa = torch.nn.functional.scaled_dot_product_attention
+        # causal SDPA is the same function wherever the window does not
+        # bind (every query sees at most Skv <= window keys)
         lib = lambda: sdpa(qs, ks, vs, is_causal=True,  # noqa: E731
                            enable_gqa=True)
         try:  # a yardstick only: the port never calls it
@@ -1934,6 +1964,7 @@ def _flash_case(name, q, k, v, q_pos, k_pos, causal, window, contiguous,
             plain_ms=device_ms(plain, reps=2), library_ms=lib_ms,
             library="torch.nn.functional.scaled_dot_product_attention "
                     "(enable_gqa, is_causal)",
+            library_same_function=window == 0 or k.shape[1] <= window,
             library_max_abs_err=lib_err, bound_share=bound_ms / ms,
             ptxas=[ln.strip() for ln in build.BUILD_LOG.get(
                 "flash_attention", (0.0, ""))[1].splitlines()
@@ -1950,7 +1981,9 @@ def _arange_pos(B: int, S: int) -> torch.Tensor:
 def phase_flash_vs_plain(layer0_qkv):
     """K3 against its plain version, fp32 and bf16: the JAX grid, the
     main-path shape with N(0, 1) inputs and with the serve run's own
-    layer-0 q/k/v (both timed), and at every head dim ragged lengths, a
+    layer-0 q/k/v (both timed), phi4-mini's and RecurrentGemma's prefill
+    attention (the latter timed in both types, and again at 4096 keys,
+    where its 2048 window binds), and at every head dim ragged lengths, a
     window, Sq != Skv, decode-like non-contiguous queries over a padded
     cache, fully masked rows and queries at the end of the prompt."""
     from repro_torch.models.decode import INT_SENTINEL
@@ -1966,15 +1999,15 @@ def phase_flash_vs_plain(layer0_qkv):
                 B, Skv, KV, hd)
             out[(name, dtype)] = _flash_case(
                 name, q, k, v, _arange_pos(B, Sq), _arange_pos(B, Skv),
-                causal, window, True, timed=name == "main" or (
-                    name == PHI4_CASE and dtype == torch.bfloat16))
+                causal, window, True, timed=name in ("main", RGEMMA_CASE)
+                or (name == PHI4_CASE and dtype == torch.bfloat16))
             del q, k, v
         q, k, v = (t.to(dtype) for t in layer0_qkv)
         out[("main_model", dtype)] = _flash_case(
             "main_model_qkv", q, k, v, _arange_pos(SERVE_B, SERVE_PROMPT),
             _arange_pos(SERVE_B, SERVE_PROMPT), True, 0, True, timed=True)
         del q, k, v
-        for hd in (32, 64, 128):
+        for hd in (32, 64, 128, 256):
             # 64 queries at positions 1000..1063 over a 2048-slot cache
             # whose slots past 1063 are unwritten (INT_SENTINEL), not
             # contiguous; the same queries with 5 of them at position -3,
@@ -2059,23 +2092,32 @@ def _serve_once(model, params, tokens, gen: int = SERVE_GEN):
                      device=DEV)
 
 
+def _expected_launches(cfg):
+    """(K3, K2) launches of one prefill: a layer's attention runs K3 and
+    its recurrence K2; the hybrid's 3 n_super + rem layers are n_super
+    attention layers and 2 n_super + rem RG-LRU ones."""
+    if cfg.family == "hybrid":
+        n_super, rem = divmod(cfg.n_layers, 3)
+        return n_super, 2 * n_super + rem
+    return (0, cfg.n_layers) if cfg.family == "ssm" else (cfg.n_layers, 0)
+
+
 def phase_serve_path(cfg, model, params, tokens, init_s: float,
                      dtype=torch.float32, sfx=None):
     """serve() at full width and depth in the weights' ``dtype``: the
-    family's kernel (K3 for a dense model, K2 for the SSM) once per layer
-    of the prefill, no kernel in decode; the rates of SERVE_REPEATS runs;
-    then one profiled run (of MAMBA_PROFILE_GEN decode steps for the
-    SSM).  Phases ``serve_path``, ``serve_path_spread``,
-    ``serve_profile`` (fp32) or the same names with the suffix ``sfx``
-    (default ``_bf16`` for bf16 weights).  Returns the family kernel's
-    launches in one run."""
+    family's kernels (K3 for a dense model, K2 for the SSM, both for the
+    hybrid) once per layer of the prefill, no kernel in decode; the rates
+    of SERVE_REPEATS runs; then one profiled run of SERVE_PROFILE_GEN
+    decode steps.  Phases ``serve_path``,
+    ``serve_path_spread``, ``serve_profile`` (fp32) or the same names
+    with the suffix ``sfx`` (default ``_bf16`` for bf16 weights).
+    Returns the (K3, K2) launches of one run."""
     from repro_torch.common.pytree import tree_leaves
 
     if sfx is None:
         sfx = "" if dtype == torch.float32 else "_bf16"
-    ssm = cfg.family == "ssm"
-    # (K3, K2) launches expected in the prefill
-    want = (0, cfg.n_layers) if ssm else (cfg.n_layers, 0)
+    fam = cfg.family
+    want = _expected_launches(cfg)  # in the prefill
     _serve_once(model, params, tokens)  # warm-up: cuBLAS, allocator
     runs = []
     for _ in range(SERVE_REPEATS):
@@ -2099,8 +2141,12 @@ def phase_serve_path(cfg, model, params, tokens, init_s: float,
             raise AssertionError(f"serve path{sfx}: non-finite logits or "
                                  f"tokens of shape {tuple(gen.shape)}")
         shape = ({"d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state}
-                 if ssm else {"n_heads": cfg.n_heads,
-                              "n_kv_heads": cfg.n_kv_heads})
+                 if fam == "ssm" else {"n_heads": cfg.n_heads,
+                                       "n_kv_heads": cfg.n_kv_heads,
+                                       "head_dim": cfg.head_dim})
+        if fam == "hybrid":
+            shape.update(lru_width=cfg.lru_width,
+                         local_window=cfg.local_window)
         rec = {"phase": "serve_path" + sfx, "arch": cfg.name,
                "n_layers": cfg.n_layers, "d_model": cfg.d_model, **shape,
                "batch": SERVE_B, "prompt_len": SERVE_PROMPT,
@@ -2126,7 +2172,7 @@ def phase_serve_path(cfg, model, params, tokens, init_s: float,
     emit({"phase": f"serve_path{sfx}_spread", "runs": len(runs),
           **spread("prefill_s"), **spread("ttft_s"),
           **spread("tokens_per_s")})
-    gen = MAMBA_PROFILE_GEN if ssm else SERVE_GEN
+    gen = SERVE_PROFILE_GEN
     (_, stats), wall, per = _device_profile(
         lambda: _serve_once(model, params, tokens, gen))
     rec = {"phase": "serve_profile" + sfx, "arch": cfg.name, "gen": gen,
@@ -2134,19 +2180,37 @@ def phase_serve_path(cfg, model, params, tokens, init_s: float,
            "decode_s": stats["decode_s"],
            **_profile_record(per, wall, ("fa_fwd_f32", "fa_fwd_bf16",
                                          "linear_scan_channels"))}
-    if ssm:  # K2 runs only in the prefill: its share of the prefill's time
-        k2_ms = sum(ms for k, ms, _ in per if "linear_scan_channels" in k)
-        rec.update(k2_ms=k2_ms,
-                   k2_share_of_prefill=k2_ms / 1e3 / stats["prefill_s"])
+    # K2 and K3 run only in the prefill: their shares of the prefill's time
+    for name, kern, n in (("k2", "linear_scan_channels", want[1]),
+                          ("k3", "fa_fwd", want[0])):
+        if n and fam != "dense":
+            ms = sum(t for k, t, _ in per if kern in k)
+            rec.update({f"{name}_ms": ms, f"{name}_share_of_prefill":
+                        ms / 1e3 / stats["prefill_s"]})
     emit(rec)
-    return runs[-1]["linear_scan_launches" if ssm
-                   else "flash_attention_launches"]
+    return runs[-1]["flash_attention_launches"], \
+        runs[-1]["linear_scan_launches"]
+
+
+def _cache_leaves(cache, prefix: str = "") -> dict:
+    """{path: tensor on the CPU} of a nested cache: ``kv/k`` (dense),
+    ``state/h`` (ssm), ``super/r1/h``, ``super/a/k``, ``tail/conv``
+    (hybrid) ..."""
+    out = {}
+    for name, t in cache.items():
+        path = f"{prefix}{name}"
+        if isinstance(t, dict):
+            out.update(_cache_leaves(t, path + "/"))
+        else:
+            out[path] = t.cpu()
+    return out
 
 
 def _teacher_forced(model, params, tokens, device: str):
     """Prefill the first FORCED_PROMPT tokens, then FORCED_STEPS decode
-    steps fed the next tokens: ([logits per step], cache) on the CPU (the
-    KV cache of a dense model, the recurrent state of the SSM)."""
+    steps fed the next tokens: ([logits per step], {path: cache leaf}) on
+    the CPU (the KV cache of a dense model, the recurrent state of the
+    SSM, the hybrid's RG-LRU states and local-attention rings)."""
     tokens = tokens.to(device)
     B = tokens.shape[0]
     with torch.no_grad():
@@ -2161,26 +2225,32 @@ def _teacher_forced(model, params, tokens, device: str):
                 params, cache,
                 tokens[:, FORCED_PROMPT + i:FORCED_PROMPT + i + 1], idx)
             out.append(logits.cpu())
-    (part,) = cache.values()
-    return out, {k: t.cpu() for k, t in part.items()}
+    return out, _cache_leaves(cache)
 
 
 def phase_serve_card_vs_cpu():
-    """The port on the card against the port on the CPU, for TinyLlama
-    and Falcon-Mamba in fp32: prefill logits, every teacher-forced decode
-    step's logits and the cache (K/V, or the SSM's h and conv window), at
-    full width with the depth cut to 2 layers, and on the reduced config.
-    The card's prefill launches the family's kernel once a layer."""
+    """The port on the card against the port on the CPU, for TinyLlama,
+    Falcon-Mamba and RecurrentGemma in fp32: prefill logits, every
+    teacher-forced decode step's logits and every cache leaf (K/V and
+    their positions, the SSM's and the RG-LRU's h and conv window), at
+    full width with the depth cut (2 layers; 4 for RecurrentGemma, one
+    superblock and one tail layer: at 2 its ``divmod`` gives no
+    superblock and no attention), and on the reduced config (whose
+    local window of 64 the 4 forced steps after the 64-token prompt wrap
+    on the card).  The card's prefill launches the family's kernels once
+    a layer.  Returns {(arch, case): (K3, K2) launches}."""
     from repro_torch.common.pytree import tree_map
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model, make_batch
 
-    cases = [(tag, cfg) for full in map(get_arch, (SERVE_ARCH, MAMBA_ARCH))
-             for tag, cfg in (("full_width_2_layers",
-                               dataclasses.replace(full, n_layers=2)),
-                              ("reduced", full.reduced()))]
+    cases = []
+    for arch, depth in ((SERVE_ARCH, 2), (MAMBA_ARCH, 2), (RGEMMA_ARCH, 4)):
+        full = get_arch(arch)
+        cases += [(f"full_width_{depth}_layers",
+                   dataclasses.replace(full, n_layers=depth)),
+                  ("reduced", full.reduced())]
+    launches = {}
     for tag, cfg in cases:
-        ssm = cfg.family == "ssm"
         model = build_model(cfg)
         params = model.init(torch.Generator(device=DEV).manual_seed(0),
                             device=DEV)
@@ -2191,11 +2261,12 @@ def phase_serve_card_vs_cpu():
         got, cache_gpu = _teacher_forced(model, params, tokens, DEV)
         k3, k2 = _flash_launches(), _launches()[1]
         want, cache_cpu = _teacher_forced(model, params_cpu, tokens, "cpu")
-        expect = (0, cfg.n_layers) if ssm else (cfg.n_layers, 0)
+        expect = _expected_launches(cfg)
         if (k3, k2) != expect:
             raise AssertionError(
                 f"{cfg.name} {tag}: (K3, K2) launches {(k3, k2)} in the "
                 f"card's prefill and decode, expected {expect}")
+        launches[(cfg.name, tag)] = (k3, k2)
         errs = []
         for step, (g, w) in enumerate(zip(got, want)):
             rel = float((g - w).abs().max()) / float(w.abs().max())
@@ -2205,69 +2276,73 @@ def phase_serve_card_vs_cpu():
                     f"serve card vs CPU ({cfg.name} {tag}): logits of step "
                     f"{step} differ by {rel} per unit of max |logits| "
                     f"(tolerance {SERVE_TOL})")
-        cache_errs = {}
-        for name in (("h", "conv") if ssm else ("k", "v")):
-            w = cache_cpu[name]
-            cache_errs[name] = float((cache_gpu[name] - w).abs().max()) \
-                / float(w.abs().max())
-        pos_equal = ssm or torch.equal(cache_gpu["pos"], cache_cpu["pos"])
+        cache_errs, pos_equal = {}, True
+        for name, w in cache_cpu.items():
+            if name.endswith("pos"):
+                pos_equal = pos_equal and torch.equal(cache_gpu[name], w)
+            else:
+                cache_errs[name] = float((cache_gpu[name] - w).abs().max()) \
+                    / float(w.abs().max())
         if max(cache_errs.values()) > SERVE_TOL or not pos_equal:
             raise AssertionError(
                 f"serve card vs CPU ({cfg.name} {tag}): cache differs: "
                 f"{cache_errs}, pos equal: {pos_equal}")
         emit({"phase": "serve_card_vs_cpu", "case": tag, "arch": cfg.name,
               "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-              "batch": 2, "prompt_len": FORCED_PROMPT,
-              "forced_steps": FORCED_STEPS,
+              "head_dim": cfg.head_dim, "batch": 2,
+              "prompt_len": FORCED_PROMPT, "forced_steps": FORCED_STEPS,
               "logits_rel_err_per_step": errs,
-              "cache_rel_err": cache_errs, "tolerance": SERVE_TOL,
-              "flash_attention_launches": k3, "linear_scan_launches": k2})
+              "cache_rel_err": cache_errs, "pos_equal": pos_equal,
+              "tolerance": SERVE_TOL, "flash_attention_launches": k3,
+              "linear_scan_launches": k2})
         del params, params_cpu
+        torch.cuda.empty_cache()
+    return launches
 
 
 # the serve phases, which --only can run alone
 SERVE_PHASES = ("flash_vs_plain", "serve_path", "serve_path_bf16",
-                "serve_path_phi4", "serve_path_mamba")
+                "serve_path_phi4", "serve_path_mamba", "serve_path_rgemma")
 # the phases --only can run alone (after the build), in this order
 ONLY_PHASES = ("main_path", "assoc_path", "oracle_path", "sweep_path",
                "paper_rows", "residency_path", "chaos_path",
                "resume_path") + SERVE_PHASES
+# the serve paths after serve_path: (phase, architecture, weights' dtype)
+SERVE_MODEL_PATHS = (
+    ("serve_path_bf16", SERVE_ARCH, torch.bfloat16),
+    # phi4-mini-3.8B in bf16 (~7.7 GB of weights): K3's hd-128 build
+    ("serve_path_phi4", PHI4_ARCH, torch.bfloat16),
+    # Falcon-Mamba-7B in bf16 (~14 GB of weights); each layer's scan
+    # holds three 8.46 GB fp32 tensors
+    ("serve_path_mamba", MAMBA_ARCH, torch.bfloat16),
+    # RecurrentGemma-9B in bf16 (~20.9 GB of weights): K2 at (8, 2016,
+    # 4096) and K3's hd-256 build
+    ("serve_path_rgemma", RGEMMA_ARCH, torch.bfloat16))
 
 
 def serve_phases(names):
     """Run the named phases of SERVE_PHASES: (flash_vs_plain's records,
-    K3 launches on serve_path, on serve_path_bf16, on serve_path_phi4, K2
-    launches on serve_path_mamba)."""
-    fv, k3, k3_bf16, k3_phi4, k2_mamba = {}, 0, 0, 0, 0
+    {serve path: its (K3, K2) launches in one run}, (0, 0) for a path not
+    run)."""
+    fv, launches = {}, {p: (0, 0) for p in SERVE_PHASES[1:]}
     if "flash_vs_plain" in names or "serve_path" in names:
         cfg, model, params, tokens, init_s = _serve_setup()
         if "flash_vs_plain" in names:
             fv = phase_flash_vs_plain(_layer0_qkv(cfg, params, tokens))
         if "serve_path" in names:
-            k3 = phase_serve_path(cfg, model, params, tokens, init_s)
+            launches["serve_path"] = phase_serve_path(cfg, model, params,
+                                                      tokens, init_s)
         del model, params, tokens
-    if "serve_path_bf16" in names:
-        cfg, model, params, tokens, init_s = _serve_setup(torch.bfloat16)
-        k3_bf16 = phase_serve_path(cfg, model, params, tokens, init_s,
-                                   torch.bfloat16)
-        del model, params, tokens
-    if "serve_path_phi4" in names:
-        # phi4-mini-3.8B in bf16 (~7.7 GB of weights): K3's hd-128 build
-        cfg, model, params, tokens, init_s = _serve_setup(torch.bfloat16,
-                                                          PHI4_ARCH)
-        k3_phi4 = phase_serve_path(cfg, model, params, tokens, init_s,
-                                   torch.bfloat16, sfx="_phi4")
-        del model, params, tokens
-    if "serve_path_mamba" in names:
-        # Falcon-Mamba-7B in bf16 (~14 GB of weights); each layer's scan
-        # holds three 8.46 GB fp32 tensors
+    for phase, arch, dtype in SERVE_MODEL_PATHS:
+        if phase not in names:
+            continue
         torch.cuda.empty_cache()
-        cfg, model, params, tokens, init_s = _serve_setup(torch.bfloat16,
-                                                          MAMBA_ARCH)
-        k2_mamba = phase_serve_path(cfg, model, params, tokens, init_s,
-                                    torch.bfloat16, sfx="_mamba")
+        cfg, model, params, tokens, init_s = _serve_setup(dtype, arch)
+        launches[phase] = phase_serve_path(
+            cfg, model, params, tokens, init_s, dtype,
+            sfx=phase[len("serve_path"):])
         del model, params, tokens
-    return fv, k3, k3_bf16, k3_phi4, k2_mamba
+    return fv, launches
 
 
 def _flash_entry(name, rec, launches, by_path, design):
@@ -2291,7 +2366,8 @@ def _flash_entry(name, rec, launches, by_path, design):
                              "residency_path": 0, "chaos_path": 0,
                              "resume_path": 0, "serve_path": 0,
                              "serve_path_bf16": 0, "serve_path_phi4": 0,
-                             "serve_path_mamba": 0, **by_path}}
+                             "serve_path_mamba": 0, "serve_path_rgemma": 0,
+                             **by_path}}
 
 
 def main(argv=None) -> int:
@@ -2365,9 +2441,16 @@ def main(argv=None) -> int:
     chaos_fold, chaos_scan, chaos_k1 = phase_chaos_path()
     resume_fold, resume_fold_reps, resume_scan = phase_resume_path()
     phase_card_vs_cpu()
-    fv, flash_launches, flash_launches_bf16, flash_launches_phi4, \
-        scan_launches_mamba = serve_phases(SERVE_PHASES)
-    phase_serve_card_vs_cpu()
+    fv, served = serve_phases(SERVE_PHASES)
+    flash_launches = served["serve_path"][0]
+    flash_launches_bf16 = served["serve_path_bf16"][0]
+    flash_launches_phi4 = served["serve_path_phi4"][0]
+    scan_launches_mamba = served["serve_path_mamba"][1]
+    flash_launches_rgemma, scan_launches_rgemma = served["serve_path_rgemma"]
+    # K3's fp32 hd-256 build runs on the card's fp32 RecurrentGemma at
+    # full width (serve_card_vs_cpu), once a superblock
+    flash_launches_hd256 = phase_serve_card_vs_cpu()[
+        (RGEMMA_ARCH, "full_width_4_layers")][0]
     main_rec = kv[((8, 256), torch.float32, True)]
     fold_rec = fv_fold["main_tick"]
     reps_rec = fv_fold["main_tick_reps"]
@@ -2375,7 +2458,7 @@ def main(argv=None) -> int:
     # library yardstick (torch.cumsum); the kernel's time does not depend
     # on the values of a
     scan_rec = sv[((1, 64, 16384), torch.float32, "ones")]
-    mamba_rec = sv["mamba"]
+    mamba_rec, rglru_rec = sv["mamba"], sv["rglru"]
     emit({"kernels": [{
         # K1 redesigned for the main path: the tick's whole sequential fold
         "name": "feature_fold", "route": "cuda",
@@ -2397,7 +2480,8 @@ def main(argv=None) -> int:
                              "resume_path": resume_fold,
                              "serve_path": 0, "serve_path_bf16": 0,
                              "serve_path_phi4": 0,
-                             "serve_path_mamba": 0}}, {
+                             "serve_path_mamba": 0,
+                             "serve_path_rgemma": 0}}, {
         # the same kernel with the chaos layer's per-slot fold counts
         # (reps, read on the card) at the main path's tick; chaos_path's
         # run (a) launches it once a tick
@@ -2419,7 +2503,8 @@ def main(argv=None) -> int:
                              "resume_path": resume_fold_reps,
                              "serve_path": 0, "serve_path_bf16": 0,
                              "serve_path_phi4": 0,
-                             "serve_path_mamba": 0}}, {
+                             "serve_path_mamba": 0,
+                             "serve_path_rgemma": 0}}, {
         # the per-row K1 at the first layer's shape (8, 256), held against
         # its plain version; oracle_path reaches it once a fold
         # (core.server.aggregate -> apply_feature_learning)
@@ -2437,7 +2522,8 @@ def main(argv=None) -> int:
                              "chaos_path": chaos_k1, "resume_path": 0,
                              "serve_path": 0, "serve_path_bf16": 0,
                              "serve_path_phi4": 0,
-                             "serve_path_mamba": 0}}, {
+                             "serve_path_mamba": 0,
+                             "serve_path_rgemma": 0}}, {
         "name": "linear_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
         "replaces": "src/repro/kernels/linear_scan/kernel.py:56",
@@ -2453,7 +2539,8 @@ def main(argv=None) -> int:
                              "resume_path": resume_scan,
                              "serve_path": 0, "serve_path_bf16": 0,
                              "serve_path_phi4": 0,
-                             "serve_path_mamba": 0}},
+                             "serve_path_mamba": 0,
+                             "serve_path_rgemma": 0}},
         # K3 at the serve path's shape, N(0, 1) inputs: the fp32 design
         # on serve_path, the bf16 (tensor-core) design on serve_path_bf16
         _flash_entry("flash_attention", fv[("main", torch.float32)],
@@ -2486,7 +2573,40 @@ def main(argv=None) -> int:
                              "residency_path": 0, "chaos_path": 0,
                              "resume_path": 0, "serve_path": 0,
                              "serve_path_bf16": 0, "serve_path_phi4": 0,
-                             "serve_path_mamba": scan_launches_mamba}}]})
+                             "serve_path_mamba": scan_launches_mamba,
+                             "serve_path_rgemma": 0}}, {
+        # K2 at RecurrentGemma-9B's RG-LRU scan, (8, 2016, 4096) fp32:
+        # serve_path_rgemma launches it once an RG-LRU layer of the prefill
+        "name": "linear_scan_rglru", "route": "cuda",
+        "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
+        "replaces": "src/repro/kernels/linear_scan/kernel.py:56",
+        "launches": scan_launches_rgemma,
+        "max_abs_err": rglru_rec["max_abs_err"],
+        "ms": rglru_rec["ms"], "plain_ms": rglru_rec["plain_ms"],
+        "bound_ms": rglru_rec["bound_ms"],
+        "bound_by": rglru_rec["bound_by"],
+        "library_ms": rglru_rec["library_ms"],
+        "library": rglru_rec["library"], "shape": rglru_rec["shape"],
+        "launches_by_path": {"main_path": 0, "assoc_path": 0,
+                             "oracle_path": 0, "sweep_path": 0,
+                             "residency_path": 0, "chaos_path": 0,
+                             "resume_path": 0, "serve_path": 0,
+                             "serve_path_bf16": 0, "serve_path_phi4": 0,
+                             "serve_path_mamba": 0,
+                             "serve_path_rgemma": scan_launches_rgemma}},
+        # K3's head-dim-256 instances at RecurrentGemma-9B's layer 0 (16
+        # heads over 1 KV head, window 2048, which 2016 keys do not bind):
+        # bf16 on serve_path_rgemma once a superblock of the prefill, fp32
+        # on serve_card_vs_cpu's full-width run
+        _flash_entry("flash_attention_bf16_hd256",
+                     fv[(RGEMMA_CASE, torch.bfloat16)],
+                     flash_launches_rgemma,
+                     {"serve_path_rgemma": flash_launches_rgemma},
+                     "fa_bf16.cuh"),
+        _flash_entry("flash_attention_hd256",
+                     fv[(RGEMMA_CASE, torch.float32)], flash_launches_hd256,
+                     {"serve_card_vs_cpu": flash_launches_hd256},
+                     "fa_f32.cuh")]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

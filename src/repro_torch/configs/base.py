@@ -2,7 +2,8 @@
 
 ``ModelConfig`` keeps the JAX package's field names
 (``repro.configs.base``) for the families the port runs: the paper-scale
-LSTM / CNN, the dense transformer trunk and the Mamba-1 SSM.
+LSTM / CNN, the dense transformer trunk, the Mamba-1 SSM and the RG-LRU
+hybrid.
 Architectures register in ``ARCHS`` by name and ``get_arch`` builds a
 fresh config; ``reduced()`` derives the same family at CPU-test size,
 exactly as the JAX package's does for these fields.
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Tuple
 
 from repro_torch.common.registry import Registry
 
@@ -21,7 +23,7 @@ ARCHS: Registry["ModelConfig"] = Registry("architecture")
 class ModelConfig:
     # identity
     name: str
-    family: str  # dense | ssm | lstm | cnn
+    family: str  # dense | ssm | hybrid | lstm | cnn
     citation: str = ""
 
     # transformer trunk
@@ -44,6 +46,11 @@ class ModelConfig:
     ssm_expand: int = 2
     ssm_conv: int = 4
     ssm_dt_rank: int = 0
+
+    # hybrid (RecurrentGemma): repeating block pattern
+    block_pattern: Tuple[str, ...] = ()  # e.g. ("rglru", "rglru", "attn")
+    local_window: int = 0  # local-attention window (hybrid archs)
+    lru_width: int = 0
 
     # long-context variant for dense archs (0 = full attention)
     sliding_window: int = 0
@@ -74,14 +81,19 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: same family/topology, tiny dims."""
+        # hybrids keep one full (rglru, rglru, attn) superblock
+        min_layers = 3 if self.block_pattern else 2
         r = dataclasses.replace(
             self,
-            n_layers=min(self.n_layers, 2) if self.n_layers else 0,
+            n_layers=min(self.n_layers, min_layers) if self.n_layers else 0,
             d_model=min(self.d_model, 256) if self.d_model else 0,
             d_ff=min(self.d_ff, 512) if self.d_ff else 0,
             vocab_size=min(self.vocab_size, 512) if self.vocab_size else 0,
             n_heads=min(self.n_heads, 4) if self.n_heads else 0,
             n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads else 0,
+            lru_width=min(self.lru_width, 256) if self.lru_width else 0,
+            local_window=(min(self.local_window, 64)
+                          if self.local_window else 0),
             sliding_window=(min(self.sliding_window, 64)
                             if self.sliding_window else 0),
             hidden=min(self.hidden, 64) if self.hidden else 0,

@@ -52,7 +52,10 @@ struct B16Cfg {
   static constexpr int NCB = HD / AW;            // column blocks
   static constexpr int kRowBytes = AW * 2;       // one atom row: 64 or 128
   static constexpr int kQ = BQ * HD, kKV = kBK * HD;  // bf16 elements
-  static constexpr int NS = 3;  // K/V stages
+  // K/V stages: a ring of three, two tiles ahead; at hd 256 three
+  // stages of 64 x 256 K and V (192 KB) beside Q (64 KB) exceed the
+  // 227 KB a block may take, so two (194 KB in all), one tile ahead
+  static constexpr int NS = HD == 256 ? 2 : 3;
   // 1024 bytes of slack to align the atoms; Q, K and V (NS stages
   // each), then NS x 64 key positions
   static constexpr size_t kSmem =
@@ -209,7 +212,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 }
 
 template <int HD>
-__global__ void __launch_bounds__(256, HD == 128 ? 1 : 2)
+__global__ void __launch_bounds__(256, HD >= 128 ? 1 : 2)
 fa_fwd_bf16(const Args a) {
   using C = B16Cfg<HD>;
   constexpr int BQ = C::BQ, AW = C::AW, NCB = C::NCB, NS = C::NS;

@@ -2,7 +2,7 @@
 // the outer product of a fast SGEMM so shared memory does not limit it.
 //
 // One block of 256 threads per (BQ query rows, head, batch); BQ = 128
-// (64 at hd 128, for shared memory).  Thread (ty, tx), ty = 2 warp +
+// (64 at hd 128 and 256, for shared memory).  Thread (ty, tx), ty = 2 warp +
 // lane / 16 and tx = lane % 16, owns RM = BQ / 16 consecutive query rows
 // ty RM + i and, per 64-key tile, the 4 keys 4 tx + j.
 //
@@ -19,7 +19,10 @@
 //   for RM HD / 16 FMAs.
 // * The next K tile is loaded into registers and the next V tile by
 //   cp.async into the other half of a double buffer while the current
-//   tile is in use; two __syncthreads a tile.
+//   tile is in use; two __syncthreads a tile.  At hd 256 the double
+//   buffer does not fit (272 KB with it, 208 KB without): V has one
+//   buffer, refilled by cp.async once its P V is done, so the load
+//   overlaps the next tile's Q K^T instead.
 // * The mask is applied only on tiles that cross the causal diagonal or
 //   the window edge or hold keys past Skv, and a warp skips a tile that
 //   lies wholly above its rows' diagonal.
@@ -38,13 +41,14 @@ namespace fa {
 
 template <int HD>
 struct F32Cfg {
-  static constexpr int BQ = HD == 128 ? 64 : 128;
+  static constexpr int BQ = HD >= 128 ? 64 : 128;
   static constexpr int kThreads = 256;
   static constexpr int RM = BQ / 16;  // query rows per thread
   static constexpr int NC = HD / 16;  // output columns per thread
   static constexpr int KREG = HD / 16;  // float4s of K per thread per tile
-  // shared floats: Qt, Kt, Vs (2 buffers), Pt; then BQ int positions
-  static constexpr int kQt = HD * BQ, kKt = HD * kBK, kVs = 2 * kBK * HD,
+  static constexpr int VB = HD == 256 ? 1 : 2;  // V tile buffers
+  // shared floats: Qt, Kt, Vs (VB buffers), Pt; then BQ int positions
+  static constexpr int kQt = HD * BQ, kKt = HD * kBK, kVs = VB * kBK * HD,
                        kPt = kBK * BQ;
   static constexpr size_t kSmem = sizeof(float) * (kQt + kKt + kVs + kPt) +
                                   sizeof(int) * BQ;
@@ -129,10 +133,10 @@ __device__ __forceinline__ void f32_load_v(float* dst, const float* vb,
 }
 
 template <int HD>
-__global__ void __launch_bounds__(256, HD == 128 ? 1 : 2)
+__global__ void __launch_bounds__(256, HD >= 128 ? 1 : 2)
 fa_fwd_f32(const Args a) {
   using C = F32Cfg<HD>;
-  constexpr int BQ = C::BQ, RM = C::RM, NC = C::NC;
+  constexpr int BQ = C::BQ, RM = C::RM, NC = C::NC, VB = C::VB;
   using QStage = F32Stage<HD, BQ>;
   using KStage = F32Stage<HD, kBK>;
   extern __shared__ float4 smem4[];
@@ -206,10 +210,11 @@ fa_fwd_f32(const Args a) {
     const bool has_next = kt < tr.hi;
     if (has_next) {  // in flight while this tile is used
       KStage::load(kr, kb, kv_stride, k0 + kBK, Skv);
-      f32_load_v<HD>(Vs + (buf ^ 1) * kBK * HD, vb, kv_stride, k0 + kBK,
-                     Skv);
+      if constexpr (VB == 2)
+        f32_load_v<HD>(Vs + (buf ^ 1) * kBK * HD, vb, kv_stride, k0 + kBK,
+                       Skv);
     }
-    cp_async_commit();
+    if constexpr (VB == 2) cp_async_commit();
     const bool active = w_live && !warp_skips(a, k0, w_hi);
 
     if (active) {
@@ -297,12 +302,12 @@ fa_fwd_f32(const Args a) {
       }
     }
 
-    cp_async_wait<1>();  // this tile's V has landed (the next may not)
-    __syncthreads();     // P^T written; every read of Kt done
+    cp_async_wait<VB - 1>();  // this tile's V has landed (the next may not)
+    __syncthreads();          // P^T written; every read of Kt done
     if (has_next) KStage::store(Kt, kr);
 
     if (active) {
-      const float* vt = Vs + buf * kBK * HD;
+      const float* vt = Vs + (VB == 2 ? buf : 0) * kBK * HD;
 #pragma unroll 1
       for (int c0 = 0; c0 < kBK; c0 += 32) {
 #pragma unroll
@@ -340,6 +345,10 @@ fa_fwd_f32(const Args a) {
       }
     }
     __syncthreads();  // P^T and this V buffer read; next Kt visible
+    if constexpr (VB == 1) {  // the one V buffer is free: the next tile's
+      if (has_next) f32_load_v<HD>(Vs, vb, kv_stride, k0 + kBK, Skv);
+      cp_async_commit();
+    }
   }
 
   cp_async_wait<0>();  // nothing left in flight at exit

@@ -10,9 +10,11 @@ then ``gen`` one-token decode steps, each sampled greedily (temperature
 ``torch.Generator``.  Runs on the CUDA card unless given
 ``device="cpu"`` / ``--device cpu``; without a card it raises.  On the
 card every prefill launches one kernel per layer, the flash-attention
-kernel (K3) for a dense model and the linear-recurrence kernel (K2, the
-selective scan) for Falcon-Mamba (``--arch falcon-mamba-7b``), and
-decode launches neither; the stats count both.  Computes in
+kernel (K3) for a dense model, the linear-recurrence kernel (K2, the
+selective scan) for Falcon-Mamba (``--arch falcon-mamba-7b``), and K2
+for each RG-LRU layer and K3 for each local-attention layer of
+RecurrentGemma (``--arch recurrentgemma-9b``); decode launches neither,
+and the stats count both.  Computes in
 the weights' dtype (``Model.init(..., dtype=torch.bfloat16)`` serves in
 bf16, K3's tensor-core design); ``main`` serves fp32 with full-fp32
 matrix products (TF32 off).
@@ -32,6 +34,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
 from repro_torch.kernels.linear_scan.kernel import linear_scan_kernel
 from repro_torch.models import Model, build_model, make_batch
+
+
+# the kernels each family's prefill launches on the card
+_FAMILY_KERNELS = {"dense": ("flash_attention",), "ssm": ("linear_scan",),
+                   "hybrid": ("linear_scan", "flash_attention")}
 
 
 def _sample(logits: torch.Tensor, temperature: float,
@@ -66,9 +73,9 @@ def serve(model: Model, params, tokens, gen: int, *,
     tokens = torch.as_tensor(tokens, dtype=torch.int32).to(dev)
     B, S = tokens.shape
     on_card = dev.type == "cuda"
-    if on_card:  # build the family's kernel outside the timed region
-        build.load("linear_scan" if model.cfg.family == "ssm"
-                   else "flash_attention")
+    if on_card:  # build the family's kernels outside the timed region
+        for name in _FAMILY_KERNELS[model.cfg.family]:
+            build.load(name)
 
     def sync():
         if on_card:

@@ -1,22 +1,32 @@
-"""Serving path of the dense trunk and the Mamba-1 SSM: caches, prefill,
-one-token decode.
+"""Serving path of the dense trunk, the Mamba-1 SSM and the RG-LRU
+hybrid: caches, prefill, one-token decode.
 
-Mirrors the dense and ssm families of ``repro.models.decode``.  Dense
-caches are fixed-shape: ``min(max_len, window)`` slots per layer with
-absolute-position tags (``INT_SENTINEL`` = unwritten, masked by the
+Mirrors the dense, ssm and hybrid families of ``repro.models.decode``.
+Dense caches are fixed-shape: ``min(max_len, window)`` slots per layer
+with absolute-position tags (``INT_SENTINEL`` = unwritten, masked by the
 causal check), circular for the sliding-window variant, stacked over a
 leading layer axis.  Prefill runs every layer's attention through flash
 attention (K3 on the card, one launch per layer).  The SSM cache is the
 recurrent state, ``{"state": {"h": (L, B, d_inner, N) fp32, "conv": (L,
 B, K-1, d_inner)}}`` in the compute dtype, whatever ``max_len``; its
 prefill runs every layer's selective scan through K2 (one launch per
-layer on the card).  Decode is plain PyTorch in both.
+layer on the card).  The hybrid's cache is ``{"super": {"r1", "r2",
+"a"}, "tail"}``: the RG-LRU layers' state (``h`` (B, lru_width) fp32,
+the conv window in the compute dtype) and each attention layer's ring of
+``min(max_len, local_window)`` K/V slots, stacked over the superblocks
+and the tail; its prefill launches K2 once an RG-LRU layer and K3 once
+an attention layer.  Decode is plain PyTorch in all three.
 
 One difference from the JAX code, which returns a new cache:
-``decode_step`` writes the new token's K/V (dense) or the new recurrent
-state (ssm) into the cache it is given and returns that same cache.  On
-the card a copy of the whole cache per token would double the step's
-cache traffic.
+``decode_step`` writes the new token's K/V (dense, hybrid) or the new
+recurrent state (ssm, hybrid) into the cache it is given and returns
+that same cache.  On the card a copy of the whole cache per token would
+double the step's cache traffic.  The new K/V are committed after the
+layer loop (``_commit_kv``), as the dense family does in JAX; the
+hybrid's JAX decode writes each layer's slot before attending instead.
+The two agree whenever the ring holds a whole window (``max_len >=
+local_window``) or has not wrapped: the slot the new token takes then
+holds a position a full window back, which the window masks.
 """
 from __future__ import annotations
 
@@ -27,9 +37,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.transformer import (_embed_inputs, _head_matrix,
-                                            check_family, layer)
+                                            check_family, hybrid_layers,
+                                            layer)
 
 INT_SENTINEL = attn.INT_SENTINEL
 
@@ -37,6 +49,10 @@ INT_SENTINEL = attn.INT_SENTINEL
 def _attn_slots(cfg: ModelConfig, max_len: int) -> int:
     W = cfg.sliding_window or 0
     return min(max_len, W) if W else max_len
+
+
+def _local_slots(cfg: ModelConfig, max_len: int) -> int:
+    return min(max_len, cfg.local_window) if cfg.local_window else max_len
 
 
 def _gqa_cache(cfg: ModelConfig, B: int, slots: int, dtype, layers,
@@ -60,11 +76,28 @@ def _ssm_state(cfg: ModelConfig, B: int, dtype, layers: int, device):
     return {k: t.expand((layers,) + t.shape).clone() for k, t in st.items()}
 
 
+def _lru_state(cfg: ModelConfig, B: int, dtype, layers: int, device):
+    """The RG-LRU layers' stacked state: ``h`` in fp32, the conv window
+    in ``dtype`` (the JAX layout)."""
+    st = rglru_lib.rglru_init_state(cfg, B, dtype, device)
+    return {k: t.expand((layers,) + t.shape).clone() for k, t in st.items()}
+
+
 def init_cache(cfg: ModelConfig, B: int, max_len: int,
                dtype=torch.bfloat16, device=None):
     check_family(cfg)
     if cfg.family == "ssm":
         return {"state": _ssm_state(cfg, B, dtype, cfg.n_layers, device)}
+    if cfg.family == "hybrid":
+        n_super, rem = divmod(cfg.n_layers, 3)
+        c = {"super": {
+            "r1": _lru_state(cfg, B, dtype, n_super, device),
+            "r2": _lru_state(cfg, B, dtype, n_super, device),
+            "a": _gqa_cache(cfg, B, _local_slots(cfg, max_len), dtype,
+                            n_super, device)}}
+        if rem:
+            c["tail"] = _lru_state(cfg, B, dtype, rem, device)
+        return c
     return {"kv": _gqa_cache(cfg, B, _attn_slots(cfg, max_len), dtype,
                              cfg.n_layers, device)}
 
@@ -126,14 +159,41 @@ def _dense_prefill(params, cfg: ModelConfig, x, positions, slots: int):
     return x, {"kv": kv}
 
 
+def _hybrid_prefill(params, cfg: ModelConfig, x, positions, slots: int):
+    """The hybrid's layers over the prompt's embeddings: (final hidden x,
+    the cache: each RG-LRU layer's state, each attention layer's last
+    ``slots`` K/V at their ring slots)."""
+    cache = init_cache(cfg, x.shape[0], slots, x.dtype, x.device)
+    for (kind, p), (_, c) in zip(hybrid_layers(params, cfg),
+                                 hybrid_layers(cache, cfg)):
+        hh = L.apply_norm(cfg.norm, p["ln1"], x)
+        if kind == "rglru":
+            m, entry = rglru_lib.rglru_forward(p["mix"], hh, cfg,
+                                               return_state=True)
+        else:
+            m, (k, v, kpos) = attn.gqa_forward(
+                p["mix"], hh, cfg, positions=positions, causal=True,
+                window=cfg.local_window, return_kv=True)
+            entry = _kv_to_cache(k, v, kpos, slots)
+        x = x + m
+        hh = L.apply_norm(cfg.norm, p["ln2"], x)
+        x = x + L.mlp(p["mlp"], hh, cfg.act)
+        for name, t in entry.items():
+            c[name].copy_(t)
+    return x, cache
+
+
 def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None):
     """Returns (last-token logits (B, V), cache).  The cache holds K/V
-    (dense) or the conv window (ssm) in the compute dtype (the
-    parameters'); the ssm cache ignores ``max_len``."""
+    (dense, hybrid) or the conv window (ssm, hybrid) in the compute dtype
+    (the parameters'); the ssm cache ignores ``max_len``."""
     S = batch["tokens"].shape[1]
     x, positions = _embed_inputs(params, cfg, batch)
     if cfg.family == "ssm":
         x, cache = _ssm_prefill(params, cfg, x)
+    elif cfg.family == "hybrid":
+        x, cache = _hybrid_prefill(params, cfg, x, positions,
+                                   _local_slots(cfg, max_len or S))
     else:
         x, cache = _dense_prefill(params, cfg, x, positions,
                                   _attn_slots(cfg, max_len or S))
@@ -188,14 +248,44 @@ def _dense_decode(params, cfg: ModelConfig, kv, x, cur_index):
     return x
 
 
+def _hybrid_decode(params, cfg: ModelConfig, cache, x, cur_index):
+    """One token through the hybrid's layers; each RG-LRU layer's new
+    state is written into ``cache`` in place, and the attention layers'
+    new K/V are committed into their rings at the end."""
+    k_new, v_new = [], []
+    for (kind, p), (_, c) in zip(hybrid_layers(params, cfg),
+                                 hybrid_layers(cache, cfg)):
+        hh = L.apply_norm(cfg.norm, p["ln1"], x)
+        if kind == "rglru":
+            m, new = rglru_lib.rglru_decode(p["mix"], hh, c, cfg)
+            for name, t in new.items():
+                c[name].copy_(t)
+        else:
+            m, (kn, vn) = attn.gqa_decode(
+                p["mix"], hh, c, cur_index, cfg, window=cfg.local_window,
+                defer_write=True)
+            k_new.append(kn)
+            v_new.append(vn)
+        x = x + m
+        hh = L.apply_norm(cfg.norm, p["ln2"], x)
+        x = x + L.mlp(p["mlp"], hh, cfg.act)
+    if k_new:
+        _commit_kv(cache["super"]["a"], torch.stack(k_new),
+                   torch.stack(v_new), cur_index)
+    return x
+
+
 def decode_step(params, cfg: ModelConfig, cache, tokens, cur_index):
     """tokens (B, 1) int, cur_index (B,) int -> (logits (B, V), cache);
-    the new token's K/V (dense) or the new recurrent state (ssm, which
-    ignores ``cur_index``) are written into ``cache`` in place."""
+    the new token's K/V (dense, hybrid) or the new recurrent state (ssm,
+    which ignores ``cur_index``, and hybrid) are written into ``cache``
+    in place."""
     check_family(cfg)
     x = L.embed(params["embed"], tokens)  # (B, 1, d)
     if cfg.family == "ssm":
         x = _ssm_decode(params, cfg, cache["state"], x)
+    elif cfg.family == "hybrid":
+        x = _hybrid_decode(params, cfg, cache, x, cur_index)
     else:
         x = _dense_decode(params, cfg, cache["kv"], x, cur_index)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)

@@ -1,10 +1,11 @@
 """Model facade: the paper-scale families (``lstm``, ``cnn``), the dense
-transformer trunk (``dense``) and the Mamba-1 SSM (``ssm``).
+transformer trunk (``dense``), the Mamba-1 SSM (``ssm``) and the RG-LRU
+hybrid (``hybrid``).
 
 Mirrors ``repro.models.model.Model``: ``init`` / ``loss`` / ``predict``
 over plain parameter dicts in the JAX layouts, plus ``prefill`` /
-``decode_step`` / ``init_cache`` for serving the dense trunk and the
-SSM.  The paper
+``decode_step`` / ``init_cache`` for serving the dense trunk, the SSM
+and the hybrid.  The paper
 models' ``loss`` and ``predict`` accept single or client-stacked
 parameters (see ``paper_nets``); a stacked loss is one value per client.
 Entry points run on the CUDA card unless given ``device="cpu"``.
@@ -86,22 +87,25 @@ class Model:
             return pn.cnn_forward(params, batch["x"])
         return tf.logits_fn(params, self.cfg, batch)
 
-    # -- serving (dense trunk, SSM) --------------------------------------
+    # -- serving (dense trunk, SSM, hybrid) ------------------------------
     def prefill(self, params, batch, max_len: Optional[int] = None):
         """(last-token logits (B, V), cache); on the card one K3 launch
-        (dense) or one K2 launch (ssm) per layer."""
+        (dense), one K2 launch (ssm) per layer, or (hybrid) one K2 launch
+        per RG-LRU layer and one K3 launch per attention layer."""
         return dec.prefill(params, self.cfg, batch, max_len)
 
     def decode_step(self, params, cache, tokens, cur_index):
-        """(logits (B, V), cache); writes the new K/V (dense) or the new
-        recurrent state (ssm) into ``cache``."""
+        """(logits (B, V), cache); writes the new K/V (dense, hybrid) or
+        the new recurrent state (ssm, hybrid) into ``cache``."""
         return dec.decode_step(params, self.cfg, cache, tokens, cur_index)
 
     def init_cache(self, batch_size: int, max_len: int,
                    dtype=torch.bfloat16, device=None):
         """Dense: K/V slots for ``max_len`` positions (the window's for
         the sliding-window variant); ssm: the recurrent state, whose size
-        does not depend on ``max_len``."""
+        does not depend on ``max_len``; hybrid: the RG-LRU layers' state
+        and the attention layers' rings of ``min(max_len,
+        local_window)`` slots."""
         return dec.init_cache(self.cfg, batch_size, max_len, dtype,
                               resolve_device(device))
 

@@ -1,11 +1,15 @@
-"""Model assembly for the dense transformer trunk and the Mamba-1 SSM.
+"""Model assembly for the dense transformer trunk, the Mamba-1 SSM and
+the RG-LRU hybrid.
 
-Mirrors the dense and ssm families of ``repro.models.transformer``: the
-per-layer parameters stay stacked under ``"blocks"`` with a leading layer
-axis (the JAX layout, so ``params_from_numpy`` carries a JAX tree across
-leaf for leaf), and the forward walks them with a Python loop over views
-where the JAX code scans.  The other families (MoE / MLA, hybrid, VLM,
-audio) belong to later slices of the port and raise by name.
+Mirrors the dense, ssm and hybrid families of
+``repro.models.transformer``: the per-layer parameters stay stacked with
+a leading layer axis, under ``"blocks"`` (dense, ssm) or under
+``"superblocks"`` (each an (rglru, rglru, attn) triple) and ``"tail"``
+(the trailing rglru layers) for the hybrid, the JAX layout, so
+``params_from_numpy`` carries a JAX tree across leaf for leaf.  The
+forward walks them with a Python loop over views where the JAX code
+scans.  The other families (MoE / MLA, VLM, audio) belong to later
+slices of the port and raise by name.
 """
 from __future__ import annotations
 
@@ -16,19 +20,19 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.spec import stack_spec
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            "the port runs the dense transformer and the Mamba-1 SSM "
-            f"families; {cfg.name!r} is {cfg.family!r}, not ported yet (MoE "
-            "and MLA, the RG-LRU hybrid, VLM and audio come in later "
-            "slices)")
+            "the port runs the dense transformer, the Mamba-1 SSM and the "
+            f"RG-LRU hybrid families; {cfg.name!r} is {cfg.family!r}, not "
+            "ported yet (MoE and MLA, VLM and audio come in later slices)")
 
 
 def dense_block_spec(cfg: ModelConfig):
@@ -43,6 +47,19 @@ def ssm_block_spec(cfg: ModelConfig):
             "mamba": ssm_lib.mamba_spec(cfg)}
 
 
+def _mix_mlp_spec(cfg: ModelConfig, mix_spec):
+    return {"ln1": L.norm_spec(cfg.norm, cfg.d_model),
+            "mix": mix_spec,
+            "ln2": L.norm_spec(cfg.norm, cfg.d_model),
+            "mlp": L.mlp_spec(cfg.d_model, cfg.d_ff, cfg.act)}
+
+
+def hybrid_superblock_spec(cfg: ModelConfig):
+    return {"r1": _mix_mlp_spec(cfg, rglru_lib.rglru_spec(cfg)),
+            "r2": _mix_mlp_spec(cfg, rglru_lib.rglru_spec(cfg)),
+            "a": _mix_mlp_spec(cfg, attn.gqa_spec(cfg))}
+
+
 def build_spec(cfg: ModelConfig) -> Dict[str, Any]:
     check_family(cfg)
     V, d = cfg.vocab_size, cfg.d_model
@@ -50,6 +67,14 @@ def build_spec(cfg: ModelConfig) -> Dict[str, Any]:
                             "final_norm": L.norm_spec(cfg.norm, d)}
     if not cfg.tie_embeddings:
         spec["lm_head"] = L.lm_head_spec(d, V)
+    if cfg.family == "hybrid":
+        n_super, rem = divmod(cfg.n_layers, 3)
+        spec["superblocks"] = stack_spec(hybrid_superblock_spec(cfg),
+                                         n_super)
+        if rem:
+            spec["tail"] = stack_spec(
+                _mix_mlp_spec(cfg, rglru_lib.rglru_spec(cfg)), rem)
+        return spec
     block = ssm_block_spec if cfg.family == "ssm" else dense_block_spec
     spec["blocks"] = stack_spec(block(cfg), cfg.n_layers)
     return spec
@@ -70,6 +95,36 @@ def _dense_block(p, x, cfg: ModelConfig, *, positions=None, window=0):
     return x + L.mlp(p["mlp"], h, cfg.act)
 
 
+def _hybrid_sub(p, x, cfg: ModelConfig, kind: str):
+    """One hybrid layer: the mixer (RG-LRU, or local attention over the
+    last ``local_window`` positions) and the MLP, each pre-normed and
+    residual."""
+    h = L.apply_norm(cfg.norm, p["ln1"], x)
+    if kind == "rglru":
+        m = rglru_lib.rglru_forward(p["mix"], h, cfg)
+    else:
+        m = attn.gqa_forward(p["mix"], h, cfg, causal=True,
+                             window=cfg.local_window)
+    x = x + m
+    h = L.apply_norm(cfg.norm, p["ln2"], x)
+    return x + L.mlp(p["mlp"], h, cfg.act)
+
+
+def hybrid_layers(tree, cfg: ModelConfig):
+    """The hybrid's layers in order, as (kind, view of ``tree``):
+    superblock i's r1, r2 and a, then the tail's rglru layers.  ``tree``
+    is the parameters (stacked under ``superblocks`` and ``tail``) or the
+    cache (under ``super`` and ``tail``); a view written in place writes
+    the stacked tensor."""
+    n_super, rem = divmod(cfg.n_layers, 3)
+    sup = tree["superblocks"] if "superblocks" in tree else tree["super"]
+    out = []
+    for i in range(n_super):
+        sb = layer(sup, i)
+        out += [("rglru", sb["r1"]), ("rglru", sb["r2"]), ("attn", sb["a"])]
+    return out + [("rglru", layer(tree["tail"], j)) for j in range(rem)]
+
+
 def _embed_inputs(params, cfg: ModelConfig, batch):
     """tokens -> (x, positions)."""
     check_family(cfg)
@@ -84,6 +139,10 @@ def _embed_inputs(params, cfg: ModelConfig, batch):
 def forward_hidden(params, cfg: ModelConfig, batch) -> torch.Tensor:
     """Token inputs -> final hidden states (B, S, d)."""
     x, positions = _embed_inputs(params, cfg, batch)
+    if cfg.family == "hybrid":
+        for kind, p in hybrid_layers(params, cfg):
+            x = _hybrid_sub(p, x, cfg, kind)
+        return L.apply_norm(cfg.norm, params["final_norm"], x)
     for i in range(cfg.n_layers):
         p = layer(params["blocks"], i)
         if cfg.family == "ssm":

@@ -3,8 +3,10 @@
 On the CPU the port's dispatcher runs its plain PyTorch version (a dense
 masked softmax); it is held against the JAX plain version and against
 the JAX Pallas kernel in interpret mode, on the case x dtype grid of
-``tests/test_kernels.py``, on the served model's head layout, a ragged
-length, a window and non-contiguous positions over a padded cache.  The
+``tests/test_kernels.py``, on the served models' head layouts
+(TinyLlama's, and RecurrentGemma's MQA at head dim 256 with a window
+that binds), a ragged length, a window and non-contiguous positions over
+a padded cache.  The
 CUDA kernel itself is checked on the card (``cuda`` marker; skipped
 where there is none).  Inputs come from numpy with a seed.
 """
@@ -42,6 +44,14 @@ MODEL_CASES = [
     (2, 64, 64, 4, 8, 64, True, 0),
     (1, 100, 100, 4, 8, 64, True, 0),
     (1, 130, 130, 4, 8, 64, True, 48),
+]
+# RecurrentGemma-9B's head layout at head dim 256 (MQA: KV 1, G 16) at
+# small S, causal, with its local window made to bind (32 < S) and not
+# (0), and a ragged length
+HD256_CASES = [
+    (1, 96, 96, 1, 16, 256, True, 32),
+    (2, 64, 64, 1, 16, 256, True, 0),
+    (1, 100, 100, 1, 16, 256, True, 48),
 ]
 # max abs error per unit of the output's largest magnitude (at least 1):
 # tests/test_kernels.py's bounds
@@ -83,7 +93,7 @@ def _both(q, k, v, qp, kp, dtype):
         qp), torch.tensor(kp)
 
 
-@pytest.mark.parametrize("case", CASES + MODEL_CASES)
+@pytest.mark.parametrize("case", CASES + MODEL_CASES + HD256_CASES)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_port_matches_jax_ref_and_pallas_interpret(case, dtype):
     B, Sq, Skv, KV, G, hd, causal, window = case
@@ -184,7 +194,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES + MODEL_CASES)
+@pytest.mark.parametrize("case", CASES + MODEL_CASES + HD256_CASES)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_cuda_kernel_matches_plain_version(case, dtype):
     if not torch.cuda.is_available():
@@ -243,7 +253,7 @@ def _edge_case(kind, hd, seed=11):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", EDGE_KINDS)
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_cuda_kernel_edge_cases(kind, hd, dtype):
     if not torch.cuda.is_available():
