@@ -56,6 +56,16 @@ drives the port's paths through its entry points:
   launches at (8, 2016, 4096) fp32) and K3's head-dim-256 instance once
   per local-attention layer (12 launches) of the prefill, and neither in
   decode;
+* ``serve_path_deepseek``: ``serve`` on DeepSeek-V2-Lite-16B (MLA + 64
+  routed experts top-6 and 2 shared, 27 layers) at full width and depth
+  in bf16, batch 8, prompt 2016, 32 greedy tokens: its MLA prefill runs
+  plain PyTorch (``blocked_attention``) as every JAX branch does, so no
+  kernel is launched;
+* ``serve_path_kimi``: ``serve`` on Kimi-K2 (GQA at head dim 112, 384
+  routed experts top-8 and 1 shared) at full width with the depth cut
+  to 2 layers (1 dense + 1 MoE) in bf16, the same shape, which runs K3's
+  head-dim-112 instance once per layer of the prefill and never in
+  decode;
 * ``chaos_path``: main_path's shape under the chaos layer
   (``tests/test_faults.py``'s mixed faults at rate 0.15 and its guards,
   ``max_staleness`` 8 and ``max_delta_norm`` 0.5): asofed with the
@@ -75,8 +85,9 @@ the launch counts set to 0 just before it and read just after.  Then
 the card's trajectories are held against the CPU's for every ported
 strategy, the associative fold against the sequential one on the card,
 and the card's prefill and teacher-forced decode logits and caches
-against the CPU's (TinyLlama, Falcon-Mamba and RecurrentGemma, whose
-reduced config wraps its local-attention ring on the card).
+against the CPU's (TinyLlama, Falcon-Mamba, RecurrentGemma, whose
+reduced config wraps its local-attention ring on the card, DeepSeek-V2-Lite
+and Kimi-K2).
 ``scan_vs_plain`` also holds K2 at the Mamba and RG-LRU prefills' shapes
 bit for bit against its plain version, before any model's weights are
 on the card.  Prints one JSON
@@ -1822,6 +1833,19 @@ RGEMMA_ARCH, RGEMMA_CASE = "recurrentgemma-9b", "rgemma_layer0"
 RGEMMA_WINDOW_CASE = "rgemma_window_binds"
 RGEMMA_SCAN_SHAPE = (SERVE_B, SERVE_PROMPT, 4096)
 RGEMMA_SCAN_REPS = 20
+# serve_path_deepseek's architecture (MLA + MoE: no kernel), and
+# serve_path_kimi's (GQA + MoE at head dim 112) with its depth cut: 61
+# layers are 2.05 TB in bf16, 2 (1 dense + 1 MoE) 39.87 GB; 3 would be
+# 74.0 GB, no room left for activations on an 80 GB card
+DEEPSEEK_ARCH = "deepseek-v2-lite-16b"
+KIMI_ARCH, KIMI_CASE = "kimi-k2-1t-a32b", "kimi_layer0"
+KIMI_CUT = {"n_layers": 2}
+# serve_card_vs_cpu's Kimi-K2 case at full width (2 layers, 16 experts)
+KIMI_FULL_CASE = "full_width_2_layers_16_experts"
+# serve_path_deepseek / _kimi: interleaved pairs of serve runs of
+# MOE_DECODE_GEN tokens whose decode is forced onto each of the MoE
+# layer's two expert products
+MOE_DECODE_PAIRS, MOE_DECODE_GEN = 2, 16
 # K3 vs its plain version: max abs error per unit of the output's largest
 # magnitude (at least 1), tests/test_kernels.py's bounds.  The online and
 # the dense softmax sum in different orders; bf16 outputs round once.
@@ -1832,6 +1856,8 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 # or tiles hides under FLASH_TOL; this gate sees it.  bf16 outputs differ
 # by up to one ulp, 2^-7 of a row's largest |value|
 ROW_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# every head dim K3 takes, each held at its edges
+FLASH_HEAD_DIMS = (32, 64, 112, 128, 256)
 # (name, B, Sq, Skv, KV, G, hd, causal, window), positions arange; the
 # first five are tests/test_kernels.py's CASES.  Then, at every head dim,
 # the edges of both designs: a ragged length (the last 64-key tile and
@@ -1857,7 +1883,14 @@ FLASH_CASES = [
     (RGEMMA_CASE, SERVE_B, SERVE_PROMPT, SERVE_PROMPT, 1, 16, 256, True,
      2048),
     (RGEMMA_WINDOW_CASE, 1, 4096, 4096, 1, 16, 256, True, 2048),
-] + [case for hd in (32, 64, 128, 256) for case in (
+    # Kimi-K2's prefill attention (64 heads over 8 KV heads, head dim
+    # 112): the hd-112 instances serve_path_kimi (bf16) and
+    # serve_card_vs_cpu (fp32) launch; then at its head layout a window
+    # that binds and non-causal
+    (KIMI_CASE, SERVE_B, SERVE_PROMPT, SERVE_PROMPT, 8, 8, 112, True, 0),
+    ("kimi_window_binds", 1, 512, 512, 8, 8, 112, True, 128),
+    ("kimi_noncausal", 1, 256, 256, 8, 8, 112, False, 0),
+] + [case for hd in FLASH_HEAD_DIMS for case in (
     (f"ragged100_hd{hd}", 2, 100, 100, 2, 2, hd, True, 0),
     (f"ragged2016_hd{hd}", 1, SERVE_PROMPT, SERVE_PROMPT, 2, 2, hd, True,
      0),
@@ -1868,6 +1901,9 @@ FLASH_CASES = [
 # (tests/test_decode_consistency.py)
 SERVE_TOL = 5e-3
 FORCED_PROMPT, FORCED_STEPS = 64, 4
+# the MoE cases' batch: the prefill's 512 tokens take the gathered expert
+# products and each decode step's 8 every expert at once (moe._dispatch)
+MOE_FORCED_B = 8
 
 
 def flash_bound(q, k, q_pos, k_pos, causal: bool, window: int):
@@ -1981,9 +2017,11 @@ def _arange_pos(B: int, S: int) -> torch.Tensor:
 def phase_flash_vs_plain(layer0_qkv):
     """K3 against its plain version, fp32 and bf16: the JAX grid, the
     main-path shape with N(0, 1) inputs and with the serve run's own
-    layer-0 q/k/v (both timed), phi4-mini's and RecurrentGemma's prefill
-    attention (the latter timed in both types, and again at 4096 keys,
-    where its 2048 window binds), and at every head dim ragged lengths, a
+    layer-0 q/k/v (both timed), phi4-mini's, RecurrentGemma's and
+    Kimi-K2's prefill attention (the latter two timed in both types;
+    RecurrentGemma's again at 4096 keys, where its 2048 window binds;
+    Kimi's head layout with a window that binds and non-causal), and at
+    every head dim ragged lengths, a
     window, Sq != Skv, decode-like non-contiguous queries over a padded
     cache, fully masked rows and queries at the end of the prompt."""
     from repro_torch.models.decode import INT_SENTINEL
@@ -1999,7 +2037,8 @@ def phase_flash_vs_plain(layer0_qkv):
                 B, Skv, KV, hd)
             out[(name, dtype)] = _flash_case(
                 name, q, k, v, _arange_pos(B, Sq), _arange_pos(B, Skv),
-                causal, window, True, timed=name in ("main", RGEMMA_CASE)
+                causal, window, True,
+                timed=name in ("main", RGEMMA_CASE, KIMI_CASE)
                 or (name == PHI4_CASE and dtype == torch.bfloat16))
             del q, k, v
         q, k, v = (t.to(dtype) for t in layer0_qkv)
@@ -2007,7 +2046,7 @@ def phase_flash_vs_plain(layer0_qkv):
             "main_model_qkv", q, k, v, _arange_pos(SERVE_B, SERVE_PROMPT),
             _arange_pos(SERVE_B, SERVE_PROMPT), True, 0, True, timed=True)
         del q, k, v
-        for hd in (32, 64, 128, 256):
+        for hd in FLASH_HEAD_DIMS:
             # 64 queries at positions 1000..1063 over a 2048-slot cache
             # whose slots past 1063 are unwritten (INT_SENTINEL), not
             # contiguous; the same queries with 5 of them at position -3,
@@ -2046,14 +2085,14 @@ def phase_flash_vs_plain(layer0_qkv):
     return out
 
 
-def _serve_setup(dtype=torch.float32, arch: str = SERVE_ARCH):
-    """``arch`` (TinyLlama-1.1B) at full width and depth, random weights
-    from seed 0 on the card in ``dtype``, and the serve batch's prompt
-    tokens."""
+def _serve_setup(dtype=torch.float32, arch: str = SERVE_ARCH, cut=None):
+    """``arch`` (TinyLlama-1.1B) at full width and depth (the fields of
+    ``cut`` replaced), random weights from seed 0 on the card in
+    ``dtype``, and the serve batch's prompt tokens."""
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model, make_batch
 
-    cfg = get_arch(arch)
+    cfg = dataclasses.replace(get_arch(arch), **(cut or {}))
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=DEV).manual_seed(0),
@@ -2066,14 +2105,16 @@ def _serve_setup(dtype=torch.float32, arch: str = SERVE_ARCH):
 
 
 def _layer0_qkv(cfg, params, tokens):
-    """Layer 0's rotated q (B, S, KV, G, hd), k and v for the prompt."""
+    """Layer 0's rotated q (B, S, KV, G, hd), k and v for the prompt (the
+    MoE family's layer 0 is its first dense layer)."""
     from repro_torch.models import attention as attn
     from repro_torch.models import layers as L
     from repro_torch.models.transformer import layer
 
     B, S = tokens.shape
     with torch.no_grad():
-        p = layer(params["blocks"], 0)
+        p = layer(params["blocks" if "blocks" in params else
+                         "dense_blocks"], 0)
         h = L.apply_norm(cfg.norm, p["ln1"], L.embed(params["embed"],
                                                      tokens))
         q, k, v = attn._project_qkv(p["attn"], h, cfg)
@@ -2095,7 +2136,9 @@ def _serve_once(model, params, tokens, gen: int = SERVE_GEN):
 def _expected_launches(cfg):
     """(K3, K2) launches of one prefill: a layer's attention runs K3 and
     its recurrence K2; the hybrid's 3 n_super + rem layers are n_super
-    attention layers and 2 n_super + rem RG-LRU ones."""
+    attention layers and 2 n_super + rem RG-LRU ones; MLA runs neither."""
+    if cfg.use_mla:
+        return 0, 0
     if cfg.family == "hybrid":
         n_super, rem = divmod(cfg.n_layers, 3)
         return n_super, 2 * n_super + rem
@@ -2103,7 +2146,7 @@ def _expected_launches(cfg):
 
 
 def phase_serve_path(cfg, model, params, tokens, init_s: float,
-                     dtype=torch.float32, sfx=None):
+                     dtype=torch.float32, sfx=None, cut=None):
     """serve() at full width and depth in the weights' ``dtype``: the
     family's kernels (K3 for a dense model, K2 for the SSM, both for the
     hybrid) once per layer of the prefill, no kernel in decode; the rates
@@ -2114,9 +2157,12 @@ def phase_serve_path(cfg, model, params, tokens, init_s: float,
     Returns the (K3, K2) launches of one run."""
     from repro_torch.common.pytree import tree_leaves
 
+    from repro_torch.configs import get_arch
+
     if sfx is None:
         sfx = "" if dtype == torch.float32 else "_bf16"
     fam = cfg.family
+    full = get_arch(cfg.name)
     want = _expected_launches(cfg)  # in the prefill
     _serve_once(model, params, tokens)  # warm-up: cuBLAS, allocator
     runs = []
@@ -2147,6 +2193,20 @@ def phase_serve_path(cfg, model, params, tokens, init_s: float,
         if fam == "hybrid":
             shape.update(lru_width=cfg.lru_width,
                          local_window=cfg.local_window)
+        if fam == "moe":
+            shape.update(n_experts=cfg.n_experts, top_k=cfg.top_k,
+                         n_shared_experts=cfg.n_shared_experts,
+                         d_ff_expert=cfg.d_ff_expert, d_ff=cfg.d_ff,
+                         first_dense_layers=cfg.first_dense_layers,
+                         use_mla=cfg.use_mla)
+            if cfg.use_mla:
+                shape.update(kv_lora_rank=cfg.kv_lora_rank,
+                             qk_nope_head_dim=cfg.qk_nope_head_dim,
+                             qk_rope_head_dim=cfg.qk_rope_head_dim,
+                             v_head_dim=cfg.v_head_dim)
+        if cut:  # {field: [the config's value, the value run]}
+            shape["reduced"] = {k: [getattr(full, k), v]
+                                for k, v in cut.items()}
         rec = {"phase": "serve_path" + sfx, "arch": cfg.name,
                "n_layers": cfg.n_layers, "d_model": cfg.d_model, **shape,
                "batch": SERVE_B, "prompt_len": SERVE_PROMPT,
@@ -2172,6 +2232,8 @@ def phase_serve_path(cfg, model, params, tokens, init_s: float,
     emit({"phase": f"serve_path{sfx}_spread", "runs": len(runs),
           **spread("prefill_s"), **spread("ttft_s"),
           **spread("tokens_per_s")})
+    if fam == "moe":
+        _moe_decode_products(cfg, model, params, tokens, sfx)
     gen = SERVE_PROFILE_GEN
     (_, stats), wall, per = _device_profile(
         lambda: _serve_once(model, params, tokens, gen))
@@ -2190,6 +2252,50 @@ def phase_serve_path(cfg, model, params, tokens, init_s: float,
     emit(rec)
     return runs[-1]["flash_attention_launches"], \
         runs[-1]["linear_scan_launches"]
+
+
+def _moe_decode_products(cfg, model, params, tokens, sfx: str):
+    """The measurement behind ``moe._dispatch``'s rule in decode: serve
+    runs of MOE_DECODE_GEN tokens whose decode steps (B tokens a MoE
+    call) are forced onto the gathered rows (one host read of the counts
+    a MoE layer, only the routed experts' weights) and onto every expert
+    at once (no host read, every expert's weights), MOE_DECODE_PAIRS
+    times interleaved, at batch B and 2 B; the prefill keeps the rule's
+    choice.  One phase ``serve_path{sfx}_moe_decode`` a batch."""
+    from repro_torch.models import make_batch, moe
+
+    pick = moe._dispatch
+    forced = {"gathered": moe._gathered, "all_experts": moe._all_experts}
+    for batch in (SERVE_B, 2 * SERVE_B):
+        toks = tokens if batch == SERVE_B else make_batch(
+            cfg, batch, SERVE_PROMPT, seed=0, device=DEV)["tokens"]
+        runs = {name: [] for name in forced}
+        try:
+            for _ in range(MOE_DECODE_PAIRS):
+                for name, fn in forced.items():
+                    moe._dispatch = (lambda n, _f=fn, _b=batch:
+                                     _f if n == _b else pick(n))
+                    _, stats = _serve_once(model, params, toks,
+                                           MOE_DECODE_GEN)
+                    if not stats["finite_logits"]:
+                        raise AssertionError(
+                            f"serve path{sfx}: non-finite logits, batch "
+                            f"{batch}, decode on {name}")
+                    runs[name].append(stats["tokens_per_s"])
+        finally:
+            moe._dispatch = pick
+        rec = {"phase": f"serve_path{sfx}_moe_decode", "arch": cfg.name,
+               "batch": batch, "gen": MOE_DECODE_GEN,
+               "rule_picks": pick(batch).__name__,
+               "assignments": batch * cfg.top_k,
+               "n_experts": cfg.n_experts}
+        for name, vals in runs.items():
+            rec.update({f"{name}_tokens_per_s": vals,
+                        f"{name}_tokens_per_s_median":
+                        float(np.median(vals))})
+        emit(rec)
+        del toks
+        torch.cuda.empty_cache()
 
 
 def _cache_leaves(cache, prefix: str = "") -> dict:
@@ -2230,33 +2336,53 @@ def _teacher_forced(model, params, tokens, device: str):
 
 def phase_serve_card_vs_cpu():
     """The port on the card against the port on the CPU, for TinyLlama,
-    Falcon-Mamba and RecurrentGemma in fp32: prefill logits, every
-    teacher-forced decode step's logits and every cache leaf (K/V and
-    their positions, the SSM's and the RG-LRU's h and conv window), at
-    full width with the depth cut (2 layers; 4 for RecurrentGemma, one
-    superblock and one tail layer: at 2 its ``divmod`` gives no
-    superblock and no attention), and on the reduced config (whose
-    local window of 64 the 4 forced steps after the 64-token prompt wrap
-    on the card).  The card's prefill launches the family's kernels once
-    a layer.  Returns {(arch, case): (K3, K2) launches}."""
+    Falcon-Mamba, RecurrentGemma, DeepSeek-V2-Lite and Kimi-K2 in fp32:
+    prefill logits, every teacher-forced decode step's logits and every
+    cache leaf (K/V and their positions, MLA's latent, the SSM's and the
+    RG-LRU's h and conv window), at full width with the depth cut (2
+    layers; 4 for RecurrentGemma, one superblock and one tail layer: at
+    2 its ``divmod`` gives no superblock and no attention; 4 for
+    DeepSeek, 1 dense and 3 MoE layers; Kimi at 2 with its experts cut to
+    16), and on the reduced config (whose local window of 64 the 4
+    forced steps after the 64-token prompt wrap on the card; Kimi's at
+    head dim 112).  A batch of 2, and MOE_FORCED_B for the MoE cases so
+    both expert products meet the CPU.  The card's prefill launches the
+    family's kernels once a layer.  Returns {(arch, case): (K3, K2)
+    launches}."""
     from repro_torch.common.pytree import tree_map
     from repro_torch.configs import get_arch
-    from repro_torch.models import build_model, make_batch
+    from repro_torch.models import build_model, make_batch, moe
 
     cases = []
-    for arch, depth in ((SERVE_ARCH, 2), (MAMBA_ARCH, 2), (RGEMMA_ARCH, 4)):
+    for arch, depth in ((SERVE_ARCH, 2), (MAMBA_ARCH, 2), (RGEMMA_ARCH, 4),
+                        (DEEPSEEK_ARCH, 4)):
         full = get_arch(arch)
         cases += [(f"full_width_{depth}_layers",
                    dataclasses.replace(full, n_layers=depth)),
                   ("reduced", full.reduced())]
+    # Kimi-K2 at its own head dim 112 (K3's fp32 hd-112 build on the
+    # card): reduced() recomputes head_dim = d_model / n_heads = 64, so
+    # it is set back; and at full width with 2 layers and the experts
+    # cut to 16 (top-8 of 16: 14.4 GB in fp32 on each side)
+    kimi = get_arch(KIMI_ARCH)
+    cases += [("reduced_hd112", dataclasses.replace(kimi.reduced(),
+                                                    head_dim=112)),
+              (KIMI_FULL_CASE, dataclasses.replace(kimi, n_layers=2,
+                                                   n_experts=16))]
     launches = {}
     for tag, cfg in cases:
         model = build_model(cfg)
         params = model.init(torch.Generator(device=DEV).manual_seed(0),
                             device=DEV)
         params_cpu = tree_map(lambda t: t.cpu(), params)
-        tokens = make_batch(cfg, 2, FORCED_PROMPT + FORCED_STEPS, seed=1,
-                            device="cpu")["tokens"]
+        batch = MOE_FORCED_B if cfg.family == "moe" else 2
+        if cfg.family == "moe" and (
+                moe._dispatch(batch * FORCED_PROMPT),
+                moe._dispatch(batch)) != (moe._gathered, moe._all_experts):
+            raise AssertionError("serve card vs cpu: the MoE cases would "
+                                 "not compare both expert products")
+        tokens = make_batch(cfg, batch, FORCED_PROMPT + FORCED_STEPS,
+                            seed=1, device="cpu")["tokens"]
         _reset_launches()
         got, cache_gpu = _teacher_forced(model, params, tokens, DEV)
         k3, k2 = _flash_launches(), _launches()[1]
@@ -2289,7 +2415,7 @@ def phase_serve_card_vs_cpu():
                 f"{cache_errs}, pos equal: {pos_equal}")
         emit({"phase": "serve_card_vs_cpu", "case": tag, "arch": cfg.name,
               "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-              "head_dim": cfg.head_dim, "batch": 2,
+              "head_dim": cfg.head_dim, "batch": batch,
               "prompt_len": FORCED_PROMPT, "forced_steps": FORCED_STEPS,
               "logits_rel_err_per_step": errs,
               "cache_rel_err": cache_errs, "pos_equal": pos_equal,
@@ -2302,22 +2428,29 @@ def phase_serve_card_vs_cpu():
 
 # the serve phases, which --only can run alone
 SERVE_PHASES = ("flash_vs_plain", "serve_path", "serve_path_bf16",
-                "serve_path_phi4", "serve_path_mamba", "serve_path_rgemma")
+                "serve_path_phi4", "serve_path_mamba", "serve_path_rgemma",
+                "serve_path_deepseek", "serve_path_kimi")
 # the phases --only can run alone (after the build), in this order
 ONLY_PHASES = ("main_path", "assoc_path", "oracle_path", "sweep_path",
                "paper_rows", "residency_path", "chaos_path",
                "resume_path") + SERVE_PHASES
-# the serve paths after serve_path: (phase, architecture, weights' dtype)
+# the serve paths after serve_path: (phase, architecture, weights' dtype,
+# the config's fields cut)
 SERVE_MODEL_PATHS = (
-    ("serve_path_bf16", SERVE_ARCH, torch.bfloat16),
+    ("serve_path_bf16", SERVE_ARCH, torch.bfloat16, None),
     # phi4-mini-3.8B in bf16 (~7.7 GB of weights): K3's hd-128 build
-    ("serve_path_phi4", PHI4_ARCH, torch.bfloat16),
+    ("serve_path_phi4", PHI4_ARCH, torch.bfloat16, None),
     # Falcon-Mamba-7B in bf16 (~14 GB of weights); each layer's scan
     # holds three 8.46 GB fp32 tensors
-    ("serve_path_mamba", MAMBA_ARCH, torch.bfloat16),
+    ("serve_path_mamba", MAMBA_ARCH, torch.bfloat16, None),
     # RecurrentGemma-9B in bf16 (~20.9 GB of weights): K2 at (8, 2016,
     # 4096) and K3's hd-256 build
-    ("serve_path_rgemma", RGEMMA_ARCH, torch.bfloat16))
+    ("serve_path_rgemma", RGEMMA_ARCH, torch.bfloat16, None),
+    # DeepSeek-V2-Lite-16B in bf16 (~31.4 GB of weights): MLA, no kernel
+    ("serve_path_deepseek", DEEPSEEK_ARCH, torch.bfloat16, None),
+    # Kimi-K2 at full width, 2 layers, in bf16 (~39.9 GB of weights):
+    # K3's hd-112 build
+    ("serve_path_kimi", KIMI_ARCH, torch.bfloat16, KIMI_CUT))
 
 
 def serve_phases(names):
@@ -2333,16 +2466,37 @@ def serve_phases(names):
             launches["serve_path"] = phase_serve_path(cfg, model, params,
                                                       tokens, init_s)
         del model, params, tokens
-    for phase, arch, dtype in SERVE_MODEL_PATHS:
+    for phase, arch, dtype, cut in SERVE_MODEL_PATHS:
         if phase not in names:
             continue
         torch.cuda.empty_cache()
-        cfg, model, params, tokens, init_s = _serve_setup(dtype, arch)
+        cfg, model, params, tokens, init_s = _serve_setup(dtype, arch, cut)
+        if arch == KIMI_ARCH:  # K3 at hd 112 on the served layer-0 q/k/v
+            qkv = _layer0_qkv(cfg, params, tokens)
+            pos = _arange_pos(SERVE_B, SERVE_PROMPT)
+            for dt in (torch.float32, torch.bfloat16):
+                fv[("kimi_model", dt)] = _flash_case(
+                    "kimi_model_qkv", *(t.to(dt) for t in qkv), pos, pos,
+                    True, 0, True)
+            del qkv
+            torch.cuda.empty_cache()
         launches[phase] = phase_serve_path(
             cfg, model, params, tokens, init_s, dtype,
-            sfx=phase[len("serve_path"):])
+            sfx=phase[len("serve_path"):], cut=cut)
         del model, params, tokens
     return fv, launches
+
+
+# the paths the kernels line counts each kernel's launches on
+LAUNCH_PATHS = ("main_path", "assoc_path", "oracle_path", "sweep_path",
+                "residency_path", "chaos_path", "resume_path") \
+    + SERVE_PHASES[1:]
+
+
+def _by_path(**launches) -> dict:
+    """{path: launches} over LAUNCH_PATHS (and any other path named), 0
+    where none is given."""
+    return {**{p: 0 for p in LAUNCH_PATHS}, **launches}
 
 
 def _flash_entry(name, rec, launches, by_path, design):
@@ -2361,13 +2515,7 @@ def _flash_entry(name, rec, launches, by_path, design):
         "dtype": rec["dtype"].split(".")[-1],
         "design_source": "src/repro_torch/kernels/flash_attention/csrc/"
                          + design,
-        "launches_by_path": {"main_path": 0, "assoc_path": 0,
-                             "oracle_path": 0, "sweep_path": 0,
-                             "residency_path": 0, "chaos_path": 0,
-                             "resume_path": 0, "serve_path": 0,
-                             "serve_path_bf16": 0, "serve_path_phi4": 0,
-                             "serve_path_mamba": 0, "serve_path_rgemma": 0,
-                             **by_path}}
+        "launches_by_path": _by_path(**by_path)}
 
 
 def main(argv=None) -> int:
@@ -2447,10 +2595,18 @@ def main(argv=None) -> int:
     flash_launches_phi4 = served["serve_path_phi4"][0]
     scan_launches_mamba = served["serve_path_mamba"][1]
     flash_launches_rgemma, scan_launches_rgemma = served["serve_path_rgemma"]
+    flash_launches_deepseek = served["serve_path_deepseek"][0]
+    flash_launches_kimi = served["serve_path_kimi"][0]
     # K3's fp32 hd-256 build runs on the card's fp32 RecurrentGemma at
-    # full width (serve_card_vs_cpu), once a superblock
-    flash_launches_hd256 = phase_serve_card_vs_cpu()[
-        (RGEMMA_ARCH, "full_width_4_layers")][0]
+    # full width (serve_card_vs_cpu), once a superblock; its fp32 hd-112
+    # build on Kimi-K2's two cases there, once a layer
+    card_cpu = phase_serve_card_vs_cpu()
+    flash_launches_hd256 = card_cpu[(RGEMMA_ARCH, "full_width_4_layers")][0]
+    flash_launches_hd112 = sum(card_cpu[(KIMI_ARCH, case)][0] for case in (
+        "reduced_hd112", KIMI_FULL_CASE))
+    if flash_launches_deepseek:
+        raise AssertionError(f"serve_path_deepseek launched K3 "
+                             f"{flash_launches_deepseek} times (MLA: 0)")
     main_rec = kv[((8, 256), torch.float32, True)]
     fold_rec = fv_fold["main_tick"]
     reps_rec = fv_fold["main_tick_reps"]
@@ -2473,15 +2629,9 @@ def main(argv=None) -> int:
         "call_ms": fold_rec["call_ms"],
         "shape": {"S": fold_rec["S"], "n_real": fold_rec["n_real"],
                   "leaves": fold_rec["leaves"]},
-        "launches_by_path": {"main_path": launches, "assoc_path": 0,
-                             "oracle_path": 0, "sweep_path": 0,
-                             "residency_path": res_fold,
-                             "chaos_path": chaos_fold,
-                             "resume_path": resume_fold,
-                             "serve_path": 0, "serve_path_bf16": 0,
-                             "serve_path_phi4": 0,
-                             "serve_path_mamba": 0,
-                             "serve_path_rgemma": 0}}, {
+        "launches_by_path": _by_path(
+            main_path=launches, residency_path=res_fold,
+            chaos_path=chaos_fold, resume_path=resume_fold)}, {
         # the same kernel with the chaos layer's per-slot fold counts
         # (reps, read on the card) at the main path's tick; chaos_path's
         # run (a) launches it once a tick
@@ -2497,14 +2647,8 @@ def main(argv=None) -> int:
         "call_ms": reps_rec["call_ms"],
         "shape": {"S": reps_rec["S"], "n_real": reps_rec["n_real"],
                   "folds": reps_rec["folds"]},
-        "launches_by_path": {"main_path": 0, "assoc_path": 0,
-                             "oracle_path": 0, "sweep_path": 0,
-                             "residency_path": 0, "chaos_path": chaos_fold,
-                             "resume_path": resume_fold_reps,
-                             "serve_path": 0, "serve_path_bf16": 0,
-                             "serve_path_phi4": 0,
-                             "serve_path_mamba": 0,
-                             "serve_path_rgemma": 0}}, {
+        "launches_by_path": _by_path(chaos_path=chaos_fold,
+                                     resume_path=resume_fold_reps)}, {
         # the per-row K1 at the first layer's shape (8, 256), held against
         # its plain version; oracle_path reaches it once a fold
         # (core.server.aggregate -> apply_feature_learning)
@@ -2516,14 +2660,9 @@ def main(argv=None) -> int:
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
         "library_ms": None,
-        "launches_by_path": {"main_path": 0, "assoc_path": 0,
-                             "oracle_path": k1_oracle, "sweep_path": 0,
-                             "residency_path": res_k1,
-                             "chaos_path": chaos_k1, "resume_path": 0,
-                             "serve_path": 0, "serve_path_bf16": 0,
-                             "serve_path_phi4": 0,
-                             "serve_path_mamba": 0,
-                             "serve_path_rgemma": 0}}, {
+        "launches_by_path": _by_path(
+            oracle_path=k1_oracle, residency_path=res_k1,
+            chaos_path=chaos_k1)}, {
         "name": "linear_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
         "replaces": "src/repro/kernels/linear_scan/kernel.py:56",
@@ -2532,15 +2671,9 @@ def main(argv=None) -> int:
         "bound_ms": scan_rec["bound_ms"], "bound_by": scan_rec["bound_by"],
         "library_ms": scan_rec["library_ms"],
         "library": scan_rec["library"], "shape": scan_rec["shape"],
-        "launches_by_path": {"main_path": 0, "assoc_path": scan_launches,
-                             "oracle_path": 0, "sweep_path": 0,
-                             "residency_path": res_scan,
-                             "chaos_path": chaos_scan,
-                             "resume_path": resume_scan,
-                             "serve_path": 0, "serve_path_bf16": 0,
-                             "serve_path_phi4": 0,
-                             "serve_path_mamba": 0,
-                             "serve_path_rgemma": 0}},
+        "launches_by_path": _by_path(
+            assoc_path=scan_launches, residency_path=res_scan,
+            chaos_path=chaos_scan, resume_path=resume_scan)},
         # K3 at the serve path's shape, N(0, 1) inputs: the fp32 design
         # on serve_path, the bf16 (tensor-core) design on serve_path_bf16
         _flash_entry("flash_attention", fv[("main", torch.float32)],
@@ -2568,13 +2701,8 @@ def main(argv=None) -> int:
         "bound_by": mamba_rec["bound_by"],
         "library_ms": mamba_rec["library_ms"],
         "library": mamba_rec["library"], "shape": mamba_rec["shape"],
-        "launches_by_path": {"main_path": 0, "assoc_path": 0,
-                             "oracle_path": 0, "sweep_path": 0,
-                             "residency_path": 0, "chaos_path": 0,
-                             "resume_path": 0, "serve_path": 0,
-                             "serve_path_bf16": 0, "serve_path_phi4": 0,
-                             "serve_path_mamba": scan_launches_mamba,
-                             "serve_path_rgemma": 0}}, {
+        "launches_by_path": _by_path(
+            serve_path_mamba=scan_launches_mamba)}, {
         # K2 at RecurrentGemma-9B's RG-LRU scan, (8, 2016, 4096) fp32:
         # serve_path_rgemma launches it once an RG-LRU layer of the prefill
         "name": "linear_scan_rglru", "route": "cuda",
@@ -2587,13 +2715,8 @@ def main(argv=None) -> int:
         "bound_by": rglru_rec["bound_by"],
         "library_ms": rglru_rec["library_ms"],
         "library": rglru_rec["library"], "shape": rglru_rec["shape"],
-        "launches_by_path": {"main_path": 0, "assoc_path": 0,
-                             "oracle_path": 0, "sweep_path": 0,
-                             "residency_path": 0, "chaos_path": 0,
-                             "resume_path": 0, "serve_path": 0,
-                             "serve_path_bf16": 0, "serve_path_phi4": 0,
-                             "serve_path_mamba": 0,
-                             "serve_path_rgemma": scan_launches_rgemma}},
+        "launches_by_path": _by_path(
+            serve_path_rgemma=scan_launches_rgemma)},
         # K3's head-dim-256 instances at RecurrentGemma-9B's layer 0 (16
         # heads over 1 KV head, window 2048, which 2016 keys do not bind):
         # bf16 on serve_path_rgemma once a superblock of the prefill, fp32
@@ -2606,6 +2729,19 @@ def main(argv=None) -> int:
         _flash_entry("flash_attention_hd256",
                      fv[(RGEMMA_CASE, torch.float32)], flash_launches_hd256,
                      {"serve_card_vs_cpu": flash_launches_hd256},
+                     "fa_f32.cuh"),
+        # K3's head-dim-112 instances at Kimi-K2's layer 0 (64 heads over 8
+        # KV heads): bf16 on serve_path_kimi once a layer of the prefill
+        # (serve_path_deepseek, MLA, launches none), fp32 on
+        # serve_card_vs_cpu's Kimi cases
+        _flash_entry("flash_attention_bf16_hd112",
+                     fv[(KIMI_CASE, torch.bfloat16)], flash_launches_kimi,
+                     {"serve_path_kimi": flash_launches_kimi,
+                      "serve_path_deepseek": flash_launches_deepseek},
+                     "fa_bf16.cuh"),
+        _flash_entry("flash_attention_hd112",
+                     fv[(KIMI_CASE, torch.float32)], flash_launches_hd112,
+                     {"serve_card_vs_cpu": flash_launches_hd112},
                      "fa_f32.cuh")]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {

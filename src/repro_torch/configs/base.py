@@ -2,8 +2,9 @@
 
 ``ModelConfig`` keeps the JAX package's field names
 (``repro.configs.base``) for the families the port runs: the paper-scale
-LSTM / CNN, the dense transformer trunk, the Mamba-1 SSM and the RG-LRU
-hybrid.
+LSTM / CNN, the dense transformer trunk, the MoE family (with or
+without DeepSeek's multi-head latent attention), the Mamba-1 SSM and the
+RG-LRU hybrid.
 Architectures register in ``ARCHS`` by name and ``get_arch`` builds a
 fresh config; ``reduced()`` derives the same family at CPU-test size,
 exactly as the JAX package's does for these fields.
@@ -23,7 +24,7 @@ ARCHS: Registry["ModelConfig"] = Registry("architecture")
 class ModelConfig:
     # identity
     name: str
-    family: str  # dense | ssm | hybrid | lstm | cnn
+    family: str  # dense | moe | ssm | hybrid | lstm | cnn
     citation: str = ""
 
     # transformer trunk
@@ -39,6 +40,23 @@ class ModelConfig:
     act: str = "swiglu"  # swiglu | gelu
     tie_embeddings: bool = False
     rope_theta: float = 10000.0
+
+    # MoE: routed experts (top_k of n_experts), shared experts (one MLP of
+    # width n_shared_experts * d_ff_expert), the leading dense layers.
+    # The port runs the dropless combine only, so it has no capacity
+    n_experts: int = 0
+    n_shared_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    first_dense_layers: int = 0
+
+    # MLA (DeepSeek-style multi-head latent attention), q projected at
+    # full rank as in V2-Lite: the port has no q compression
+    use_mla: bool = False
+    kv_lora_rank: int = 0
+    qk_nope_head_dim: int = 0
+    qk_rope_head_dim: int = 0
+    v_head_dim: int = 0
 
     # SSM (Mamba-1): state size N, d_inner = ssm_expand * d_model, the
     # causal conv's taps, and dt's rank (derived: ceil(d_model / 16))
@@ -66,7 +84,7 @@ class ModelConfig:
     hidden: int = 0  # LSTM hidden width / CNN conv channels
 
     def __post_init__(self):
-        if self.n_heads and not self.head_dim:
+        if self.n_heads and not self.head_dim and not self.use_mla:
             object.__setattr__(self, "head_dim", self.d_model // self.n_heads)
         if self.family == "ssm" and not self.ssm_dt_rank and self.d_model:
             object.__setattr__(self, "ssm_dt_rank",
@@ -88,9 +106,17 @@ class ModelConfig:
             n_layers=min(self.n_layers, min_layers) if self.n_layers else 0,
             d_model=min(self.d_model, 256) if self.d_model else 0,
             d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            d_ff_expert=min(self.d_ff_expert, 128) if self.d_ff_expert else 0,
             vocab_size=min(self.vocab_size, 512) if self.vocab_size else 0,
             n_heads=min(self.n_heads, 4) if self.n_heads else 0,
             n_kv_heads=min(self.n_kv_heads, 2) if self.n_kv_heads else 0,
+            n_experts=min(self.n_experts, 4) if self.n_experts else 0,
+            top_k=min(self.top_k, 2) if self.top_k else 0,
+            kv_lora_rank=min(self.kv_lora_rank, 64) if self.kv_lora_rank
+            else 0,
+            qk_nope_head_dim=min(self.qk_nope_head_dim, 32),
+            qk_rope_head_dim=min(self.qk_rope_head_dim, 16),
+            v_head_dim=min(self.v_head_dim, 32),
             lru_width=min(self.lru_width, 256) if self.lru_width else 0,
             local_window=(min(self.local_window, 64)
                           if self.local_window else 0),
@@ -99,7 +125,7 @@ class ModelConfig:
             hidden=min(self.hidden, 64) if self.hidden else 0,
         )
         # recompute derived head_dim for the reduced trunk
-        if r.n_heads:
+        if r.n_heads and not r.use_mla:
             object.__setattr__(r, "head_dim", r.d_model // r.n_heads)
         if r.family == "ssm":
             object.__setattr__(r, "ssm_dt_rank", math.ceil(r.d_model / 16))

@@ -10,7 +10,13 @@
 //   wgmma's canonical swizzled layout: hd split into column blocks of one
 //   swizzle atom (64 elements, 128-byte swizzle; 32 elements and 64-byte
 //   swizzle at hd 32), rows of one atom each, 16-byte chunks XOR-ed by
-//   the row.  The same bytes are Q and K as K-major operands and V as
+//   the row.  A head dim that is not a whole number of atoms (Kimi-K2's
+//   112) is padded in shared memory only, to HDP = 128: cp.async loads
+//   the 112 real columns and zero-fills the rest (src-size 0, no global
+//   read), S = Q K^T takes hd / 16 = 7 k-steps over the real columns, O
+//   += P V runs over all 128 (the padded V columns are 0) and only the
+//   real 112 are written back (the predicates compile only at such a
+//   head dim).  The same bytes are Q and K as K-major operands and V as
 //   the MN-major ("transposed") B operand of O += P V, so nothing is
 //   transposed.  Q and the K/V tiles arrive by cp.async, K/V in a ring of
 //   three stages, two tiles ahead.  Rows past Sq or Skv are zero-filled.
@@ -45,17 +51,22 @@ namespace fa {
 
 template <int HD>
 struct B16Cfg {
+  static_assert(HD % 16 == 0, "whole k-steps of Q K^T");
   static constexpr int BQ = 128;  // two warpgroups of 64 rows
   static constexpr int kThreads = 256;
   static constexpr int AW = HD == 32 ? 32 : 64;  // swizzle atom, elements
+  static constexpr int HDP = (HD + AW - 1) / AW * AW;  // padded in smem
+  // only a padded head dim compiles the padding's predicates: the
+  // instances at whole atoms build as they did without them
+  static constexpr bool kPad = HDP != HD;
   static constexpr int CPA = AW / 8;             // 16-byte chunks an atom row
-  static constexpr int NCB = HD / AW;            // column blocks
+  static constexpr int NCB = HDP / AW;           // column blocks
   static constexpr int kRowBytes = AW * 2;       // one atom row: 64 or 128
-  static constexpr int kQ = BQ * HD, kKV = kBK * HD;  // bf16 elements
+  static constexpr int kQ = BQ * HDP, kKV = kBK * HDP;  // bf16 elements
   // K/V stages: a ring of three, two tiles ahead; at hd 256 three
   // stages of 64 x 256 K and V (192 KB) beside Q (64 KB) exceed the
   // 227 KB a block may take, so two (194 KB in all), one tile ahead
-  static constexpr int NS = HD == 256 ? 2 : 3;
+  static constexpr int NS = HDP == 256 ? 2 : 3;
   // 1024 bytes of slack to align the atoms; Q, K and V (NS stages
   // each), then NS x 64 key positions
   static constexpr size_t kSmem =
@@ -88,20 +99,22 @@ __device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo) {
          (static_cast<uint64_t>(kSbo >> 4) << 32) | (kMode << 62);
 }
 
-// Rows [row0, row0 + R) of a (rows, stride) bf16 matrix -> the swizzled
-// tile by cp.async; rows past n_rows are zero-filled.
+// Rows [row0, row0 + R) of a (rows, stride) bf16 matrix, HD wide -> the
+// swizzled tile, HDP wide, by cp.async; rows past n_rows and the padding
+// columns past HD are zero-filled.
 template <int HD, int R, int T>
 __device__ __forceinline__ void wg_load(__nv_bfloat16* dst,
                                         const __nv_bfloat16* src,
                                         size_t stride, int row0,
                                         int n_rows) {
-  constexpr int CH = HD / 8;
+  constexpr int CH = B16Cfg<HD>::HDP / 8;
   static_assert(R * CH % T == 0, "whole passes of the block");
 #pragma unroll
   for (int i = 0; i < R * CH / T; ++i) {
     const int idx = i * T + static_cast<int>(threadIdx.x);
     const int r = idx / CH, c = idx % CH;
-    const bool ok = row0 + r < n_rows;
+    bool ok = row0 + r < n_rows;
+    if constexpr (B16Cfg<HD>::kPad) ok = ok && c < HD / 8;
     const __nv_bfloat16* g =
         ok ? src + static_cast<size_t>(row0 + r) * stride + 8 * c : src;
     cp_async16(dst + 8 * wg_chunk<HD, R>(r, c), g, ok ? 16 : 0);
@@ -212,12 +225,12 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
 }
 
 template <int HD>
-__global__ void __launch_bounds__(256, HD >= 128 ? 1 : 2)
+__global__ void __launch_bounds__(256, B16Cfg<HD>::HDP >= 128 ? 1 : 2)
 fa_fwd_bf16(const Args a) {
   using C = B16Cfg<HD>;
   constexpr int BQ = C::BQ, AW = C::AW, NCB = C::NCB, NS = C::NS;
-  constexpr int T = C::kThreads, CH = HD / 8;
-  constexpr int KQ = HD / 16;         // k-steps of Q K^T
+  constexpr int T = C::kThreads, CH = C::HDP / 8;  // chunks a smem row
+  constexpr int KQ = HD / 16;         // k-steps of Q K^T (real columns)
   constexpr int NL = kBK * CH / T;    // 16-byte chunks of a K tile a thread
   static_assert(kBK * CH % T == 0, "whole passes of the block");
   constexpr uint32_t kTileBytes = kBK * C::kRowBytes;  // one column block
@@ -264,16 +277,19 @@ fa_fwd_bf16(const Args a) {
   const int w_hi = min(w_lo + 64, Sq) - 1;
 
   // this thread's chunks of a K (and V) tile: rows, shared offsets,
-  // global offsets
+  // global offsets, and (padded head dims) whether the chunk is a real
+  // column
   int ld_r[NL];
   uint32_t ld_dst[NL];
   size_t ld_src[NL];
+  bool ld_real[NL];  // unused unless C::kPad
 #pragma unroll
   for (int i = 0; i < NL; ++i) {
     const int idx = i * T + tid, r = idx / CH, c = idx % CH;
     ld_r[i] = r;
     ld_dst[i] = 16 * wg_chunk<HD, kBK>(r, c);
     ld_src[i] = r * kv_stride + 8 * c;
+    ld_real[i] = c < HD / 8;
   }
   const uint32_t k_base = smem_addr(Ks), v_base = smem_addr(Vs);
   auto load_kv = [&](int kt, int st) {
@@ -281,7 +297,8 @@ fa_fwd_bf16(const Args a) {
     const size_t off = static_cast<size_t>(k0) * kv_stride;
 #pragma unroll
     for (int i = 0; i < NL; ++i) {
-      const bool ok = k0 + ld_r[i] < Skv;
+      bool ok = k0 + ld_r[i] < Skv;
+      if constexpr (C::kPad) ok = ok && ld_real[i];
       cp_async16_s(k_base + st * kStageBytes + ld_dst[i],
                    ok ? kb + off + ld_src[i] : kb, ok ? 16 : 0);
       cp_async16_s(v_base + st * kStageBytes + ld_dst[i],
@@ -490,9 +507,11 @@ fa_fwd_bf16(const Args a) {
     for (int n = 0; n < NCB; ++n)
 #pragma unroll
       for (int j = 0; j < AW / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + n * AW + 8 * j + 2 * tq) =
-            __floats2bfloat162_rn(o[n][4 * j + 2 * hh] / den,
-                                  o[n][4 * j + 2 * hh + 1] / den);
+        if (!C::kPad || n * AW + 8 * j < HD)  // real columns only
+          *reinterpret_cast<__nv_bfloat162*>(orow + n * AW + 8 * j +
+                                             2 * tq) =
+              __floats2bfloat162_rn(o[n][4 * j + 2 * hh] / den,
+                                    o[n][4 * j + 2 * hh + 1] / den);
   }
 }
 

@@ -2,7 +2,7 @@
 // the outer product of a fast SGEMM so shared memory does not limit it.
 //
 // One block of 256 threads per (BQ query rows, head, batch); BQ = 128
-// (64 at hd 128 and 256, for shared memory).  Thread (ty, tx), ty = 2 warp +
+// (64 at hd 112, 128 and 256, for shared memory).  Thread (ty, tx), ty = 2 warp +
 // lane / 16 and tx = lane % 16, owns RM = BQ / 16 consecutive query rows
 // ty RM + i and, per 64-key tile, the 4 keys 4 tx + j.
 //
@@ -16,7 +16,11 @@
 //   to ~800) any other order moves a score by ulps of 800.
 // * P is stored transposed (Pt[key][row]), so O += P V is the same outer
 //   product against V's contiguous rows: RM / 4 + HD / 64 loads per key
-//   for RM HD / 16 FMAs.
+//   for RM HD / 16 FMAs.  A thread's HD / 16 output columns are runs of
+//   4 at 4 tx + 64 j; a head dim that is not a multiple of 64 (Kimi-K2's
+//   112 = 64 + 48) puts its last HD % 64 columns one a thread at
+//   64 (HD / 64) + 16 i + tx, 3 of them at 112, read and written as
+//   single floats, so a half-warp still touches 16 contiguous ones.
 // * The next K tile is loaded into registers and the next V tile by
 //   cp.async into the other half of a double buffer while the current
 //   tile is in use; two __syncthreads a tile.  At hd 256 the double
@@ -41,10 +45,13 @@ namespace fa {
 
 template <int HD>
 struct F32Cfg {
-  static constexpr int BQ = HD >= 128 ? 64 : 128;
+  static_assert(HD % 16 == 0, "16 output columns a row of threads");
+  static constexpr int BQ = HD > 64 ? 64 : 128;
   static constexpr int kThreads = 256;
   static constexpr int RM = BQ / 16;  // query rows per thread
   static constexpr int NC = HD / 16;  // output columns per thread
+  // of which in runs of 4 (float4s): all of them unless HD % 64 != 0
+  static constexpr int NV4 = HD >= 64 ? 4 * (HD / 64) : 0;
   static constexpr int KREG = HD / 16;  // float4s of K per thread per tile
   static constexpr int VB = HD == 256 ? 1 : 2;  // V tile buffers
   // shared floats: Qt, Kt, Vs (VB buffers), Pt; then BQ int positions
@@ -63,12 +70,16 @@ __device__ __forceinline__ int hdm_index(int d, int n) {
 }
 
 // Output column of a thread's e-th value (e < HD / 16): runs of 4 at
-// 4 tx + 64 (e / 4) for hd >= 64, pairs at 2 tx for hd 32, so a warp's
-// loads of a V row and its stores of an output row are contiguous.
+// 4 tx + 64 (e / 4) for the first NV4 = 4 (HD / 64) values, then (hd
+// 112) single columns at 64 (HD / 64) + 16 (e - NV4) + tx; pairs at 2 tx
+// for hd 32.  A warp's loads of a V row and its stores of an output row
+// are contiguous.
 template <int HD>
 __device__ __forceinline__ int f32_col(int tx, int e) {
-  if constexpr (HD >= 64) return 64 * (e / 4) + 4 * tx + (e % 4);
-  return 2 * tx + e;
+  constexpr int NV4 = F32Cfg<HD>::NV4;
+  if constexpr (HD < 64) return 2 * tx + e;
+  if (e < NV4) return 64 * (e / 4) + 4 * tx + (e % 4);
+  return 64 * (HD / 64) + 16 * (e - NV4) + tx;
 }
 
 // Rows [row0, row0 + NR) of a (rows, stride) fp32 matrix, HD wide, in
@@ -133,10 +144,11 @@ __device__ __forceinline__ void f32_load_v(float* dst, const float* vb,
 }
 
 template <int HD>
-__global__ void __launch_bounds__(256, HD >= 128 ? 1 : 2)
+__global__ void __launch_bounds__(256, HD > 64 ? 1 : 2)
 fa_fwd_f32(const Args a) {
   using C = F32Cfg<HD>;
   constexpr int BQ = C::BQ, RM = C::RM, NC = C::NC, VB = C::VB;
+  constexpr int NV4 = C::NV4;
   using QStage = F32Stage<HD, BQ>;
   using KStage = F32Stage<HD, kBK>;
   extern __shared__ float4 smem4[];
@@ -326,11 +338,13 @@ fa_fwd_f32(const Args a) {
           const float* vrow = vt + key * HD;
           if constexpr (HD >= 64) {
 #pragma unroll
-            for (int e = 0; e < NC; e += 4) {
+            for (int e = 0; e < NV4; e += 4) {
               const float4 t = *reinterpret_cast<const float4*>(
                   vrow + f32_col<HD>(tx, e));
               vv[e] = t.x; vv[e + 1] = t.y; vv[e + 2] = t.z; vv[e + 3] = t.w;
             }
+#pragma unroll
+            for (int e = NV4; e < NC; ++e) vv[e] = vrow[f32_col<HD>(tx, e)];
           } else {
             const float2 t =
                 *reinterpret_cast<const float2*>(vrow + f32_col<HD>(tx, 0));
@@ -366,10 +380,13 @@ fa_fwd_f32(const Args a) {
                   ((static_cast<size_t>(b) * Sq + r) * a.H + h) * HD;
     if constexpr (HD >= 64) {
 #pragma unroll
-      for (int e = 0; e < NC; e += 4)
+      for (int e = 0; e < NV4; e += 4)
         *reinterpret_cast<float4*>(orow + f32_col<HD>(tx, e)) =
             make_float4(acc[i][e] / den, acc[i][e + 1] / den,
                         acc[i][e + 2] / den, acc[i][e + 3] / den);
+#pragma unroll
+      for (int e = NV4; e < NC; ++e)
+        orow[f32_col<HD>(tx, e)] = acc[i][e] / den;
     } else {
       *reinterpret_cast<float2*>(orow + f32_col<HD>(tx, 0)) =
           make_float2(acc[i][0] / den, acc[i][1] / den);

@@ -56,11 +56,13 @@
 //   cp.async while the current one is used.
 //
 // Both mask only the tiles that cross the diagonal, the window edge or
-// Skv.  Head dims 32, 64, 128 and 256 (RecurrentGemma's): at 256 the
-// bf16 ring has two stages and the fp32 V one buffer, to fit shared
-// memory (fa_bf16.cuh, fa_f32.cuh).  Left for later: TMA and warp
-// specialisation for bf16, a split-KV variant for one-token decode, and
-// other head dims (kimi's 112).
+// Skv.  Head dims 32, 64, 112 (Kimi-K2's), 128 and 256 (RecurrentGemma's):
+// at 256 the bf16 ring has two stages and the fp32 V one buffer, to fit
+// shared memory; at 112 the bf16 tiles are zero-padded to 128 columns in
+// shared memory (never in device memory) and the fp32 design maps its 7
+// output columns a thread as 4 + 3 (fa_bf16.cuh, fa_f32.cuh).  Left for
+// later: TMA and warp specialisation for bf16, a split-KV variant for
+// one-token decode, and other head dims.
 
 #include "fa_bf16.cuh"
 #include "fa_common.cuh"
@@ -95,8 +97,8 @@ int launch_hd(int dtype, int B, const fa::Args& a, cudaStream_t s) {
 
 }  // namespace
 
-// C entry for ctypes.  dtype: 0 = fp32, 1 = bf16; hd in {32, 64, 128,
-// 256}; H a multiple of KV; every pointer 16-byte aligned.  Launches on
+// C entry for ctypes.  dtype: 0 = fp32, 1 = bf16; hd in {32, 64, 112,
+// 128, 256}; H a multiple of KV; every pointer 16-byte aligned.  Launches on
 // `stream` (PyTorch's current stream), does not synchronise, and returns
 // cudaGetLastError() so a refused launch surfaces in the caller.
 extern "C" int flash_attention_launch(const void* q, const void* k,
@@ -116,6 +118,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   switch (hd) {
     case 32: return launch_hd<32>(dtype, B, a, s);
     case 64: return launch_hd<64>(dtype, B, a, s);
+    case 112: return launch_hd<112>(dtype, B, a, s);
     case 128: return launch_hd<128>(dtype, B, a, s);
     case 256: return launch_hd<256>(dtype, B, a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

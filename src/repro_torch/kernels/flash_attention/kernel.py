@@ -20,7 +20,7 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 256)
 
 
 def _entry():
@@ -35,19 +35,8 @@ def _entry():
 
 
 def _check(q, k, v, q_positions, k_positions) -> None:
-    ts = {"q": q, "k": k, "v": v, "q_positions": q_positions,
-          "k_positions": k_positions}
-    for name, t in ts.items():
-        if not t.is_cuda:
-            raise ValueError(f"flash_attention_kernel needs CUDA tensors; "
-                             f"{name} is on {t.device}")
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_attention_kernel takes contiguous "
-                             f"tensors; {name} is not")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} is not 16-byte aligned")
+    """Types and shapes first (the head dim among them), then devices,
+    contiguity and alignment."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             "flash_attention_kernel takes q, k, v of one dtype, float32 or "
@@ -77,6 +66,19 @@ def _check(q, k, v, q_positions, k_positions) -> None:
             or max(Sq, Skv, KV * G) >= 2 ** 31:
         raise ValueError(f"shape q {tuple(q.shape)}, k {tuple(k.shape)} "
                          "exceeds the kernel's grid or 32-bit indices")
+    ts = {"q": q, "k": k, "v": v, "q_positions": q_positions,
+          "k_positions": k_positions}
+    for name, t in ts.items():
+        if not t.is_cuda:
+            raise ValueError(f"flash_attention_kernel needs CUDA tensors; "
+                             f"{name} is on {t.device}")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_kernel takes contiguous "
+                             f"tensors; {name} is not")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -11,10 +11,13 @@ then ``gen`` one-token decode steps, each sampled greedily (temperature
 ``device="cpu"`` / ``--device cpu``; without a card it raises.  On the
 card every prefill launches one kernel per layer, the flash-attention
 kernel (K3) for a dense model, the linear-recurrence kernel (K2, the
-selective scan) for Falcon-Mamba (``--arch falcon-mamba-7b``), and K2
+selective scan) for Falcon-Mamba (``--arch falcon-mamba-7b``), K2
 for each RG-LRU layer and K3 for each local-attention layer of
-RecurrentGemma (``--arch recurrentgemma-9b``); decode launches neither,
-and the stats count both.  Computes in
+RecurrentGemma (``--arch recurrentgemma-9b``), and K3 for each layer of
+a GQA MoE model (``--arch kimi-k2-1t-a32b``); an MLA model (``--arch
+deepseek-v2-lite-16b``) launches none, its prefill attention is plain
+PyTorch as in the JAX package.  Decode launches neither kernel, and the
+stats count both.  Computes in
 the weights' dtype (``Model.init(..., dtype=torch.bfloat16)`` serves in
 bf16, K3's tensor-core design); ``main`` serves fp32 with full-fp32
 matrix products (TF32 off).
@@ -36,9 +39,15 @@ from repro_torch.kernels.linear_scan.kernel import linear_scan_kernel
 from repro_torch.models import Model, build_model, make_batch
 
 
-# the kernels each family's prefill launches on the card
+# the kernels each family's prefill launches on the card (an MLA model's
+# none)
 _FAMILY_KERNELS = {"dense": ("flash_attention",), "ssm": ("linear_scan",),
-                   "hybrid": ("linear_scan", "flash_attention")}
+                   "hybrid": ("linear_scan", "flash_attention"),
+                   "moe": ("flash_attention",)}
+
+
+def family_kernels(cfg) -> Tuple[str, ...]:
+    return () if cfg.use_mla else _FAMILY_KERNELS[cfg.family]
 
 
 def _sample(logits: torch.Tensor, temperature: float,
@@ -74,7 +83,7 @@ def serve(model: Model, params, tokens, gen: int, *,
     B, S = tokens.shape
     on_card = dev.type == "cuda"
     if on_card:  # build the family's kernels outside the timed region
-        for name in _FAMILY_KERNELS[model.cfg.family]:
+        for name in family_kernels(model.cfg):
             build.load(name)
 
     def sync():

@@ -1,14 +1,17 @@
-"""GQA attention for the dense trunk: prefill through flash attention,
-and fixed-shape KV-cache decode.
+"""Attention: GQA (prefill through flash attention, fixed-shape KV-cache
+decode) and DeepSeek-style multi-head latent attention (MLA).
 
 Mirrors ``repro.models.attention`` on one card: the JAX code's
 ``DistContext`` argument is gone (its ``constrain`` is a no-op off a
 mesh) and its ``attention_impl`` switch becomes the port's dispatch — a
 CUDA tensor runs the hand-written flash-attention kernel (K3), a CPU
 tensor its plain version.  One-token decode attention is plain PyTorch,
-as it is plain jnp in the JAX package.  Cross-attention
-(``kv_override``), M-RoPE positions and MLA belong to later slices and
-raise by name.
+as it is plain jnp in the JAX package.  MLA's prefill runs
+``blocked_attention``, plain PyTorch on every device, as every JAX
+branch does (its q/k head dim differs from its v head dim, and K3 never
+sees it); its decode is weight-absorbed, in the latent space.
+Cross-attention (``kv_override``) and M-RoPE positions belong to later
+slices and raise by name.
 """
 from __future__ import annotations
 
@@ -24,6 +27,70 @@ from repro_torch.models.spec import ParamDef
 
 NEG_INF = -1e30
 INT_SENTINEL = 2 ** 31 - 1
+
+
+def _pick_block(s_kv: int, target: int = 1024) -> int:
+    b = min(target, s_kv)
+    while s_kv % b and b > 1:
+        b //= 2
+    if b >= 128 or b == s_kv:
+        return max(b, 1)
+    # awkward sequence length (no power-of-2 divisor >= 128): prefer one
+    # big block over hundreds of tiny steps
+    if s_kv <= 4 * target:
+        return s_kv
+    for cand in range(min(target, s_kv), 127, -1):
+        if s_kv % cand == 0:
+            return cand
+    return s_kv
+
+
+def blocked_attention(q, k, v, *, q_positions, k_positions,
+                      causal: bool = True, window: int = 0,
+                      scale: Optional[float] = None,
+                      block_size: int = 1024):
+    """Online-softmax attention over KV blocks, in fp32: q (B, Sq, KV, G,
+    hd), k (B, Skv, KV, hd), v (B, Skv, KV, vd) (the value dim may differ
+    from the key dim), positions (B, Sq) / (B, Skv) int -> (B, Sq, KV, G,
+    vd) in q's dtype.  The JAX function's block choice and arithmetic,
+    block by block; each block's scores are masked, exponentiated and
+    rescaled in place."""
+    B, Sq, KV, G, hd = q.shape
+    S_kv = k.shape[1]
+    vd = v.shape[-1]
+    blk = _pick_block(S_kv, block_size)
+    if scale is None:
+        scale = 1.0 / math.sqrt(hd)
+    q32 = q.to(torch.float32)
+    acc = torch.zeros((B, Sq, KV, G, vd), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((B, Sq, KV, G), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, Sq, KV, G), dtype=torch.float32, device=q.device)
+    qp = q_positions.to(torch.int64)[:, :, None, None, None]
+    for t0 in range(0, S_kv, blk):
+        ki = k[:, t0:t0 + blk].to(torch.float32)
+        vi = v[:, t0:t0 + blk].to(torch.float32)
+        kp = k_positions[:, t0:t0 + blk].to(torch.int64)[:, None, None,
+                                                          None, :]
+        s = torch.einsum("bqkgd,btkd->bqkgt", q32, ki).mul_(scale)
+        mask = torch.ones((1, 1, 1, 1, 1), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask = mask & (kp <= qp)
+        if window > 0:
+            mask = mask & ((qp - kp) < window)
+        s.masked_fill_(~mask, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = s.sub_(m_new[..., None]).exp_()
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        pv = torch.einsum("bqkgt,btkd->bqkgd", p, vi)
+        acc = acc * corr[..., None] + pv
+        m = m_new
+        del s, p, pv  # before the next block's scores are formed
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype)
 
 
 def decode_attention(q, k_cache, v_cache, k_positions, q_position, *,
@@ -184,3 +251,116 @@ def gqa_decode(params, x, cache, cur_index, cfg: ModelConfig, *,
     if defer_write:
         return y, (k[:, 0], v[:, 0])
     return y, {"k": k_cache, "v": v_cache, "pos": pos_cache}
+
+
+# ---------------------------------------------------------------------------
+# MLA: DeepSeek-V2 multi-head latent attention
+# ---------------------------------------------------------------------------
+
+
+def mla_spec(cfg: ModelConfig):
+    d, H, r = cfg.d_model, cfg.n_heads, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {"wq": ParamDef((d, H, dn + dr), init="fan_in"),
+            "w_dkv": ParamDef((d, r), init="fan_in"),
+            "w_kr": ParamDef((d, dr), init="fan_in"),
+            "kv_norm": ParamDef((r,), init="ones"),
+            "w_uk": ParamDef((r, H, dn), init="fan_in"),
+            "w_uv": ParamDef((r, H, dv), init="fan_in"),
+            "wo": ParamDef((H, dv, d), init="fan_in")}
+
+
+def _mla_compress(params, x):
+    """x -> (normalized latent c_kv (B, S, r), rotary key k_r (B, S,
+    dr)), unrotated."""
+    c_kv = x @ params["w_dkv"]
+    c32 = c_kv.to(torch.float32)
+    c_kv = (c32 * torch.rsqrt(torch.mean(torch.square(c32), -1,
+                                         keepdim=True) + 1e-6)
+            * params["kv_norm"].to(torch.float32)).to(x.dtype)
+    return c_kv, x @ params["w_kr"]
+
+
+def mla_forward(params, x, cfg: ModelConfig, *, positions=None,
+                causal: bool = True, window: int = 0,
+                return_kv: bool = False):
+    """x (B, S, d) -> (B, S, d); with ``return_kv`` also (c_kv, the
+    rotated k_r, positions) for the latent cache.  Full-rank q and k
+    (the shared rotary key broadcast to every head) go through
+    ``blocked_attention`` with the scale of the q/k head dim."""
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=x.device).expand(B, S)
+    q = torch.einsum("bsd,dhe->bshe", x, params["wq"])
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    c_kv, k_r = _mla_compress(params, x)
+    k_r = rope(k_r[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    k_nope = torch.einsum("bsr,rhe->bshe", c_kv, params["w_uk"])
+    vh = torch.einsum("bsr,rhe->bshe", c_kv, params["w_uv"])
+    qf = torch.cat([q_nope, q_rope], -1)
+    kf = torch.cat([k_nope, k_r[:, :, None, :].expand(B, S, H, dr)], -1)
+    out = blocked_attention(qf.reshape(B, S, H, 1, dn + dr), kf, vh,
+                            q_positions=positions, k_positions=positions,
+                            causal=causal, window=window,
+                            scale=1.0 / math.sqrt(dn + dr))
+    y = torch.einsum("bshe,hed->bsd", out.reshape(B, S, H, dv),
+                     params["wo"])
+    if return_kv:
+        return y, (c_kv, k_r, positions)
+    return y
+
+
+def mla_init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                   device=None):
+    """The decode cache holds the compressed latent and the rotary key:
+    the paper's memory win."""
+    return {
+        "c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                            device=device),
+        "k_r": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                           dtype=dtype, device=device),
+        "pos": torch.full((batch, max_len), INT_SENTINEL, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def mla_decode(params, x, cache, cur_index, cfg: ModelConfig):
+    """Weight-absorbed one-token MLA: x (B, 1, d), cur_index (B,) int.
+    The new latent and rotary key go into their slots of ``cache`` in
+    place (the JAX code returns a new cache) before the token attends
+    over it in the latent space.  Returns (y (B, 1, d), cache)."""
+    B = x.shape[0]
+    dn = cfg.qk_nope_head_dim
+    dr = cfg.qk_rope_head_dim
+    pos = cur_index[:, None]
+    q = torch.einsum("bsd,dhe->bshe", x, params["wq"])
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = rope(q_rope, pos, cfg.rope_theta)  # (B, 1, H, dr)
+    c_new, kr_new = _mla_compress(params, x)
+    kr_new = rope(kr_new[:, :, None, :], pos, cfg.rope_theta)[:, :, 0]
+    slots = cache["c_kv"].shape[1]
+    widx = (cur_index % slots).long()
+    bidx = torch.arange(B, device=x.device)
+    cache["c_kv"][bidx, widx] = c_new[:, 0].to(cache["c_kv"].dtype)
+    cache["k_r"][bidx, widx] = kr_new[:, 0].to(cache["k_r"].dtype)
+    cache["pos"][bidx, widx] = cur_index.to(torch.int32)
+    c32 = cache["c_kv"].to(torch.float32)
+    # absorbed query: q_lat (B, 1, H, r) = q_nope @ w_uk^T, head by head
+    q_lat = torch.einsum("bshe,rhe->bshr", q_nope, params["w_uk"])
+    s = (torch.einsum("bshr,btr->bhst", q_lat.to(torch.float32), c32)
+         + torch.einsum("bshe,bte->bhst", q_rope.to(torch.float32),
+                        cache["k_r"].to(torch.float32))
+         )[:, :, 0] / math.sqrt(dn + dr)  # (B, H, S)
+    mask = cache["pos"][:, None, :].to(torch.int64) \
+        <= cur_index.to(torch.int64)[:, None, None]
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", p, c32)
+    out = torch.einsum("bhr,rhe->bhe", o_lat,
+                       params["w_uv"].to(torch.float32))
+    y = torch.einsum("bhe,hed->bd", out.to(x.dtype), params["wo"])[:, None]
+    return y, cache

@@ -1,7 +1,8 @@
-"""Serving path of the dense trunk, the Mamba-1 SSM and the RG-LRU
-hybrid: caches, prefill, one-token decode.
+"""Serving path of the dense trunk, the MoE family, the Mamba-1 SSM and
+the RG-LRU hybrid: caches, prefill, one-token decode.
 
-Mirrors the dense, ssm and hybrid families of ``repro.models.decode``.
+Mirrors the dense, moe, ssm and hybrid families of
+``repro.models.decode``.
 Dense caches are fixed-shape: ``min(max_len, window)`` slots per layer
 with absolute-position tags (``INT_SENTINEL`` = unwritten, masked by the
 causal check), circular for the sliding-window variant, stacked over a
@@ -15,15 +16,22 @@ layer on the card).  The hybrid's cache is ``{"super": {"r1", "r2",
 the conv window in the compute dtype) and each attention layer's ring of
 ``min(max_len, local_window)`` K/V slots, stacked over the superblocks
 and the tail; its prefill launches K2 once an RG-LRU layer and K3 once
-an attention layer.  Decode is plain PyTorch in all three.
+an attention layer.  The MoE family's cache is ``{"dense_kv",
+"moe_kv"}``, stacked over its leading dense layers and its MoE layers:
+K/V slots as the dense family's for GQA (its prefill launches K3 once a
+layer), or for MLA the compressed latent ``c_kv`` (B, slots,
+kv_lora_rank) and the rotary key ``k_r`` (B, slots, qk_rope_head_dim)
+(its prefill runs ``blocked_attention``, no kernel).  Decode is plain
+PyTorch in all four.
 
 One difference from the JAX code, which returns a new cache:
 ``decode_step`` writes the new token's K/V (dense, hybrid) or the new
 recurrent state (ssm, hybrid) into the cache it is given and returns
 that same cache.  On the card a copy of the whole cache per token would
 double the step's cache traffic.  The new K/V are committed after the
-layer loop (``_commit_kv``), as the dense family does in JAX; the
-hybrid's JAX decode writes each layer's slot before attending instead.
+layer loop (``_commit_kv``), as the dense and GQA-MoE families do in
+JAX; MLA writes each layer's latent slot before attending, as JAX does;
+the hybrid's JAX decode writes each layer's slot before attending instead.
 The two agree whenever the ring holds a whole window (``max_len >=
 local_window``) or has not wrapped: the slot the new token takes then
 holds a position a full window back, which the window masks.
@@ -40,8 +48,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.transformer import (_embed_inputs, _head_matrix,
-                                            check_family, hybrid_layers,
-                                            layer)
+                                            attend, check_family,
+                                            hybrid_layers, layer, moe_ffn,
+                                            moe_layers)
 
 INT_SENTINEL = attn.INT_SENTINEL
 
@@ -67,6 +76,12 @@ def _gqa_cache(cfg: ModelConfig, B: int, slots: int, dtype, layers,
         "pos": torch.full(lead + (B, slots), INT_SENTINEL, dtype=torch.int32,
                           device=device),
     }
+
+
+def _mla_cache(cfg: ModelConfig, B: int, slots: int, dtype, layers,
+               device) -> Dict[str, torch.Tensor]:
+    c = attn.mla_init_cache(cfg, B, slots, dtype, device)
+    return {k: t.expand((layers,) + t.shape).clone() for k, t in c.items()}
 
 
 def _ssm_state(cfg: ModelConfig, B: int, dtype, layers: int, device):
@@ -98,32 +113,50 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
         if rem:
             c["tail"] = _lru_state(cfg, B, dtype, rem, device)
         return c
+    if cfg.family == "moe":
+        mk = _mla_cache if cfg.use_mla else _gqa_cache
+        slots = _attn_slots(cfg, max_len)
+        nd = cfg.first_dense_layers
+        c = {"moe_kv": mk(cfg, B, slots, dtype, cfg.n_layers - nd, device)}
+        if nd:
+            c["dense_kv"] = mk(cfg, B, slots, dtype, nd, device)
+        return c
     return {"kv": _gqa_cache(cfg, B, _attn_slots(cfg, max_len), dtype,
                              cfg.n_layers, device)}
 
 
-def _kv_to_cache(k, v, positions, slots: int):
-    """Pack full-sequence K/V (B, S, KV, hd) into a slot cache: padded
-    with unwritten slots when S <= slots, else the last ``slots``
-    positions at their circular slots (position p in slot p % slots)."""
-    B, S = k.shape[:2]
+def _to_slots(leaves: Dict[str, torch.Tensor], positions, slots: int):
+    """Pack full-sequence cache leaves (B, S, ...) into a slot cache with
+    their positions: padded with unwritten slots when S <= slots, else
+    the last ``slots`` positions at their circular slots (position p in
+    slot p % slots)."""
+    B, S = positions.shape
     if S <= slots:
         pad = slots - S
-        return {
-            "k": torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad)),
-            "v": torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad)),
-            "pos": torch.nn.functional.pad(positions.to(torch.int32),
-                                           (0, pad), value=INT_SENTINEL),
-        }
+        out = {n: torch.nn.functional.pad(t, (0, 0) * (t.dim() - 2)
+                                          + (0, pad))
+               for n, t in leaves.items()}
+        out["pos"] = torch.nn.functional.pad(positions.to(torch.int32),
+                                             (0, pad), value=INT_SENTINEL)
+        return out
     perm = torch.arange(S - slots, S) % slots
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(slots)
-    inv = inv.to(k.device)
-    return {
-        "k": k[:, S - slots:][:, inv],
-        "v": v[:, S - slots:][:, inv],
-        "pos": positions[:, S - slots:][:, inv].to(torch.int32),
-    }
+    inv = inv.to(positions.device)
+    out = {n: t[:, S - slots:][:, inv] for n, t in leaves.items()}
+    out["pos"] = positions[:, S - slots:][:, inv].to(torch.int32)
+    return out
+
+
+def _kv_to_cache(k, v, positions, slots: int):
+    """K/V (B, S, KV, hd) into ``slots`` slots."""
+    return _to_slots({"k": k, "v": v}, positions, slots)
+
+
+def _latent_to_cache(c_kv, k_r, positions, slots: int):
+    """MLA's latent (B, S, r) and rotary key (B, S, dr) into ``slots``
+    slots."""
+    return _to_slots({"c_kv": c_kv, "k_r": k_r}, positions, slots)
 
 
 def _ssm_prefill(params, cfg: ModelConfig, x):
@@ -183,10 +216,32 @@ def _hybrid_prefill(params, cfg: ModelConfig, x, positions, slots: int):
     return x, cache
 
 
+def _moe_prefill(params, cfg: ModelConfig, x, positions, slots: int):
+    """The MoE family's layers over the prompt's embeddings: (final hidden
+    x, the cache: each layer's K/V (GQA) or latent (MLA) in ``slots``
+    slots)."""
+    cache = init_cache(cfg, x.shape[0], slots, x.dtype, x.device)
+    for (kind, p), (_, c) in zip(moe_layers(params, cfg),
+                                 moe_layers(cache, cfg)):
+        hh = L.apply_norm(cfg.norm, p["ln1"], x)
+        a, kv = attend(p["attn"], hh, cfg, positions=positions,
+                       return_kv=True)
+        entry = (_latent_to_cache if cfg.use_mla else _kv_to_cache)(
+            *kv, slots)
+        x = x + a
+        hh = L.apply_norm(cfg.norm, p["ln2"], x)
+        x = x + (L.mlp(p["mlp"], hh, cfg.act) if kind == "dense"
+                 else moe_ffn(p, hh, cfg))
+        for name, t in entry.items():
+            c[name].copy_(t)
+    return x, cache
+
+
 def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None):
     """Returns (last-token logits (B, V), cache).  The cache holds K/V
-    (dense, hybrid) or the conv window (ssm, hybrid) in the compute dtype
-    (the parameters'); the ssm cache ignores ``max_len``."""
+    (dense, hybrid, GQA MoE), the latent (MLA) or the conv window (ssm,
+    hybrid) in the compute dtype (the parameters'); the ssm cache ignores
+    ``max_len``."""
     S = batch["tokens"].shape[1]
     x, positions = _embed_inputs(params, cfg, batch)
     if cfg.family == "ssm":
@@ -194,6 +249,9 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None):
     elif cfg.family == "hybrid":
         x, cache = _hybrid_prefill(params, cfg, x, positions,
                                    _local_slots(cfg, max_len or S))
+    elif cfg.family == "moe":
+        x, cache = _moe_prefill(params, cfg, x, positions,
+                                _attn_slots(cfg, max_len or S))
     else:
         x, cache = _dense_prefill(params, cfg, x, positions,
                                   _attn_slots(cfg, max_len or S))
@@ -275,17 +333,45 @@ def _hybrid_decode(params, cfg: ModelConfig, cache, x, cur_index):
     return x
 
 
+def _moe_decode(params, cfg: ModelConfig, cache, x, cur_index):
+    """One token through the MoE family's layers.  MLA writes each
+    layer's latent slot in place before attending; GQA's new K/V are
+    committed into ``dense_kv`` and ``moe_kv`` at the end."""
+    new = {"dense": ([], []), "moe": ([], [])}
+    for (kind, p), (_, c) in zip(moe_layers(params, cfg),
+                                 moe_layers(cache, cfg)):
+        hh = L.apply_norm(cfg.norm, p["ln1"], x)
+        if cfg.use_mla:
+            a, _ = attn.mla_decode(p["attn"], hh, c, cur_index, cfg)
+        else:
+            a, (kn, vn) = attn.gqa_decode(p["attn"], hh, c, cur_index, cfg,
+                                          defer_write=True)
+            new[kind][0].append(kn)
+            new[kind][1].append(vn)
+        x = x + a
+        hh = L.apply_norm(cfg.norm, p["ln2"], x)
+        x = x + (L.mlp(p["mlp"], hh, cfg.act) if kind == "dense"
+                 else moe_ffn(p, hh, cfg))
+    for kind, (ks, vs) in new.items():
+        if ks:
+            _commit_kv(cache[f"{kind}_kv"], torch.stack(ks), torch.stack(vs),
+                       cur_index)
+    return x
+
+
 def decode_step(params, cfg: ModelConfig, cache, tokens, cur_index):
     """tokens (B, 1) int, cur_index (B,) int -> (logits (B, V), cache);
-    the new token's K/V (dense, hybrid) or the new recurrent state (ssm,
-    which ignores ``cur_index``, and hybrid) are written into ``cache``
-    in place."""
+    the new token's K/V (dense, hybrid, moe), latent (MLA) or the new
+    recurrent state (ssm, which ignores ``cur_index``, and hybrid) are
+    written into ``cache`` in place."""
     check_family(cfg)
     x = L.embed(params["embed"], tokens)  # (B, 1, d)
     if cfg.family == "ssm":
         x = _ssm_decode(params, cfg, cache["state"], x)
     elif cfg.family == "hybrid":
         x = _hybrid_decode(params, cfg, cache, x, cur_index)
+    elif cfg.family == "moe":
+        x = _moe_decode(params, cfg, cache, x, cur_index)
     else:
         x = _dense_decode(params, cfg, cache["kv"], x, cur_index)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)

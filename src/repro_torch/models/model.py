@@ -1,11 +1,12 @@
 """Model facade: the paper-scale families (``lstm``, ``cnn``), the dense
-transformer trunk (``dense``), the Mamba-1 SSM (``ssm``) and the RG-LRU
-hybrid (``hybrid``).
+transformer trunk (``dense``), the MoE family (``moe``: GQA or MLA
+attention), the Mamba-1 SSM (``ssm``) and the RG-LRU hybrid
+(``hybrid``).
 
 Mirrors ``repro.models.model.Model``: ``init`` / ``loss`` / ``predict``
 over plain parameter dicts in the JAX layouts, plus ``prefill`` /
-``decode_step`` / ``init_cache`` for serving the dense trunk, the SSM
-and the hybrid.  The paper
+``decode_step`` / ``init_cache`` for serving the dense trunk, the MoE
+family, the SSM and the hybrid.  The paper
 models' ``loss`` and ``predict`` accept single or client-stacked
 parameters (see ``paper_nets``); a stacked loss is one value per client.
 Entry points run on the CUDA card unless given ``device="cpu"``.
@@ -87,22 +88,25 @@ class Model:
             return pn.cnn_forward(params, batch["x"])
         return tf.logits_fn(params, self.cfg, batch)
 
-    # -- serving (dense trunk, SSM, hybrid) ------------------------------
+    # -- serving (dense trunk, MoE, SSM, hybrid) -------------------------
     def prefill(self, params, batch, max_len: Optional[int] = None):
         """(last-token logits (B, V), cache); on the card one K3 launch
-        (dense), one K2 launch (ssm) per layer, or (hybrid) one K2 launch
-        per RG-LRU layer and one K3 launch per attention layer."""
+        (dense, GQA MoE), one K2 launch (ssm) per layer, none (MLA), or
+        (hybrid) one K2 launch per RG-LRU layer and one K3 launch per
+        attention layer."""
         return dec.prefill(params, self.cfg, batch, max_len)
 
     def decode_step(self, params, cache, tokens, cur_index):
-        """(logits (B, V), cache); writes the new K/V (dense, hybrid) or
-        the new recurrent state (ssm, hybrid) into ``cache``."""
+        """(logits (B, V), cache); writes the new K/V (dense, hybrid,
+        moe), latent (MLA) or recurrent state (ssm, hybrid) into
+        ``cache``."""
         return dec.decode_step(params, self.cfg, cache, tokens, cur_index)
 
     def init_cache(self, batch_size: int, max_len: int,
                    dtype=torch.bfloat16, device=None):
-        """Dense: K/V slots for ``max_len`` positions (the window's for
-        the sliding-window variant); ssm: the recurrent state, whose size
+        """Dense, GQA MoE: K/V slots for ``max_len`` positions (the
+        window's for the sliding-window variant); MLA: latent slots;
+        ssm: the recurrent state, whose size
         does not depend on ``max_len``; hybrid: the RG-LRU layers' state
         and the attention layers' rings of ``min(max_len,
         local_window)`` slots."""

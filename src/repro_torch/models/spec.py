@@ -32,9 +32,23 @@ def stack_spec(spec: Spec, n: int) -> Spec:
     return {k: stack_spec(v, n) for k, v in spec.items()}
 
 
+# a leaf whose fp32 draw would take more bytes than this is drawn one
+# matrix (its last two axes) at a time into the leaf in its own dtype:
+# Kimi-K2's stacked expert leaves, (1, 384, 7168, 2048), are 22.5 GB in
+# fp32 beside ~40 GB of bf16 weights, DeepSeek-V2-Lite's 19.2 GB
+SLICE_DRAW_BYTES = 16 * 2 ** 30
+
+
 def _init_leaf(d: ParamDef, generator: torch.Generator,
                dtype: torch.dtype) -> torch.Tensor:
     gdev = generator.device
+    if (d.init in ("normal", "fan_in") and len(d.shape) > 2
+            and 4 * math.prod(d.shape) > SLICE_DRAW_BYTES):
+        out = torch.empty(d.shape, dtype=dtype, device=gdev)
+        mat = ParamDef(d.shape[-2:], d.init, d.scale)  # the same fan-in
+        for m in out.view(-1, *d.shape[-2:]):
+            m.copy_(_init_leaf(mat, generator, dtype))
+        return out
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=dtype, device=gdev)
     if d.init == "ones":
@@ -63,7 +77,8 @@ def init_params(spec: Spec, generator: torch.Generator,
     (``repro/models/spec.py``): ``normal`` is N(0, scale), ``fan_in`` is
     N(0, 1) / sqrt(shape[-2]) (shape[-1] for vectors), ``uniform_scaled``
     is U(-scale, scale), ``zeros`` / ``ones`` are constant.  Leaves are
-    drawn in sorted key order (the order ``jax.tree`` flattens in) from
+    drawn in sorted key order (the order ``jax.tree`` flattens in), one
+    matrix at a time for a leaf past ``SLICE_DRAW_BYTES`` in fp32, from
     ``generator`` on the generator's own device, then moved to ``device``
     (``None``: the CUDA card), so one seed on one generator device gives
     the same weights on every device.

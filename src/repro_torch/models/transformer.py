@@ -1,15 +1,16 @@
-"""Model assembly for the dense transformer trunk, the Mamba-1 SSM and
-the RG-LRU hybrid.
+"""Model assembly for the dense transformer trunk, the MoE family (GQA or
+MLA attention), the Mamba-1 SSM and the RG-LRU hybrid.
 
-Mirrors the dense, ssm and hybrid families of
+Mirrors the dense, moe, ssm and hybrid families of
 ``repro.models.transformer``: the per-layer parameters stay stacked with
-a leading layer axis, under ``"blocks"`` (dense, ssm) or under
-``"superblocks"`` (each an (rglru, rglru, attn) triple) and ``"tail"``
-(the trailing rglru layers) for the hybrid, the JAX layout, so
-``params_from_numpy`` carries a JAX tree across leaf for leaf.  The
-forward walks them with a Python loop over views where the JAX code
-scans.  The other families (MoE / MLA, VLM, audio) belong to later
-slices of the port and raise by name.
+a leading layer axis, under ``"blocks"`` (dense, ssm), under
+``"dense_blocks"`` (the leading dense layers) and ``"moe_blocks"``
+(moe), or under ``"superblocks"`` (each an (rglru, rglru, attn) triple)
+and ``"tail"`` (the trailing rglru layers) for the hybrid, the JAX
+layout, so ``params_from_numpy`` carries a JAX tree across leaf for
+leaf.  The forward walks them with a Python loop over views where the
+JAX code scans.  The other families (VLM, audio) belong to later slices
+of the port and raise by name.
 """
 from __future__ import annotations
 
@@ -20,26 +21,43 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.spec import stack_spec
 
-PORTED_FAMILIES = ("dense", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            "the port runs the dense transformer, the Mamba-1 SSM and the "
-            f"RG-LRU hybrid families; {cfg.name!r} is {cfg.family!r}, not "
-            "ported yet (MoE and MLA, VLM and audio come in later slices)")
+            "the port runs the dense transformer, the MoE (GQA or MLA), the "
+            f"Mamba-1 SSM and the RG-LRU hybrid families; {cfg.name!r} is "
+            f"{cfg.family!r}, not ported yet (VLM and audio come in later "
+            "slices)")
+
+
+def _attn_spec(cfg: ModelConfig):
+    return attn.mla_spec(cfg) if cfg.use_mla else attn.gqa_spec(cfg)
 
 
 def dense_block_spec(cfg: ModelConfig):
     return {"ln1": L.norm_spec(cfg.norm, cfg.d_model),
-            "attn": attn.gqa_spec(cfg),
+            "attn": _attn_spec(cfg),
             "ln2": L.norm_spec(cfg.norm, cfg.d_model),
             "mlp": L.mlp_spec(cfg.d_model, cfg.d_ff, cfg.act)}
+
+
+def moe_block_spec(cfg: ModelConfig):
+    s = {"ln1": L.norm_spec(cfg.norm, cfg.d_model),
+         "attn": _attn_spec(cfg),
+         "ln2": L.norm_spec(cfg.norm, cfg.d_model),
+         "moe": moe_lib.moe_spec(cfg)}
+    if cfg.n_shared_experts:
+        s["shared"] = L.mlp_spec(
+            cfg.d_model, cfg.n_shared_experts * cfg.d_ff_expert, cfg.act)
+    return s
 
 
 def ssm_block_spec(cfg: ModelConfig):
@@ -75,6 +93,13 @@ def build_spec(cfg: ModelConfig) -> Dict[str, Any]:
             spec["tail"] = stack_spec(
                 _mix_mlp_spec(cfg, rglru_lib.rglru_spec(cfg)), rem)
         return spec
+    if cfg.family == "moe":
+        nd = cfg.first_dense_layers
+        if nd:
+            spec["dense_blocks"] = stack_spec(dense_block_spec(cfg), nd)
+        spec["moe_blocks"] = stack_spec(moe_block_spec(cfg),
+                                        cfg.n_layers - nd)
+        return spec
     block = ssm_block_spec if cfg.family == "ssm" else dense_block_spec
     spec["blocks"] = stack_spec(block(cfg), cfg.n_layers)
     return spec
@@ -87,12 +112,50 @@ def layer(stacked, i: int):
     return {k: layer(v, i) for k, v in stacked.items()}
 
 
+def attend(p, h, cfg: ModelConfig, *, positions=None, window=0,
+           return_kv: bool = False):
+    """The layer's causal self-attention: MLA or GQA (K3 on the card)."""
+    if cfg.use_mla:
+        return attn.mla_forward(p, h, cfg, positions=positions,
+                                window=window, return_kv=return_kv)
+    return attn.gqa_forward(p, h, cfg, positions=positions, causal=True,
+                            window=window, return_kv=return_kv)
+
+
 def _dense_block(p, x, cfg: ModelConfig, *, positions=None, window=0):
     h = L.apply_norm(cfg.norm, p["ln1"], x)
-    x = x + attn.gqa_forward(p["attn"], h, cfg, positions=positions,
-                             causal=True, window=window)
+    x = x + attend(p["attn"], h, cfg, positions=positions, window=window)
     h = L.apply_norm(cfg.norm, p["ln2"], x)
     return x + L.mlp(p["mlp"], h, cfg.act)
+
+
+def moe_ffn(p, h, cfg: ModelConfig):
+    """The MoE layer's feed-forward on the normed input: the routed
+    experts plus the shared MLP."""
+    y, _ = moe_lib.moe_forward(p["moe"], h, cfg)
+    if cfg.n_shared_experts:
+        y = y + L.mlp(p["shared"], h, cfg.act)
+    return y
+
+
+def _moe_block(p, x, cfg: ModelConfig, *, positions=None):
+    h = L.apply_norm(cfg.norm, p["ln1"], x)
+    x = x + attend(p["attn"], h, cfg, positions=positions)
+    h = L.apply_norm(cfg.norm, p["ln2"], x)
+    return x + moe_ffn(p, h, cfg)
+
+
+def moe_layers(tree, cfg: ModelConfig):
+    """The MoE family's layers in order, as (kind, view of ``tree``): the
+    leading dense layers, then the MoE ones.  ``tree`` is the parameters
+    (``dense_blocks``, ``moe_blocks``) or the cache (``dense_kv``,
+    ``moe_kv``)."""
+    nd = cfg.first_dense_layers
+    dense, moe = (("dense_blocks", "moe_blocks") if "moe_blocks" in tree
+                  else ("dense_kv", "moe_kv"))
+    return ([("dense", layer(tree[dense], i)) for i in range(nd)]
+            + [("moe", layer(tree[moe], i))
+               for i in range(cfg.n_layers - nd)])
 
 
 def _hybrid_sub(p, x, cfg: ModelConfig, kind: str):
@@ -142,6 +205,13 @@ def forward_hidden(params, cfg: ModelConfig, batch) -> torch.Tensor:
     if cfg.family == "hybrid":
         for kind, p in hybrid_layers(params, cfg):
             x = _hybrid_sub(p, x, cfg, kind)
+        return L.apply_norm(cfg.norm, params["final_norm"], x)
+    if cfg.family == "moe":
+        for kind, p in moe_layers(params, cfg):
+            if kind == "dense":
+                x = _dense_block(p, x, cfg, positions=positions)
+            else:
+                x = _moe_block(p, x, cfg, positions=positions)
         return L.apply_norm(cfg.norm, params["final_norm"], x)
     for i in range(cfg.n_layers):
         p = layer(params["blocks"], i)

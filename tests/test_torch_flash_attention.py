@@ -4,8 +4,9 @@ On the CPU the port's dispatcher runs its plain PyTorch version (a dense
 masked softmax); it is held against the JAX plain version and against
 the JAX Pallas kernel in interpret mode, on the case x dtype grid of
 ``tests/test_kernels.py``, on the served models' head layouts
-(TinyLlama's, and RecurrentGemma's MQA at head dim 256 with a window
-that binds), a ragged length, a window and non-contiguous positions over
+(TinyLlama's, RecurrentGemma's MQA at head dim 256 with a window that
+binds, and Kimi-K2's GQA at head dim 112: causal, windowed and
+non-causal), a ragged length, a window and non-contiguous positions over
 a padded cache.  The
 CUDA kernel itself is checked on the card (``cuda`` marker; skipped
 where there is none).  Inputs come from numpy with a seed.
@@ -23,7 +24,7 @@ from repro.kernels.flash_attention.ops import (  # noqa: E402
 from repro.kernels.flash_attention.ref import (  # noqa: E402
     flash_attention_ref as jax_flash_attention_ref)
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
-    flash_attention_kernel)
+    HEAD_DIMS, flash_attention_kernel)
 from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
     flash_attention)
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
@@ -52,6 +53,13 @@ HD256_CASES = [
     (1, 96, 96, 1, 16, 256, True, 32),
     (2, 64, 64, 1, 16, 256, True, 0),
     (1, 100, 100, 1, 16, 256, True, 48),
+]
+# Kimi-K2's head dim 112 (GQA, 8 heads a KV head there) at small S:
+# causal, a window that binds on a ragged length, and non-causal
+HD112_CASES = [
+    (2, 64, 64, 2, 8, 112, True, 0),
+    (1, 100, 100, 2, 4, 112, True, 32),
+    (1, 96, 96, 2, 4, 112, False, 0),
 ]
 # max abs error per unit of the output's largest magnitude (at least 1):
 # tests/test_kernels.py's bounds
@@ -93,7 +101,8 @@ def _both(q, k, v, qp, kp, dtype):
         qp), torch.tensor(kp)
 
 
-@pytest.mark.parametrize("case", CASES + MODEL_CASES + HD256_CASES)
+@pytest.mark.parametrize("case", CASES + MODEL_CASES + HD256_CASES
+                         + HD112_CASES)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_port_matches_jax_ref_and_pallas_interpret(case, dtype):
     B, Sq, Skv, KV, G, hd, causal, window = case
@@ -182,6 +191,22 @@ def test_kernel_forced_on_cpu_raises():
                         use_kernel=True)
 
 
+@pytest.mark.parametrize("hd,refusal", [(112, "CUDA tensors"),
+                                        (96, "head_dim"), (48, "head_dim")])
+def test_kernel_wrapper_head_dims(hd, refusal):
+    """The wrapper takes Kimi-K2's head dim 112 (its checks pass on to the
+    device, where a CPU tensor is refused) and refuses a head dim the
+    kernel has no build for, before any launch."""
+    assert HEAD_DIMS == (32, 64, 112, 128, 256)
+    q, k, v = (torch.tensor(a) for a in _qkv((1, 8, 8, 2, 2, hd, True, 0)))
+    pos = torch.tensor(_arange(1, 8))
+    before = flash_attention_kernel.launches
+    with pytest.raises(ValueError, match=refusal):
+        flash_attention_kernel(q, k, v, pos, pos, causal=True, window=0,
+                               contiguous=True)
+    assert flash_attention_kernel.launches == before
+
+
 def test_kernel_wrapper_refuses_cpu_tensors():
     case = MODEL_CASES[0]
     q, k, v = (torch.tensor(a) for a in _qkv(case))
@@ -194,7 +219,8 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CASES + MODEL_CASES + HD256_CASES)
+@pytest.mark.parametrize("case", CASES + MODEL_CASES + HD256_CASES
+                         + HD112_CASES)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_cuda_kernel_matches_plain_version(case, dtype):
     if not torch.cuda.is_available():
@@ -253,7 +279,7 @@ def _edge_case(kind, hd, seed=11):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", EDGE_KINDS)
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("hd", list(HEAD_DIMS))
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_cuda_kernel_edge_cases(kind, hd, dtype):
     if not torch.cuda.is_available():

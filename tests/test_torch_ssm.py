@@ -452,7 +452,7 @@ def test_recurrent_state_long_decode_is_constant_memory():
 
 def test_unported_families_still_raise_by_name():
     cfg = get_arch(ARCH).reduced()
-    for fam in ("moe", "vlm", "audio"):
+    for fam in ("vlm", "audio"):  # moe is ported (tests/test_torch_moe.py)
         with pytest.raises(NotImplementedError, match=fam) as e:
             build_model(dataclasses.replace(cfg, family=fam))
         assert "Mamba-1 SSM" in str(e.value)

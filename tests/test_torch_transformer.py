@@ -337,8 +337,8 @@ def test_params_from_numpy_carries_nested_trees_as_copies():
 
 def test_unported_features_raise_by_name():
     cfg = get_arch("tinyllama-1.1b").reduced()
-    with pytest.raises(NotImplementedError, match="moe"):
-        build_model(dataclasses.replace(cfg, family="moe"))
+    with pytest.raises(NotImplementedError, match="vlm"):
+        build_model(dataclasses.replace(cfg, family="vlm"))
     _, _, tm, p = _pair("tinyllama-1.1b")
     x = torch.zeros(1, 4, cfg.d_model)
     a = p["blocks"]["attn"]
