@@ -66,6 +66,18 @@ drives the port's paths through its entry points:
   to 2 layers (1 dense + 1 MoE) in bf16, the same shape, which runs K3's
   head-dim-112 instance once per layer of the prefill and never in
   decode;
+* ``serve_path_whisper``: ``serve`` on Whisper-small (audio
+  encoder-decoder) at full size in bf16, 32 clips of 1536 stub frame
+  embeddings, a 4-token prompt, 124 greedy tokens, which runs K3
+  non-causal at (32, 1536, 12, 1, 64) once per encoder layer and causal
+  once per decoder layer of the prefill (24 launches; the
+  cross-attention is plain PyTorch, as in the JAX package), and never in
+  decode;
+* ``serve_path_qwen2vl``: ``serve`` on Qwen2-VL-72B at full width with
+  its depth cut to 30 layers in bf16, batch 8, 1024 stub patch
+  embeddings and 992 text tokens, 32 greedy tokens, which runs K3's
+  head-dim-128 instance on M-RoPE-rotated q/k once per layer of the
+  prefill and never in decode;
 * ``chaos_path``: main_path's shape under the chaos layer
   (``tests/test_faults.py``'s mixed faults at rate 0.15 and its guards,
   ``max_staleness`` 8 and ``max_delta_norm`` 0.5): asofed with the
@@ -86,8 +98,8 @@ the card's trajectories are held against the CPU's for every ported
 strategy, the associative fold against the sequential one on the card,
 and the card's prefill and teacher-forced decode logits and caches
 against the CPU's (TinyLlama, Falcon-Mamba, RecurrentGemma, whose
-reduced config wraps its local-attention ring on the card, DeepSeek-V2-Lite
-and Kimi-K2).
+reduced config wraps its local-attention ring on the card,
+DeepSeek-V2-Lite, Kimi-K2, Whisper and Qwen2-VL).
 ``scan_vs_plain`` also holds K2 at the Mamba and RG-LRU prefills' shapes
 bit for bit against its plain version, before any model's weights are
 on the card.  Prints one JSON
@@ -1842,6 +1854,33 @@ KIMI_ARCH, KIMI_CASE = "kimi-k2-1t-a32b", "kimi_layer0"
 KIMI_CUT = {"n_layers": 2}
 # serve_card_vs_cpu's Kimi-K2 case at full width (2 layers, 16 experts)
 KIMI_FULL_CASE = "full_width_2_layers_16_experts"
+# serve_path_whisper's architecture at full size: 32 clips of 1536 stub
+# frames (30 s at 50 Hz, padded as the config pads them), the 4-token
+# start-of-transcript prompt, 124 greedy tokens (max_len 128, inside the
+# 448-token decode horizon); its flash_vs_plain case is the served
+# model's layer-0 encoder q/k/v, non-causal
+WHISPER_ARCH, WHISPER_CASE = "whisper-small", "whisper_enc_layer0"
+# serve_path_qwen2vl's architecture at full width, its depth cut 80 -> 30
+# layers (28.8e9 parameters, 57.6 GB in bf16); the serve shape is the
+# other paths' (1024 patch embeddings of a 32 x 32 image + 992 text
+# tokens); its flash_vs_plain case is the served model's layer-0 q/k/v
+# rotated by M-RoPE, causal
+QWEN2VL_ARCH, QWEN2VL_CASE = "qwen2-vl-72b", "qwen2vl_layer0"
+QWEN2VL_CUT = {"n_layers": 30}
+# (batch, prompt tokens, generated tokens) of an architecture's serve
+# path where it is not (SERVE_B, SERVE_PROMPT, SERVE_GEN)
+SERVE_SHAPES = {WHISPER_ARCH: (32, 4, 124)}
+# serve_card_vs_cpu's Qwen2-VL case at full width: 1 layer, the 1024-patch
+# prefix and 32 text tokens
+QWEN2VL_FULL_CASE, QWEN2VL_FULL_PROMPT = "full_width_1_layer", 1024 + 32
+# serve_card_vs_cpu scales Whisper's attention wq and wk by this (both
+# sides get the same weights).  As drawn (the JAX spec's fan_in of a (d,
+# heads, hd) projection is its head count), q and k entries have a
+# standard deviation of ~8 and scores of ~64: over 1536 frames and 24
+# layers some rows are near-tied, and fp32 rounding flips their winner
+# (at full size the card's logits then lie O(1) per unit from the
+# CPU's).  Cooled, the scores are O(1), as a trained model's are
+WHISPER_COOL = 0.125
 # serve_path_deepseek / _kimi: interleaved pairs of serve runs of
 # MOE_DECODE_GEN tokens whose decode is forced onto each of the MoE
 # layer's two expert products
@@ -1984,9 +2023,9 @@ def _flash_case(name, q, k, v, q_pos, k_pos, causal, window, contiguous,
         ks = k.permute(0, 2, 1, 3).contiguous()
         vs = v.permute(0, 2, 1, 3).contiguous()
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        # causal SDPA is the same function wherever the window does not
-        # bind (every query sees at most Skv <= window keys)
-        lib = lambda: sdpa(qs, ks, vs, is_causal=True,  # noqa: E731
+        # SDPA is the same function wherever the window does not bind
+        # (every query sees at most Skv <= window keys)
+        lib = lambda: sdpa(qs, ks, vs, is_causal=causal,  # noqa: E731
                            enable_gqa=True)
         try:  # a yardstick only: the port never calls it
             lib_out = lib().reshape(B, KV, G, Sq, hd).permute(0, 3, 1, 2, 4)
@@ -1999,7 +2038,7 @@ def _flash_case(name, q, k, v, q_pos, k_pos, causal, window, contiguous,
             ms=ms, call_ms=call_ms(kern, reps=10),
             plain_ms=device_ms(plain, reps=2), library_ms=lib_ms,
             library="torch.nn.functional.scaled_dot_product_attention "
-                    "(enable_gqa, is_causal)",
+                    f"(enable_gqa, is_causal={causal})",
             library_same_function=window == 0 or k.shape[1] <= window,
             library_max_abs_err=lib_err, bound_share=bound_ms / ms,
             ptxas=[ln.strip() for ln in build.BUILD_LOG.get(
@@ -2085,10 +2124,17 @@ def phase_flash_vs_plain(layer0_qkv):
     return out
 
 
+def _serve_shape(cfg):
+    """(batch, prompt tokens, generated tokens) of ``cfg``'s serve path."""
+    return SERVE_SHAPES.get(cfg.name, (SERVE_B, SERVE_PROMPT, SERVE_GEN))
+
+
 def _serve_setup(dtype=torch.float32, arch: str = SERVE_ARCH, cut=None):
     """``arch`` (TinyLlama-1.1B) at full width and depth (the fields of
     ``cut`` replaced), random weights from seed 0 on the card in
-    ``dtype``, and the serve batch's prompt tokens."""
+    ``dtype``, and the serve batch: the prompt tokens and the family's
+    stub embeddings (Whisper's frames, Qwen2-VL's patches) in ``dtype``,
+    drawn with numpy from seed 0."""
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model, make_batch
 
@@ -2099,55 +2145,78 @@ def _serve_setup(dtype=torch.float32, arch: str = SERVE_ARCH, cut=None):
                         device=DEV, dtype=dtype)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    tokens = make_batch(cfg, SERVE_B, SERVE_PROMPT, seed=0,
-                        device=DEV)["tokens"]
-    return cfg, model, params, tokens, init_s
+    B, prompt, _ = _serve_shape(cfg)
+    # an older checkout's make_batch draws no stub and takes no dtype
+    kw = {"dtype": dtype} if cfg.family in ("audio", "vlm") else {}
+    batch = make_batch(cfg, B, prompt, seed=0, device=DEV, **kw)
+    del batch["labels"]
+    return cfg, model, params, batch, init_s
 
 
-def _layer0_qkv(cfg, params, tokens):
-    """Layer 0's rotated q (B, S, KV, G, hd), k and v for the prompt (the
-    MoE family's layer 0 is its first dense layer)."""
+def _layer0_qkv(cfg, params, batch):
+    """Layer 0's rotated q (B, S, KV, G, hd), k and v for the prompt: the
+    MoE family's first dense layer, Qwen2-VL's first layer over the patch
+    prefix and the text rotated by M-RoPE, Whisper's first encoder layer
+    over the frames (no RoPE: S is the frames)."""
     from repro_torch.models import attention as attn
     from repro_torch.models import layers as L
+    from repro_torch.models import transformer as tf
     from repro_torch.models.transformer import layer
 
-    B, S = tokens.shape
     with torch.no_grad():
-        p = layer(params["blocks" if "blocks" in params else
-                         "dense_blocks"], 0)
-        h = L.apply_norm(cfg.norm, p["ln1"], L.embed(params["embed"],
-                                                     tokens))
+        mrope_pos = None
+        if cfg.family == "audio":
+            x = batch["frames"]
+            x = x + tf._sinusoidal(x.shape[1], cfg.d_model, x.dtype, DEV)
+            p = layer(params["enc_blocks"], 0)
+        else:
+            if cfg.family == "vlm":
+                x, _, mrope_pos = tf._embed_inputs(params, cfg, batch)
+            else:
+                x = L.embed(params["embed"], batch["tokens"])
+            p = layer(params["blocks" if "blocks" in params else
+                             "dense_blocks"], 0)
+        B, S = x.shape[:2]
+        h = L.apply_norm(cfg.norm, p["ln1"], x)
         q, k, v = attn._project_qkv(p["attn"], h, cfg)
-        pos = _arange_pos(B, S)
-        q, k = attn._apply_rope(cfg, q, k, pos, pos)
+        if cfg.family != "audio":
+            pos = _arange_pos(B, S)
+            q, k = attn._apply_rope(cfg, q, k, pos, pos, mrope_pos)
     KV = cfg.n_kv_heads
     return (q.reshape(B, S, KV, cfg.n_heads // KV, cfg.head_dim).contiguous(),
             k.contiguous(), v.contiguous())
 
 
-def _serve_once(model, params, tokens, gen: int = SERVE_GEN):
+def _serve_once(model, params, batch, gen: int = SERVE_GEN):
+    """serve() on the batch's tokens, its stub embeddings as ``stubs``
+    (an older checkout's serve takes none)."""
     from repro_torch.launch.serve import serve
 
+    stubs = {k: t for k, t in batch.items() if k != "tokens"}
     with torch.no_grad():
-        return serve(model, params, tokens, gen, temperature=0.0,
-                     device=DEV)
+        return serve(model, params, batch["tokens"], gen, temperature=0.0,
+                     device=DEV, **({"stubs": stubs} if stubs else {}))
 
 
 def _expected_launches(cfg):
     """(K3, K2) launches of one prefill: a layer's attention runs K3 and
     its recurrence K2; the hybrid's 3 n_super + rem layers are n_super
-    attention layers and 2 n_super + rem RG-LRU ones; MLA runs neither."""
+    attention layers and 2 n_super + rem RG-LRU ones; Whisper runs K3 in
+    each encoder and each decoder layer; MLA runs neither."""
     if cfg.use_mla:
         return 0, 0
+    if cfg.family == "audio":
+        return cfg.encoder_layers + cfg.n_layers, 0
     if cfg.family == "hybrid":
         n_super, rem = divmod(cfg.n_layers, 3)
         return n_super, 2 * n_super + rem
     return (0, cfg.n_layers) if cfg.family == "ssm" else (cfg.n_layers, 0)
 
 
-def phase_serve_path(cfg, model, params, tokens, init_s: float,
+def phase_serve_path(cfg, model, params, batch, init_s: float,
                      dtype=torch.float32, sfx=None, cut=None):
-    """serve() at full width and depth in the weights' ``dtype``: the
+    """serve() at full width and depth in the weights' ``dtype`` on
+    ``batch`` (tokens and stubs) of the architecture's serve shape: the
     family's kernels (K3 for a dense model, K2 for the SSM, both for the
     hybrid) once per layer of the prefill, no kernel in decode; the rates
     of SERVE_REPEATS runs; then one profiled run of SERVE_PROFILE_GEN
@@ -2163,13 +2232,14 @@ def phase_serve_path(cfg, model, params, tokens, init_s: float,
         sfx = "" if dtype == torch.float32 else "_bf16"
     fam = cfg.family
     full = get_arch(cfg.name)
+    B, prompt, n_gen = _serve_shape(cfg)
     want = _expected_launches(cfg)  # in the prefill
-    _serve_once(model, params, tokens)  # warm-up: cuBLAS, allocator
+    _serve_once(model, params, batch, n_gen)  # warm-up: cuBLAS, allocator
     runs = []
     for _ in range(SERVE_REPEATS):
         torch.cuda.reset_peak_memory_stats()
         _reset_launches()
-        gen, stats = _serve_once(model, params, tokens)
+        gen, stats = _serve_once(model, params, batch, n_gen)
         k1, k2 = _launches()
         k1 += _fold_launches()
         k3 = _flash_launches()
@@ -2182,8 +2252,7 @@ def phase_serve_path(cfg, model, params, tokens, init_s: float,
                 f"serve path{sfx}: (K3, K2) launches {(k3, k2)}, "
                 f"{got} in the prefill and {decode} in decode; expected "
                 f"{want} and (0, 0); K1 {k1}")
-        if not stats["finite_logits"] or tuple(gen.shape) != (
-                SERVE_B, SERVE_GEN + 1):
+        if not stats["finite_logits"] or tuple(gen.shape) != (B, n_gen + 1):
             raise AssertionError(f"serve path{sfx}: non-finite logits or "
                                  f"tokens of shape {tuple(gen.shape)}")
         shape = ({"d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state}
@@ -2204,17 +2273,25 @@ def phase_serve_path(cfg, model, params, tokens, init_s: float,
                              qk_nope_head_dim=cfg.qk_nope_head_dim,
                              qk_rope_head_dim=cfg.qk_rope_head_dim,
                              v_head_dim=cfg.v_head_dim)
+        if fam == "vlm":
+            shape.update(d_ff=cfg.d_ff, n_patches=cfg.n_patches,
+                         mrope_sections=list(cfg.mrope_sections))
+        if fam == "audio":
+            shape.update(d_ff=cfg.d_ff, encoder_layers=cfg.encoder_layers,
+                         encoder_frames=cfg.encoder_frames,
+                         max_decode_len=cfg.max_decode_len,
+                         prefill_frames_per_s=B * cfg.encoder_frames
+                         / stats["prefill_s"])
         if cut:  # {field: [the config's value, the value run]}
             shape["reduced"] = {k: [getattr(full, k), v]
                                 for k, v in cut.items()}
         rec = {"phase": "serve_path" + sfx, "arch": cfg.name,
                "n_layers": cfg.n_layers, "d_model": cfg.d_model, **shape,
-               "batch": SERVE_B, "prompt_len": SERVE_PROMPT,
-               "gen": SERVE_GEN, "max_len": SERVE_PROMPT + SERVE_GEN,
+               "batch": B, "prompt_len": prompt,
+               "gen": n_gen, "max_len": prompt + n_gen,
                "temperature": 0.0, "dtype": str(dtype).split(".")[-1],
                **stats,
-               "prefill_tokens_per_s": SERVE_B * SERVE_PROMPT
-               / stats["prefill_s"],
+               "prefill_tokens_per_s": B * prompt / stats["prefill_s"],
                "peak_device_bytes": torch.cuda.max_memory_allocated(),
                "weight_bytes": sum(t.numel() * t.element_size()
                                    for t in tree_leaves(params)),
@@ -2233,10 +2310,10 @@ def phase_serve_path(cfg, model, params, tokens, init_s: float,
           **spread("prefill_s"), **spread("ttft_s"),
           **spread("tokens_per_s")})
     if fam == "moe":
-        _moe_decode_products(cfg, model, params, tokens, sfx)
+        _moe_decode_products(cfg, model, params, batch["tokens"], sfx)
     gen = SERVE_PROFILE_GEN
     (_, stats), wall, per = _device_profile(
-        lambda: _serve_once(model, params, tokens, gen))
+        lambda: _serve_once(model, params, batch, gen))
     rec = {"phase": "serve_profile" + sfx, "arch": cfg.name, "gen": gen,
            "wall_s": wall, "prefill_s": stats["prefill_s"],
            "decode_s": stats["decode_s"],
@@ -2275,7 +2352,7 @@ def _moe_decode_products(cfg, model, params, tokens, sfx: str):
                 for name, fn in forced.items():
                     moe._dispatch = (lambda n, _f=fn, _b=batch:
                                      _f if n == _b else pick(n))
-                    _, stats = _serve_once(model, params, toks,
+                    _, stats = _serve_once(model, params, {"tokens": toks},
                                            MOE_DECODE_GEN)
                     if not stats["finite_logits"]:
                         raise AssertionError(
@@ -2312,43 +2389,49 @@ def _cache_leaves(cache, prefix: str = "") -> dict:
     return out
 
 
-def _teacher_forced(model, params, tokens, device: str):
-    """Prefill the first FORCED_PROMPT tokens, then FORCED_STEPS decode
-    steps fed the next tokens: ([logits per step], {path: cache leaf}) on
-    the CPU (the KV cache of a dense model, the recurrent state of the
-    SSM, the hybrid's RG-LRU states and local-attention rings)."""
-    tokens = tokens.to(device)
+def _teacher_forced(model, params, batch, device: str,
+                    prompt: int = FORCED_PROMPT):
+    """Prefill the first ``prompt`` tokens (with the batch's stub
+    embeddings), then FORCED_STEPS decode steps fed the next tokens:
+    ([logits per step], {path: cache leaf}) on the CPU (the KV cache of a
+    dense model, the recurrent state of the SSM, the hybrid's RG-LRU
+    states and local-attention rings, Whisper's self and cross K/V)."""
+    batch = {k: t.to(device) for k, t in batch.items()}
+    tokens = batch["tokens"]
     B = tokens.shape[0]
     with torch.no_grad():
         logits, cache = model.prefill(
-            params, {"tokens": tokens[:, :FORCED_PROMPT]},
-            max_len=FORCED_PROMPT + FORCED_STEPS)
+            params, {**batch, "tokens": tokens[:, :prompt]},
+            max_len=prompt + FORCED_STEPS)
         out = [logits.cpu()]
         for i in range(FORCED_STEPS):
-            idx = torch.full((B,), FORCED_PROMPT + i, dtype=torch.int32,
+            idx = torch.full((B,), prompt + i, dtype=torch.int32,
                              device=device)
             logits, cache = model.decode_step(
-                params, cache,
-                tokens[:, FORCED_PROMPT + i:FORCED_PROMPT + i + 1], idx)
+                params, cache, tokens[:, prompt + i:prompt + i + 1], idx)
             out.append(logits.cpu())
     return out, _cache_leaves(cache)
 
 
-def phase_serve_card_vs_cpu():
+def phase_serve_card_vs_cpu(archs=None):
     """The port on the card against the port on the CPU, for TinyLlama,
-    Falcon-Mamba, RecurrentGemma, DeepSeek-V2-Lite and Kimi-K2 in fp32:
+    Falcon-Mamba, RecurrentGemma, DeepSeek-V2-Lite, Kimi-K2, Whisper and
+    Qwen2-VL in fp32 (those named in ``archs``, or all):
     prefill logits, every teacher-forced decode step's logits and every
     cache leaf (K/V and their positions, MLA's latent, the SSM's and the
     RG-LRU's h and conv window), at full width with the depth cut (2
     layers; 4 for RecurrentGemma, one superblock and one tail layer: at
     2 its ``divmod`` gives no superblock and no attention; 4 for
     DeepSeek, 1 dense and 3 MoE layers; Kimi at 2 with its experts cut to
-    16), and on the reduced config (whose local window of 64 the 4
-    forced steps after the 64-token prompt wrap on the card; Kimi's at
-    head dim 112).  A batch of 2, and MOE_FORCED_B for the MoE cases so
-    both expert products meet the CPU.  The card's prefill launches the
-    family's kernels once a layer.  Returns {(arch, case): (K3, K2)
-    launches}."""
+    16; Whisper at full size; Qwen2-VL at full width with 1 layer and a
+    prompt of its 1024 patches and 32 text tokens), and on the reduced
+    config (whose local window of 64 the 4 forced steps after the
+    64-token prompt wrap on the card; Kimi's at head dim 112).  A batch
+    of 2, and MOE_FORCED_B for the MoE cases so both expert products meet
+    the CPU; the stub frames and patches are drawn with the tokens, and
+    Whisper's attention wq and wk are scaled by WHISPER_COOL.  The
+    card's prefill launches the family's kernels once a layer.  Returns
+    {(arch, case): (K3, K2) launches}."""
     from repro_torch.common.pytree import tree_map
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model, make_batch, moe
@@ -2369,11 +2452,24 @@ def phase_serve_card_vs_cpu():
                                                     head_dim=112)),
               (KIMI_FULL_CASE, dataclasses.replace(kimi, n_layers=2,
                                                    n_experts=16))]
+    cases += [("full_size", get_arch(WHISPER_ARCH)),
+              ("reduced", get_arch(WHISPER_ARCH).reduced()),
+              (QWEN2VL_FULL_CASE, dataclasses.replace(get_arch(QWEN2VL_ARCH),
+                                                      n_layers=1)),
+              ("reduced", get_arch(QWEN2VL_ARCH).reduced())]
     launches = {}
     for tag, cfg in cases:
+        if archs and cfg.name not in archs:
+            continue
         model = build_model(cfg)
         params = model.init(torch.Generator(device=DEV).manual_seed(0),
                             device=DEV)
+        if cfg.family == "audio":
+            for blocks, names in (("enc_blocks", ("attn",)),
+                                  ("dec_blocks", ("self", "cross"))):
+                for name in names:
+                    for leaf in ("wq", "wk"):
+                        params[blocks][name][leaf].mul_(WHISPER_COOL)
         params_cpu = tree_map(lambda t: t.cpu(), params)
         batch = MOE_FORCED_B if cfg.family == "moe" else 2
         if cfg.family == "moe" and (
@@ -2381,12 +2477,16 @@ def phase_serve_card_vs_cpu():
                 moe._dispatch(batch)) != (moe._gathered, moe._all_experts):
             raise AssertionError("serve card vs cpu: the MoE cases would "
                                  "not compare both expert products")
-        tokens = make_batch(cfg, batch, FORCED_PROMPT + FORCED_STEPS,
-                            seed=1, device="cpu")["tokens"]
+        prompt = (QWEN2VL_FULL_PROMPT if tag == QWEN2VL_FULL_CASE
+                  else FORCED_PROMPT)
+        inputs = make_batch(cfg, batch, prompt + FORCED_STEPS, seed=1,
+                            device="cpu")
+        del inputs["labels"]
         _reset_launches()
-        got, cache_gpu = _teacher_forced(model, params, tokens, DEV)
+        got, cache_gpu = _teacher_forced(model, params, inputs, DEV, prompt)
         k3, k2 = _flash_launches(), _launches()[1]
-        want, cache_cpu = _teacher_forced(model, params_cpu, tokens, "cpu")
+        want, cache_cpu = _teacher_forced(model, params_cpu, inputs, "cpu",
+                                          prompt)
         expect = _expected_launches(cfg)
         if (k3, k2) != expect:
             raise AssertionError(
@@ -2416,10 +2516,12 @@ def phase_serve_card_vs_cpu():
         emit({"phase": "serve_card_vs_cpu", "case": tag, "arch": cfg.name,
               "n_layers": cfg.n_layers, "d_model": cfg.d_model,
               "head_dim": cfg.head_dim, "batch": batch,
-              "prompt_len": FORCED_PROMPT, "forced_steps": FORCED_STEPS,
+              "prompt_len": prompt, "forced_steps": FORCED_STEPS,
               "logits_rel_err_per_step": errs,
               "cache_rel_err": cache_errs, "pos_equal": pos_equal,
               "tolerance": SERVE_TOL, "flash_attention_launches": k3,
+              "attention_wq_wk_scale": (WHISPER_COOL if cfg.family == "audio"
+                                        else 1.0),
               "linear_scan_launches": k2})
         del params, params_cpu
         torch.cuda.empty_cache()
@@ -2429,11 +2531,12 @@ def phase_serve_card_vs_cpu():
 # the serve phases, which --only can run alone
 SERVE_PHASES = ("flash_vs_plain", "serve_path", "serve_path_bf16",
                 "serve_path_phi4", "serve_path_mamba", "serve_path_rgemma",
-                "serve_path_deepseek", "serve_path_kimi")
+                "serve_path_deepseek", "serve_path_kimi",
+                "serve_path_whisper", "serve_path_qwen2vl")
 # the phases --only can run alone (after the build), in this order
 ONLY_PHASES = ("main_path", "assoc_path", "oracle_path", "sweep_path",
                "paper_rows", "residency_path", "chaos_path",
-               "resume_path") + SERVE_PHASES
+               "resume_path") + SERVE_PHASES + ("serve_card_vs_cpu",)
 # the serve paths after serve_path: (phase, architecture, weights' dtype,
 # the config's fields cut)
 SERVE_MODEL_PATHS = (
@@ -2450,7 +2553,19 @@ SERVE_MODEL_PATHS = (
     ("serve_path_deepseek", DEEPSEEK_ARCH, torch.bfloat16, None),
     # Kimi-K2 at full width, 2 layers, in bf16 (~39.9 GB of weights):
     # K3's hd-112 build
-    ("serve_path_kimi", KIMI_ARCH, torch.bfloat16, KIMI_CUT))
+    ("serve_path_kimi", KIMI_ARCH, torch.bfloat16, KIMI_CUT),
+    # Whisper-small at full size in bf16 (0.56 GB of weights): K3
+    # non-causal at (32, 1536, 12, 1, 64) in the encoder, causal in the
+    # decoder; a 1.81 GB cross-K/V cache
+    ("serve_path_whisper", WHISPER_ARCH, torch.bfloat16, None),
+    # Qwen2-VL-72B at full width, 30 layers, in bf16 (57.6 GB of
+    # weights): K3's hd-128 build on M-RoPE-rotated q/k
+    ("serve_path_qwen2vl", QWEN2VL_ARCH, torch.bfloat16, QWEN2VL_CUT))
+# the serve paths whose flash_vs_plain case is the served model's layer-0
+# q/k/v, timed in both types after the serve path (its weights freed):
+# {architecture: (case, causal)}
+LAYER0_CASES = {WHISPER_ARCH: (WHISPER_CASE, False),
+                QWEN2VL_ARCH: (QWEN2VL_CASE, True)}
 
 
 def serve_phases(names):
@@ -2459,20 +2574,20 @@ def serve_phases(names):
     run)."""
     fv, launches = {}, {p: (0, 0) for p in SERVE_PHASES[1:]}
     if "flash_vs_plain" in names or "serve_path" in names:
-        cfg, model, params, tokens, init_s = _serve_setup()
+        cfg, model, params, batch, init_s = _serve_setup()
         if "flash_vs_plain" in names:
-            fv = phase_flash_vs_plain(_layer0_qkv(cfg, params, tokens))
+            fv = phase_flash_vs_plain(_layer0_qkv(cfg, params, batch))
         if "serve_path" in names:
             launches["serve_path"] = phase_serve_path(cfg, model, params,
-                                                      tokens, init_s)
-        del model, params, tokens
+                                                      batch, init_s)
+        del model, params, batch
     for phase, arch, dtype, cut in SERVE_MODEL_PATHS:
         if phase not in names:
             continue
         torch.cuda.empty_cache()
-        cfg, model, params, tokens, init_s = _serve_setup(dtype, arch, cut)
+        cfg, model, params, batch, init_s = _serve_setup(dtype, arch, cut)
         if arch == KIMI_ARCH:  # K3 at hd 112 on the served layer-0 q/k/v
-            qkv = _layer0_qkv(cfg, params, tokens)
+            qkv = _layer0_qkv(cfg, params, batch)
             pos = _arange_pos(SERVE_B, SERVE_PROMPT)
             for dt in (torch.float32, torch.bfloat16):
                 fv[("kimi_model", dt)] = _flash_case(
@@ -2480,10 +2595,22 @@ def serve_phases(names):
                     True, 0, True)
             del qkv
             torch.cuda.empty_cache()
+        qkv = (_layer0_qkv(cfg, params, batch) if arch in LAYER0_CASES
+               else None)
         launches[phase] = phase_serve_path(
-            cfg, model, params, tokens, init_s, dtype,
+            cfg, model, params, batch, init_s, dtype,
             sfx=phase[len("serve_path"):], cut=cut)
-        del model, params, tokens
+        del model, params, batch
+        if qkv is not None:  # K3 on the served layer-0 q/k/v, timed
+            torch.cuda.empty_cache()
+            case, causal = LAYER0_CASES[arch]
+            B, S = qkv[1].shape[:2]
+            pos = _arange_pos(B, S)
+            for dt in (torch.float32, torch.bfloat16):
+                fv[(case, dt)] = _flash_case(
+                    case, *(t.to(dt) for t in qkv), pos, pos, causal, 0,
+                    True, timed=True)
+            del qkv
     return fv, launches
 
 
@@ -2569,6 +2696,8 @@ def main(argv=None) -> int:
         if "resume_path" in only:
             phase_resume_path()
         serve_phases(only)
+        if "serve_card_vs_cpu" in only:
+            phase_serve_card_vs_cpu()
         print(card_line(), flush=True)
         emit({"ok": True, "only": only, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2597,6 +2726,8 @@ def main(argv=None) -> int:
     flash_launches_rgemma, scan_launches_rgemma = served["serve_path_rgemma"]
     flash_launches_deepseek = served["serve_path_deepseek"][0]
     flash_launches_kimi = served["serve_path_kimi"][0]
+    flash_launches_whisper = served["serve_path_whisper"][0]
+    flash_launches_qwen2vl = served["serve_path_qwen2vl"][0]
     # K3's fp32 hd-256 build runs on the card's fp32 RecurrentGemma at
     # full width (serve_card_vs_cpu), once a superblock; its fp32 hd-112
     # build on Kimi-K2's two cases there, once a layer
@@ -2604,6 +2735,11 @@ def main(argv=None) -> int:
     flash_launches_hd256 = card_cpu[(RGEMMA_ARCH, "full_width_4_layers")][0]
     flash_launches_hd112 = sum(card_cpu[(KIMI_ARCH, case)][0] for case in (
         "reduced_hd112", KIMI_FULL_CASE))
+    # and its fp32 hd-64 build at Whisper's full size (12 encoder and 12
+    # decoder layers), its fp32 hd-128 build at Qwen2-VL's full width
+    flash_launches_whisper_f32 = card_cpu[(WHISPER_ARCH, "full_size")][0]
+    flash_launches_qwen2vl_f32 = card_cpu[(QWEN2VL_ARCH,
+                                           QWEN2VL_FULL_CASE)][0]
     if flash_launches_deepseek:
         raise AssertionError(f"serve_path_deepseek launched K3 "
                              f"{flash_launches_deepseek} times (MLA: 0)")
@@ -2742,6 +2878,34 @@ def main(argv=None) -> int:
         _flash_entry("flash_attention_hd112",
                      fv[(KIMI_CASE, torch.float32)], flash_launches_hd112,
                      {"serve_card_vs_cpu": flash_launches_hd112},
+                     "fa_f32.cuh"),
+        # K3 non-causal at Whisper-small's layer-0 encoder q/k/v (12 heads
+        # over 12 KV heads, G 1, hd 64, 1536 frames): bf16 on
+        # serve_path_whisper once an encoder and once a decoder layer of
+        # the prefill (the decoder's causal over its 4 prompt tokens),
+        # fp32 on serve_card_vs_cpu's full-size Whisper
+        _flash_entry("flash_attention_bf16_whisper_enc",
+                     fv[(WHISPER_CASE, torch.bfloat16)],
+                     flash_launches_whisper,
+                     {"serve_path_whisper": flash_launches_whisper},
+                     "fa_bf16.cuh"),
+        _flash_entry("flash_attention_whisper_enc",
+                     fv[(WHISPER_CASE, torch.float32)],
+                     flash_launches_whisper_f32,
+                     {"serve_card_vs_cpu": flash_launches_whisper_f32},
+                     "fa_f32.cuh"),
+        # K3's hd-128 instances at Qwen2-VL-72B's layer 0 (64 heads over 8
+        # KV heads), q/k rotated by M-RoPE: bf16 on serve_path_qwen2vl once
+        # a layer of the prefill, fp32 on serve_card_vs_cpu's full width
+        _flash_entry("flash_attention_bf16_hd128_qwen2vl",
+                     fv[(QWEN2VL_CASE, torch.bfloat16)],
+                     flash_launches_qwen2vl,
+                     {"serve_path_qwen2vl": flash_launches_qwen2vl},
+                     "fa_bf16.cuh"),
+        _flash_entry("flash_attention_hd128_qwen2vl",
+                     fv[(QWEN2VL_CASE, torch.float32)],
+                     flash_launches_qwen2vl_f32,
+                     {"serve_card_vs_cpu": flash_launches_qwen2vl_f32},
                      "fa_f32.cuh")]})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {

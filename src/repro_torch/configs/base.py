@@ -3,8 +3,9 @@
 ``ModelConfig`` keeps the JAX package's field names
 (``repro.configs.base``) for the families the port runs: the paper-scale
 LSTM / CNN, the dense transformer trunk, the MoE family (with or
-without DeepSeek's multi-head latent attention), the Mamba-1 SSM and the
-RG-LRU hybrid.
+without DeepSeek's multi-head latent attention), the Mamba-1 SSM, the
+RG-LRU hybrid, the VLM (M-RoPE and a patch-embedding prefix) and the
+audio encoder-decoder.
 Architectures register in ``ARCHS`` by name and ``get_arch`` builds a
 fresh config; ``reduced()`` derives the same family at CPU-test size,
 exactly as the JAX package's does for these fields.
@@ -24,7 +25,7 @@ ARCHS: Registry["ModelConfig"] = Registry("architecture")
 class ModelConfig:
     # identity
     name: str
-    family: str  # dense | moe | ssm | hybrid | lstm | cnn
+    family: str  # dense | moe | ssm | hybrid | vlm | audio | lstm | cnn
     citation: str = ""
 
     # transformer trunk
@@ -73,6 +74,16 @@ class ModelConfig:
     # long-context variant for dense archs (0 = full attention)
     sliding_window: int = 0
 
+    # multimodal stubs: the (t, h, w) rotary sections of head_dim / 2 and
+    # the patch-embedding prefix (vlm); the encoder's depth and frame
+    # count and the decode horizon (audio)
+    mrope_sections: Tuple[int, ...] = ()
+    n_patches: int = 0
+    is_encoder_decoder: bool = False
+    encoder_layers: int = 0
+    encoder_frames: int = 0
+    max_decode_len: int = 0  # 0 = unlimited
+
     # the JAX package's mesh layout ("tp" | "seqp" | ...): stored as given
     # and read by nothing, the port runs on one card.  Every dense config
     # sets it as its JAX config does; the default is JAX's
@@ -104,6 +115,7 @@ class ModelConfig:
         r = dataclasses.replace(
             self,
             n_layers=min(self.n_layers, min_layers) if self.n_layers else 0,
+            encoder_layers=min(self.encoder_layers, 2),
             d_model=min(self.d_model, 256) if self.d_model else 0,
             d_ff=min(self.d_ff, 512) if self.d_ff else 0,
             d_ff_expert=min(self.d_ff_expert, 128) if self.d_ff_expert else 0,
@@ -122,6 +134,9 @@ class ModelConfig:
                           if self.local_window else 0),
             sliding_window=(min(self.sliding_window, 64)
                             if self.sliding_window else 0),
+            encoder_frames=(min(self.encoder_frames, 16)
+                            if self.encoder_frames else 0),
+            n_patches=min(self.n_patches, 16) if self.n_patches else 0,
             hidden=min(self.hidden, 64) if self.hidden else 0,
         )
         # recompute derived head_dim for the reduced trunk
@@ -129,6 +144,12 @@ class ModelConfig:
             object.__setattr__(r, "head_dim", r.d_model // r.n_heads)
         if r.family == "ssm":
             object.__setattr__(r, "ssm_dt_rank", math.ceil(r.d_model / 16))
+        # the rotary sections re-derived for the reduced head dim: at hd
+        # 64, (0, 16, 16), whose temporal section is empty
+        if r.mrope_sections:
+            t = r.head_dim // 4
+            object.__setattr__(r, "mrope_sections",
+                               (r.head_dim // 2 - 2 * t, t, t))
         return r
 
 

@@ -13,8 +13,12 @@ card every prefill launches one kernel per layer, the flash-attention
 kernel (K3) for a dense model, the linear-recurrence kernel (K2, the
 selective scan) for Falcon-Mamba (``--arch falcon-mamba-7b``), K2
 for each RG-LRU layer and K3 for each local-attention layer of
-RecurrentGemma (``--arch recurrentgemma-9b``), and K3 for each layer of
-a GQA MoE model (``--arch kimi-k2-1t-a32b``); an MLA model (``--arch
+RecurrentGemma (``--arch recurrentgemma-9b``), K3 for each layer of
+a GQA MoE model (``--arch kimi-k2-1t-a32b``) or of Qwen2-VL (``--arch
+qwen2-vl-72b``, whose prompt starts with the stub patch embeddings), and
+K3 for each encoder layer (non-causal) and each decoder layer of Whisper
+(``--arch whisper-small``, over the stub frame embeddings; its
+cross-attention is plain PyTorch); an MLA model (``--arch
 deepseek-v2-lite-16b``) launches none, its prefill attention is plain
 PyTorch as in the JAX package.  Decode launches neither kernel, and the
 stats count both.  Computes in
@@ -43,7 +47,8 @@ from repro_torch.models import Model, build_model, make_batch
 # none)
 _FAMILY_KERNELS = {"dense": ("flash_attention",), "ssm": ("linear_scan",),
                    "hybrid": ("linear_scan", "flash_attention"),
-                   "moe": ("flash_attention",)}
+                   "moe": ("flash_attention",), "vlm": ("flash_attention",),
+                   "audio": ("flash_attention",)}
 
 
 def family_kernels(cfg) -> Tuple[str, ...]:
@@ -61,11 +66,16 @@ def _sample(logits: torch.Tensor, temperature: float,
 
 
 def serve(model: Model, params, tokens, gen: int, *,
+          stubs: Optional[Dict[str, torch.Tensor]] = None,
           temperature: float = 0.0,
           generator: Optional[torch.Generator] = None, device=None
           ) -> Tuple[torch.Tensor, Dict[str, float]]:
     """Prefill ``tokens`` (B, S) and decode ``gen`` tokens.
 
+    ``stubs`` holds the batch's stub embeddings the family reads beside
+    the tokens, ``frames`` (audio) or ``patches`` (vlm); they are moved
+    to ``device`` in the weights' dtype (the JAX code would promote bf16
+    weights against fp32 frames; the port does not).
     ``params`` must lie on ``device`` (``None``: the CUDA card);
     ``temperature > 0`` needs a ``generator`` on that device.  The cache
     holds the S + gen positions the run fills.  Returns the (B,
@@ -80,6 +90,9 @@ def serve(model: Model, params, tokens, gen: int, *,
     if temperature > 0 and generator is None:
         raise ValueError("temperature sampling needs an explicit generator")
     tokens = torch.as_tensor(tokens, dtype=torch.int32).to(dev)
+    wdt = params["embed"]["table"].dtype
+    batch = {"tokens": tokens, **{name: t.to(dev, wdt)
+                                  for name, t in (stubs or {}).items()}}
     B, S = tokens.shape
     on_card = dev.type == "cuda"
     if on_card:  # build the family's kernels outside the timed region
@@ -94,8 +107,7 @@ def serve(model: Model, params, tokens, gen: int, *,
     k3_0 = flash_attention_kernel.launches
     k2_0 = linear_scan_kernel.launches
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, {"tokens": tokens},
-                                  max_len=S + gen)
+    logits, cache = model.prefill(params, batch, max_len=S + gen)
     sync()
     t_prefill = time.perf_counter() - t0
     finite = torch.isfinite(logits).all()
@@ -152,10 +164,13 @@ def main(argv=None) -> Dict:
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed),
                         device=dev)
-    tokens = make_batch(cfg, args.batch, args.prompt_len, args.seed,
-                        device=dev)["tokens"]
+    batch = make_batch(cfg, args.batch, args.prompt_len, args.seed,
+                       device=dev)
+    tokens = batch.pop("tokens")
+    del batch["labels"]
     gen, stats = serve(
-        model, params, tokens, args.gen, temperature=args.temperature,
+        model, params, tokens, args.gen, stubs=batch,
+        temperature=args.temperature,
         generator=torch.Generator(device=dev).manual_seed(args.seed),
         device=dev)
     print("generated token ids (first request):", gen[0][:16].tolist(),

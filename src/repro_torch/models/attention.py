@@ -10,8 +10,10 @@ as it is plain jnp in the JAX package.  MLA's prefill runs
 ``blocked_attention``, plain PyTorch on every device, as every JAX
 branch does (its q/k head dim differs from its v head dim, and K3 never
 sees it); its decode is weight-absorbed, in the latent space.
-Cross-attention (``kv_override``) and M-RoPE positions belong to later
-slices and raise by name.
+Cross-attention (``kv_override``: Whisper's decoder over the encoder
+states) also runs ``blocked_attention`` on every device, as the JAX code
+sends it there under every ``attention_impl``.  M-RoPE (Qwen2-VL)
+rotates q and k when the config has sections and ``mrope_pos`` is given.
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import rope
+from repro_torch.models.layers import mrope, rope
 from repro_torch.models.spec import ParamDef
 
 NEG_INF = -1e30
@@ -152,21 +154,29 @@ def gqa_spec(cfg: ModelConfig):
     return s
 
 
-def _project_qkv(params, x, cfg: ModelConfig):
+def project_q(params, x, cfg: ModelConfig):
     q = torch.einsum("bsd,dhe->bshe", x, params["wq"])
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(q.dtype)
+    return q
+
+
+def _project_qkv(params, x, cfg: ModelConfig):
+    q = project_q(params, x, cfg)
     k = torch.einsum("bsd,dke->bske", x, params["wk"])
     v = torch.einsum("bsd,dke->bske", x, params["wv"])
     if cfg.qkv_bias:
-        q = q + params["bq"].to(q.dtype)
         k = k + params["bk"].to(k.dtype)
         v = v + params["bv"].to(v.dtype)
     return q, k, v
 
 
 def _apply_rope(cfg: ModelConfig, q, k, q_pos, k_pos, mrope_pos=None):
-    if mrope_pos is not None:
-        raise NotImplementedError(
-            "M-RoPE positions (mrope_pos) are not ported yet")
+    """M-RoPE where the config has sections and ``mrope_pos`` (3, B, S)
+    is given, else plain RoPE by ``q_pos`` / ``k_pos``: the JAX rule."""
+    if cfg.mrope_sections and mrope_pos is not None:
+        return (mrope(q, mrope_pos, cfg.mrope_sections, cfg.rope_theta),
+                mrope(k, mrope_pos, cfg.mrope_sections, cfg.rope_theta))
     return rope(q, q_pos, cfg.rope_theta), rope(k, k_pos, cfg.rope_theta)
 
 
@@ -175,28 +185,38 @@ def gqa_forward(params, x, cfg: ModelConfig, *, positions=None,
                 use_rope: bool = True, kv_override=None,
                 return_kv: bool = False):
     """x (B, S, d) -> (B, S, d); with ``return_kv`` also the rotated
-    (k, v, k_positions) for the cache.  Attention runs through
-    ``flash_attention`` (K3 on the card)."""
-    if kv_override is not None:
-        raise NotImplementedError(
-            "cross-attention (kv_override) is not ported yet")
+    (k, v, k_positions) for the cache.  Self-attention runs through
+    ``flash_attention`` (K3 on the card); with ``kv_override = (k, v,
+    k_positions)`` (cross-attention: keys and values given, (B, Skv, KV,
+    hd)) only q is projected, and ``blocked_attention`` attends."""
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=x.device).expand(B, S)
-    q, k, v = _project_qkv(params, x, cfg)
-    if use_rope:
-        q, k = _apply_rope(cfg, q, k, positions, positions, mrope_pos)
-    # head h = kv * G + g reads KV head h // G: the JAX ops' order
-    out = flash_attention(q.reshape(B, S, KV, G, hd), k, v,
-                          q_positions=positions, k_positions=positions,
-                          causal=causal, window=window)
+    if kv_override is not None:
+        q = project_q(params, x, cfg)
+        k, v, k_positions = kv_override
+        if use_rope and not cfg.mrope_sections:
+            q = rope(q, positions, cfg.rope_theta)
+        out = blocked_attention(q.reshape(B, S, KV, G, hd), k, v,
+                                q_positions=positions,
+                                k_positions=k_positions, causal=causal,
+                                window=window)
+    else:
+        q, k, v = _project_qkv(params, x, cfg)
+        if use_rope:
+            q, k = _apply_rope(cfg, q, k, positions, positions, mrope_pos)
+        k_positions = positions
+        # head h = kv * G + g reads KV head h // G: the JAX ops' order
+        out = flash_attention(q.reshape(B, S, KV, G, hd), k, v,
+                              q_positions=positions, k_positions=positions,
+                              causal=causal, window=window)
     out = out.reshape(B, S, H, hd)
     y = torch.einsum("bshe,hed->bsd", out, params["wo"])
     if return_kv:
-        return y, (k, v, positions)
+        return y, (k, v, k_positions)
     return y
 
 

@@ -1,10 +1,9 @@
-"""Serving path of the dense trunk, the MoE family, the Mamba-1 SSM and
-the RG-LRU hybrid: caches, prefill, one-token decode.
+"""Serving path of every transformer family: caches, prefill, one-token
+decode.
 
-Mirrors the dense, moe, ssm and hybrid families of
-``repro.models.decode``.
-Dense caches are fixed-shape: ``min(max_len, window)`` slots per layer
-with absolute-position tags (``INT_SENTINEL`` = unwritten, masked by the
+Mirrors ``repro.models.decode``.  Dense (and vlm) caches are
+fixed-shape: ``min(max_len, window)`` slots per layer with
+absolute-position tags (``INT_SENTINEL`` = unwritten, masked by the
 causal check), circular for the sliding-window variant, stacked over a
 leading layer axis.  Prefill runs every layer's attention through flash
 attention (K3 on the card, one launch per layer).  The SSM cache is the
@@ -21,13 +20,22 @@ an attention layer.  The MoE family's cache is ``{"dense_kv",
 K/V slots as the dense family's for GQA (its prefill launches K3 once a
 layer), or for MLA the compressed latent ``c_kv`` (B, slots,
 kv_lora_rank) and the rotary key ``k_r`` (B, slots, qk_rope_head_dim)
-(its prefill runs ``blocked_attention``, no kernel).  Decode is plain
-PyTorch in all four.
+(its prefill runs ``blocked_attention``, no kernel).  The audio
+family's cache is ``{"self", "cross_k", "cross_v"}``: the decoder's
+self-attention K/V in ``max_len`` slots, and each decoder layer's K/V of
+the encoder states, ``(L, B, F, KV, hd)``, written once by the prefill;
+its prefill launches K3 once an encoder layer (non-causal) and once a
+decoder layer (causal), and runs the cross-attention through
+``blocked_attention``.  The vlm's prefill and decode are the dense
+family's with M-RoPE positions.  Decode is plain PyTorch in every
+family.
 
 One difference from the JAX code, which returns a new cache:
 ``decode_step`` writes the new token's K/V (dense, hybrid) or the new
 recurrent state (ssm, hybrid) into the cache it is given and returns
-that same cache.  On the card a copy of the whole cache per token would
+that same cache (the audio family writes each layer's self-attention
+slot before attending, as JAX does, and leaves the cross K/V as they
+are).  On the card a copy of the whole cache per token would
 double the step's cache traffic.  The new K/V are committed after the
 layer loop (``_commit_kv``), as the dense and GQA-MoE families do in
 JAX; MLA writes each layer's latent slot before attending, as JAX does;
@@ -48,9 +56,11 @@ from repro_torch.models import layers as L
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.transformer import (_embed_inputs, _head_matrix,
+                                            _sinusoidal, _whisper_encode,
                                             attend, check_family,
                                             hybrid_layers, layer, moe_ffn,
-                                            moe_layers)
+                                            moe_layers, whisper_dec_block,
+                                            whisper_decoder_inputs)
 
 INT_SENTINEL = attn.INT_SENTINEL
 
@@ -98,9 +108,22 @@ def _lru_state(cfg: ModelConfig, B: int, dtype, layers: int, device):
     return {k: t.expand((layers,) + t.shape).clone() for k, t in st.items()}
 
 
+def _audio_cache(cfg: ModelConfig, B: int, max_len: int, frames: int,
+                 dtype, device):
+    """The decoder's self-attention K/V in ``max_len`` slots and each
+    decoder layer's cross K/V over ``frames`` encoder states."""
+    cross = (cfg.n_layers, B, frames, cfg.n_kv_heads, cfg.head_dim)
+    return {"self": _gqa_cache(cfg, B, max_len, dtype, cfg.n_layers, device),
+            "cross_k": torch.zeros(cross, dtype=dtype, device=device),
+            "cross_v": torch.zeros(cross, dtype=dtype, device=device)}
+
+
 def init_cache(cfg: ModelConfig, B: int, max_len: int,
                dtype=torch.bfloat16, device=None):
     check_family(cfg)
+    if cfg.family == "audio":
+        return _audio_cache(cfg, B, max_len, cfg.encoder_frames, dtype,
+                            device)
     if cfg.family == "ssm":
         return {"state": _ssm_state(cfg, B, dtype, cfg.n_layers, device)}
     if cfg.family == "hybrid":
@@ -174,16 +197,17 @@ def _ssm_prefill(params, cfg: ModelConfig, x):
     return x, {"state": state}
 
 
-def _dense_prefill(params, cfg: ModelConfig, x, positions, slots: int):
-    """The dense layers over the prompt's embeddings: (final hidden x,
-    the cache with ``slots`` K/V slots a layer)."""
+def _dense_prefill(params, cfg: ModelConfig, x, positions, slots: int,
+                   mrope_pos=None):
+    """The dense (vlm) layers over the prompt's embeddings: (final hidden
+    x, the cache with ``slots`` K/V slots a layer)."""
     kv = _gqa_cache(cfg, x.shape[0], slots, x.dtype, cfg.n_layers, x.device)
     for i in range(cfg.n_layers):
         p = layer(params["blocks"], i)
         hh = L.apply_norm(cfg.norm, p["ln1"], x)
         a, (k, v, kpos) = attn.gqa_forward(
-            p["attn"], hh, cfg, positions=positions, causal=True,
-            window=cfg.sliding_window, return_kv=True)
+            p["attn"], hh, cfg, positions=positions, mrope_pos=mrope_pos,
+            causal=True, window=cfg.sliding_window, return_kv=True)
         x = x + a
         hh = L.apply_norm(cfg.norm, p["ln2"], x)
         x = x + L.mlp(p["mlp"], hh, cfg.act)
@@ -237,13 +261,38 @@ def _moe_prefill(params, cfg: ModelConfig, x, positions, slots: int):
     return x, cache
 
 
+def _audio_prefill(params, cfg: ModelConfig, batch, max_len: int):
+    """Whisper: the encoder over ``batch["frames"]``, then the decoder
+    layers over the tokens: (final hidden x, the cache with the self K/V
+    in ``max_len`` slots and every layer's cross K/V)."""
+    enc = _whisper_encode(params, cfg, batch["frames"])
+    x, positions, enc_pos = whisper_decoder_inputs(params, cfg,
+                                                   batch["tokens"], enc)
+    cache = _audio_cache(cfg, x.shape[0], max_len, enc.shape[1], x.dtype,
+                         x.device)
+    for i in range(cfg.n_layers):
+        x, kv, (kx, vx) = whisper_dec_block(
+            layer(params["dec_blocks"], i), x, cfg, positions, enc, enc_pos)
+        for name, t in _kv_to_cache(*kv, max_len).items():
+            cache["self"][name][i].copy_(t)
+        cache["cross_k"][i].copy_(kx)
+        cache["cross_v"][i].copy_(vx)
+    return x, cache
+
+
 def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None):
     """Returns (last-token logits (B, V), cache).  The cache holds K/V
-    (dense, hybrid, GQA MoE), the latent (MLA) or the conv window (ssm,
-    hybrid) in the compute dtype (the parameters'); the ssm cache ignores
-    ``max_len``."""
+    (dense, vlm, hybrid, GQA MoE, audio), the latent (MLA) or the conv
+    window (ssm, hybrid) in the compute dtype (the parameters'); the ssm
+    cache ignores ``max_len``.  ``batch`` holds the tokens (B, S) and the
+    family's stub embeddings: ``frames`` (audio; in the weights' dtype)
+    or ``patches`` (vlm)."""
     S = batch["tokens"].shape[1]
-    x, positions = _embed_inputs(params, cfg, batch)
+    if cfg.family == "audio":
+        x, cache = _audio_prefill(params, cfg, batch, max_len or S)
+        last = L.apply_norm(cfg.norm, params["final_norm"], x[:, -1])
+        return last @ _head_matrix(params, cfg), cache
+    x, positions, mrope_pos = _embed_inputs(params, cfg, batch)
     if cfg.family == "ssm":
         x, cache = _ssm_prefill(params, cfg, x)
     elif cfg.family == "hybrid":
@@ -254,7 +303,7 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None):
                                 _attn_slots(cfg, max_len or S))
     else:
         x, cache = _dense_prefill(params, cfg, x, positions,
-                                  _attn_slots(cfg, max_len or S))
+                                  _attn_slots(cfg, max_len or S), mrope_pos)
     # the norm is row-wise: normalizing only the last position is exact
     last = L.apply_norm(cfg.norm, params["final_norm"], x[:, -1])
     return last @ _head_matrix(params, cfg), cache
@@ -287,16 +336,17 @@ def _ssm_decode(params, cfg: ModelConfig, state, x):
     return x
 
 
-def _dense_decode(params, cfg: ModelConfig, kv, x, cur_index):
-    """One token through the dense layers; the new K/V of every layer are
-    committed into ``kv`` in place at the end."""
+def _dense_decode(params, cfg: ModelConfig, kv, x, cur_index,
+                  mrope_pos=None):
+    """One token through the dense (vlm) layers; the new K/V of every
+    layer are committed into ``kv`` in place at the end."""
     k_new, v_new = [], []
     for i in range(cfg.n_layers):
         p = layer(params["blocks"], i)
         hh = L.apply_norm(cfg.norm, p["ln1"], x)
         a, (kn, vn) = attn.gqa_decode(
             p["attn"], hh, layer(kv, i), cur_index, cfg,
-            window=cfg.sliding_window, defer_write=True)
+            window=cfg.sliding_window, mrope_pos=mrope_pos, defer_write=True)
         x = x + a
         hh = L.apply_norm(cfg.norm, p["ln2"], x)
         x = x + L.mlp(p["mlp"], hh, cfg.act)
@@ -359,20 +409,64 @@ def _moe_decode(params, cfg: ModelConfig, cache, x, cur_index):
     return x
 
 
+def _audio_decode(params, cfg: ModelConfig, cache, x, cur_index):
+    """One token through Whisper's decoder layers: each layer's new self
+    K/V go into its slot of ``cache["self"]`` in place before it attends
+    (write then attend, as JAX does), then the token attends over every
+    encoder frame (a query position past every frame's) through
+    ``decode_attention``; the cross K/V are only read."""
+    B = x.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    F = cache["cross_k"].shape[2]
+    enc_pos = torch.arange(F, dtype=torch.int32, device=x.device).expand(B, F)
+    far = torch.full((B,), INT_SENTINEL - 1, dtype=torch.int32,
+                     device=x.device)
+    for i in range(cfg.n_layers):
+        p, sc = layer(params["dec_blocks"], i), layer(cache["self"], i)
+        hh = L.apply_norm(cfg.norm, p["ln1"], x)
+        a, new = attn.gqa_decode(p["self"], hh, sc, cur_index, cfg,
+                                 use_rope=False)
+        for name, t in new.items():
+            sc[name].copy_(t)
+        x = x + a
+        hh = L.apply_norm(cfg.norm, p["lnx"], x)
+        q = attn.project_q(p["cross"], hh, cfg)
+        out = attn.decode_attention(
+            q.reshape(B, 1, KV, H // KV, hd), cache["cross_k"][i],
+            cache["cross_v"][i], enc_pos, far).reshape(B, 1, H, hd)
+        x = x + torch.einsum("bshe,hed->bsd", out, p["cross"]["wo"])
+        hh = L.apply_norm(cfg.norm, p["ln2"], x)
+        x = x + L.mlp(p["mlp"], hh, cfg.act)
+    return x
+
+
 def decode_step(params, cfg: ModelConfig, cache, tokens, cur_index):
     """tokens (B, 1) int, cur_index (B,) int -> (logits (B, V), cache);
-    the new token's K/V (dense, hybrid, moe), latent (MLA) or the new
-    recurrent state (ssm, which ignores ``cur_index``, and hybrid) are
-    written into ``cache`` in place."""
+    the new token's K/V (dense, vlm, hybrid, moe, audio), latent (MLA) or
+    the new recurrent state (ssm, which ignores ``cur_index``, and
+    hybrid) are written into ``cache`` in place.  The vlm rotates the
+    token by M-RoPE at t = h = w = cur_index - n_patches + 1; audio adds
+    the sinusoid's row at ``cur_index``, clamped to the self cache's
+    slots as JAX's ``mode="clip"`` does."""
     check_family(cfg)
     x = L.embed(params["embed"], tokens)  # (B, 1, d)
-    if cfg.family == "ssm":
+    if cfg.family == "audio":
+        slots = cache["self"]["k"].shape[2]
+        pe = _sinusoidal(slots, cfg.d_model, torch.float32, x.device)
+        row = pe[cur_index.long().clamp(0, slots - 1)]
+        x = _audio_decode(params, cfg, cache, x + row[:, None].to(x.dtype),
+                          cur_index)
+    elif cfg.family == "ssm":
         x = _ssm_decode(params, cfg, cache["state"], x)
     elif cfg.family == "hybrid":
         x = _hybrid_decode(params, cfg, cache, x, cur_index)
     elif cfg.family == "moe":
         x = _moe_decode(params, cfg, cache, x, cur_index)
     else:
-        x = _dense_decode(params, cfg, cache["kv"], x, cur_index)
+        mrope_pos = None
+        if cfg.family == "vlm":
+            t = (cur_index - cfg.n_patches + 1).to(torch.int32)
+            mrope_pos = t[None, :, None].expand(3, x.shape[0], 1)
+        x = _dense_decode(params, cfg, cache["kv"], x, cur_index, mrope_pos)
     x = L.apply_norm(cfg.norm, params["final_norm"], x)
     return x[:, 0] @ _head_matrix(params, cfg), cache

@@ -1,9 +1,9 @@
-"""Core layer library: norms, MLPs, embeddings, RoPE.
+"""Core layer library: norms, MLPs, embeddings, RoPE and M-RoPE.
 
 Pure functions over explicit parameter dicts in the JAX layouts, with the
 ``*_spec`` companions that declare them, as ``repro.models.layers``.
-Norms and activations compute in fp32 and cast back, as the JAX code
-does.  M-RoPE (Qwen2-VL) belongs to a later slice of the port.
+Norms, activations and rotations compute in fp32 and cast back, as the
+JAX code does.
 """
 from __future__ import annotations
 
@@ -111,15 +111,9 @@ def _rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     return (1.0 / (theta ** (i / half))).to(device)
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor,
-         theta: float = 10000.0) -> torch.Tensor:
-    """Apply rotary embedding.
-
-    x: (..., S, H, hd); positions: broadcastable to (..., S) int.
-    Rotates pairs (x[..., :half], x[..., half:]) -- llama convention.
-    """
-    freqs = _rope_freqs(x.shape[-1], theta, x.device)  # (half,)
-    ang = positions[..., None].to(torch.float32) * freqs  # (..., S, half)
+def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
+    """Rotate the pairs (x[..., :half], x[..., half:]) of x (..., S, H,
+    hd) by the fp32 angles (..., S, half) -- llama convention."""
     cos = torch.cos(ang)[..., None, :]  # (..., S, 1, half)
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
@@ -127,7 +121,47 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def mrope(*_args, **_kwargs):
-    raise NotImplementedError(
-        "M-RoPE (Qwen2-VL multimodal rotary positions) is not ported yet: "
-        "the port runs the dense family's standard RoPE")
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 10000.0) -> torch.Tensor:
+    """Apply rotary embedding.
+
+    x: (..., S, H, hd); positions: broadcastable to (..., S) int.
+    """
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)  # (half,)
+    return _rotate(x, positions[..., None].to(torch.float32) * freqs)
+
+
+def mrope(x: torch.Tensor, positions_thw: torch.Tensor, sections,
+          theta: float) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.
+
+    x: (..., S, H, hd); positions_thw: (3, ..., S) int -- the temporal,
+    height and width position streams.  ``sections`` splits the hd / 2
+    frequency channels into (t, h, w) groups in that order (a group may
+    be empty); each channel rotates by its own group's stream.
+    """
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {half}")
+    freqs = _rope_freqs(x.shape[-1], theta, x.device)  # (half,)
+    ends = [sum(sections[:i + 1]) for i in range(3)]
+    ang = torch.cat([positions_thw[i][..., None].to(torch.float32)
+                     * freqs[end - n:end]
+                     for i, (n, end) in enumerate(zip(sections, ends))],
+                    dim=-1)  # (..., S, half)
+    return _rotate(x, ang)
+
+
+def mrope_positions(n_patches: int, grid_hw: int, seq_len: int, batch: int,
+                    device=None) -> torch.Tensor:
+    """Qwen2-VL's static position layout: one image prefix of
+    ``n_patches`` (grid_hw x grid_hw; t = 0, h = row, w = column), then
+    text (t = h = w = idx - n_patches + 1).  Returns (3, B, S) int32."""
+    idx = torch.arange(seq_len, device=device)
+    is_img = idx < n_patches
+    t = torch.where(is_img, 0, idx - n_patches + 1)
+    h = torch.where(is_img, idx // grid_hw, t)
+    w = torch.where(is_img, idx % grid_hw, t)
+    pos = torch.stack([t, h, w]).to(torch.int32)  # (3, S)
+    return pos[:, None, :].expand(3, batch, seq_len)

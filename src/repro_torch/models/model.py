@@ -1,12 +1,13 @@
 """Model facade: the paper-scale families (``lstm``, ``cnn``), the dense
-transformer trunk (``dense``), the MoE family (``moe``: GQA or MLA
-attention), the Mamba-1 SSM (``ssm``) and the RG-LRU hybrid
-(``hybrid``).
+transformer trunk (``dense``), the VLM (``vlm``: M-RoPE and a patch
+prefix), the MoE family (``moe``: GQA or MLA attention), the Mamba-1 SSM
+(``ssm``), the RG-LRU hybrid (``hybrid``) and the audio encoder-decoder
+(``audio``).
 
 Mirrors ``repro.models.model.Model``: ``init`` / ``loss`` / ``predict``
 over plain parameter dicts in the JAX layouts, plus ``prefill`` /
-``decode_step`` / ``init_cache`` for serving the dense trunk, the MoE
-family, the SSM and the hybrid.  The paper
+``decode_step`` / ``init_cache`` for serving every transformer family.
+The paper
 models' ``loss`` and ``predict`` accept single or client-stacked
 parameters (see ``paper_nets``); a stacked loss is one value per client.
 Entry points run on the CUDA card unless given ``device="cpu"``.
@@ -88,28 +89,32 @@ class Model:
             return pn.cnn_forward(params, batch["x"])
         return tf.logits_fn(params, self.cfg, batch)
 
-    # -- serving (dense trunk, MoE, SSM, hybrid) -------------------------
+    # -- serving (every transformer family) ------------------------------
     def prefill(self, params, batch, max_len: Optional[int] = None):
-        """(last-token logits (B, V), cache); on the card one K3 launch
-        (dense, GQA MoE), one K2 launch (ssm) per layer, none (MLA), or
-        (hybrid) one K2 launch per RG-LRU layer and one K3 launch per
-        attention layer."""
+        """(last-token logits (B, V), cache); ``batch`` holds ``tokens``
+        and the family's stub, ``frames`` (audio, in the weights' dtype)
+        or ``patches`` (vlm).  On the card one K3 launch (dense, vlm, GQA
+        MoE), one K2 launch (ssm) per layer, none (MLA), (hybrid) one K2
+        launch per RG-LRU layer and one K3 launch per attention layer, or
+        (audio) one K3 launch per encoder and per decoder layer."""
         return dec.prefill(params, self.cfg, batch, max_len)
 
     def decode_step(self, params, cache, tokens, cur_index):
-        """(logits (B, V), cache); writes the new K/V (dense, hybrid,
-        moe), latent (MLA) or recurrent state (ssm, hybrid) into
-        ``cache``."""
+        """(logits (B, V), cache); writes the new K/V (dense, vlm,
+        hybrid, moe, audio), latent (MLA) or recurrent state (ssm,
+        hybrid) into ``cache``."""
         return dec.decode_step(params, self.cfg, cache, tokens, cur_index)
 
     def init_cache(self, batch_size: int, max_len: int,
                    dtype=torch.bfloat16, device=None):
-        """Dense, GQA MoE: K/V slots for ``max_len`` positions (the
+        """Dense, vlm, GQA MoE: K/V slots for ``max_len`` positions (the
         window's for the sliding-window variant); MLA: latent slots;
         ssm: the recurrent state, whose size
         does not depend on ``max_len``; hybrid: the RG-LRU layers' state
         and the attention layers' rings of ``min(max_len,
-        local_window)`` slots."""
+        local_window)`` slots; audio: the decoder's self K/V in
+        ``max_len`` slots and the cross K/V of ``encoder_frames``
+        encoder states a layer."""
         return dec.init_cache(self.cfg, batch_size, max_len, dtype,
                               resolve_device(device))
 
@@ -127,13 +132,22 @@ def build_model(cfg: ModelConfig) -> Model:
 
 
 def make_batch(cfg: ModelConfig, B: int, S: int, seed: int = 0,
-               device=None) -> Dict[str, torch.Tensor]:
-    """Random token batch (tokens, labels: (B, S) int32 in [0, vocab))
-    drawn with numpy from ``seed``, on ``device`` (``None``: the card).
-    Tests hand the same numpy tokens to both packages."""
+               device=None, dtype: torch.dtype = torch.float32
+               ) -> Dict[str, torch.Tensor]:
+    """Random batch drawn with numpy from ``seed``, on ``device``
+    (``None``: the card): tokens and labels, (B, S) int32 in [0, vocab),
+    then the family's stub as standard normals in ``dtype``, ``frames``
+    (B, encoder_frames, d) for audio or ``patches`` (B, n_patches, d)
+    for vlm.  Tests hand the same numpy draws to both packages."""
     tf.check_family(cfg)
     rng = np.random.default_rng(seed)
     dev = resolve_device(device)
-    return {name: torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
-                               dtype=torch.int32, device=dev)
-            for name in ("tokens", "labels")}
+    out = {name: torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                              dtype=torch.int32, device=dev)
+           for name in ("tokens", "labels")}
+    stub = {"audio": ("frames", cfg.encoder_frames),
+            "vlm": ("patches", cfg.n_patches)}.get(cfg.family)
+    if stub:
+        x = rng.standard_normal((B, stub[1], cfg.d_model), dtype=np.float32)
+        out[stub[0]] = torch.from_numpy(x).to(device=dev, dtype=dtype)
+    return out

@@ -1,16 +1,17 @@
-"""Model assembly for the dense transformer trunk, the MoE family (GQA or
-MLA attention), the Mamba-1 SSM and the RG-LRU hybrid.
+"""Model assembly for every transformer family of the JAX package: the
+dense trunk, the VLM (the dense trunk with M-RoPE and a patch-embedding
+prefix), the MoE family (GQA or MLA attention), the Mamba-1 SSM, the
+RG-LRU hybrid and the audio encoder-decoder (Whisper).
 
-Mirrors the dense, moe, ssm and hybrid families of
-``repro.models.transformer``: the per-layer parameters stay stacked with
-a leading layer axis, under ``"blocks"`` (dense, ssm), under
-``"dense_blocks"`` (the leading dense layers) and ``"moe_blocks"``
-(moe), or under ``"superblocks"`` (each an (rglru, rglru, attn) triple)
-and ``"tail"`` (the trailing rglru layers) for the hybrid, the JAX
+Mirrors ``repro.models.transformer``: the per-layer parameters stay
+stacked with a leading layer axis, under ``"blocks"`` (dense, vlm, ssm),
+under ``"dense_blocks"`` (the leading dense layers) and ``"moe_blocks"``
+(moe), under ``"superblocks"`` (each an (rglru, rglru, attn) triple) and
+``"tail"`` (the trailing rglru layers) for the hybrid, or under
+``"enc_blocks"``, ``"enc_norm"`` and ``"dec_blocks"`` (audio), the JAX
 layout, so ``params_from_numpy`` carries a JAX tree across leaf for
 leaf.  The forward walks them with a Python loop over views where the
-JAX code scans.  The other families (VLM, audio) belong to later slices
-of the port and raise by name.
+JAX code scans.
 """
 from __future__ import annotations
 
@@ -26,16 +27,14 @@ from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.spec import stack_spec
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            "the port runs the dense transformer, the MoE (GQA or MLA), the "
-            f"Mamba-1 SSM and the RG-LRU hybrid families; {cfg.name!r} is "
-            f"{cfg.family!r}, not ported yet (VLM and audio come in later "
-            "slices)")
+    if cfg.family not in FAMILIES:
+        raise ValueError(
+            f"unknown family {cfg.family!r} of {cfg.name!r}: the transformer "
+            f"families are {', '.join(FAMILIES)}")
 
 
 def _attn_spec(cfg: ModelConfig):
@@ -78,6 +77,19 @@ def hybrid_superblock_spec(cfg: ModelConfig):
             "a": _mix_mlp_spec(cfg, attn.gqa_spec(cfg))}
 
 
+def enc_block_spec(cfg: ModelConfig):
+    return dense_block_spec(cfg)
+
+
+def dec_block_spec(cfg: ModelConfig):
+    return {"ln1": L.norm_spec(cfg.norm, cfg.d_model),
+            "self": attn.gqa_spec(cfg),
+            "lnx": L.norm_spec(cfg.norm, cfg.d_model),
+            "cross": attn.gqa_spec(cfg),
+            "ln2": L.norm_spec(cfg.norm, cfg.d_model),
+            "mlp": L.mlp_spec(cfg.d_model, cfg.d_ff, cfg.act)}
+
+
 def build_spec(cfg: ModelConfig) -> Dict[str, Any]:
     check_family(cfg)
     V, d = cfg.vocab_size, cfg.d_model
@@ -100,6 +112,12 @@ def build_spec(cfg: ModelConfig) -> Dict[str, Any]:
         spec["moe_blocks"] = stack_spec(moe_block_spec(cfg),
                                         cfg.n_layers - nd)
         return spec
+    if cfg.family == "audio":
+        spec["enc_blocks"] = stack_spec(enc_block_spec(cfg),
+                                        cfg.encoder_layers)
+        spec["enc_norm"] = L.norm_spec(cfg.norm, d)
+        spec["dec_blocks"] = stack_spec(dec_block_spec(cfg), cfg.n_layers)
+        return spec
     block = ssm_block_spec if cfg.family == "ssm" else dense_block_spec
     spec["blocks"] = stack_spec(block(cfg), cfg.n_layers)
     return spec
@@ -112,19 +130,23 @@ def layer(stacked, i: int):
     return {k: layer(v, i) for k, v in stacked.items()}
 
 
-def attend(p, h, cfg: ModelConfig, *, positions=None, window=0,
-           return_kv: bool = False):
-    """The layer's causal self-attention: MLA or GQA (K3 on the card)."""
+def attend(p, h, cfg: ModelConfig, *, positions=None, mrope_pos=None,
+           window=0, return_kv: bool = False):
+    """The layer's causal self-attention: MLA or GQA (K3 on the card),
+    rotated by ``mrope_pos`` where the config has M-RoPE sections."""
     if cfg.use_mla:
         return attn.mla_forward(p, h, cfg, positions=positions,
                                 window=window, return_kv=return_kv)
-    return attn.gqa_forward(p, h, cfg, positions=positions, causal=True,
-                            window=window, return_kv=return_kv)
+    return attn.gqa_forward(p, h, cfg, positions=positions,
+                            mrope_pos=mrope_pos, causal=True, window=window,
+                            return_kv=return_kv)
 
 
-def _dense_block(p, x, cfg: ModelConfig, *, positions=None, window=0):
+def _dense_block(p, x, cfg: ModelConfig, *, positions=None, mrope_pos=None,
+                 window=0):
     h = L.apply_norm(cfg.norm, p["ln1"], x)
-    x = x + attend(p["attn"], h, cfg, positions=positions, window=window)
+    x = x + attend(p["attn"], h, cfg, positions=positions,
+                   mrope_pos=mrope_pos, window=window)
     h = L.apply_norm(cfg.norm, p["ln2"], x)
     return x + L.mlp(p["mlp"], h, cfg.act)
 
@@ -189,19 +211,111 @@ def hybrid_layers(tree, cfg: ModelConfig):
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch):
-    """tokens -> (x, positions)."""
+    """tokens (+ the vlm's patch stub) -> (x, positions, mrope_pos): the
+    vlm's ``n_patches`` patch embeddings, cast to the embedding's dtype,
+    take the first token rows, and its (3, B, S) M-RoPE positions lay
+    them out on a square grid; other families' ``mrope_pos`` is None."""
     check_family(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = L.embed(params["embed"], tokens)
+    mrope_pos = None
+    if cfg.family == "vlm":
+        P = cfg.n_patches
+        if S < P:  # the JAX code fails on the shape mismatch
+            raise ValueError(f"a vlm prompt of {S} positions is shorter "
+                             f"than its {P}-patch prefix")
+        x = torch.cat([batch["patches"].to(x.dtype), x[:, P:]], dim=1)
+        mrope_pos = L.mrope_positions(P, int(P ** 0.5), S, B, x.device)
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
-    return x, positions
+    return x, positions, mrope_pos
+
+
+def _sinusoidal(seq: int, d: int, dtype, device=None) -> torch.Tensor:
+    """Whisper's (seq, d) sinusoidal positions: sin on the even columns,
+    cos on the odd, in fp32 as the JAX code computes them, then cast."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    step = -torch.log(torch.tensor(10000.0)) / d  # fp32, as jnp.log
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32) * step)
+    ang = pos * div.to(device)
+    pe = torch.stack([torch.sin(ang), torch.cos(ang)], dim=-1)
+    return pe.reshape(seq, d).to(dtype)
+
+
+def _whisper_encode(params, cfg: ModelConfig, frames) -> torch.Tensor:
+    """frames (B, F, d), the stub frontend's embeddings in the weights'
+    dtype -> encoder states: the sinusoid added in the frames' dtype,
+    then per layer non-causal self-attention without RoPE (K3 on the
+    card) and the MLP, then ``enc_norm``."""
+    wdt = params["embed"]["table"].dtype
+    if frames.dtype != wdt:  # JAX would promote; the port does not
+        raise TypeError(f"frames are {frames.dtype}, the weights {wdt}: "
+                        "feed the frames in the weights' dtype")
+    B, F, d = frames.shape
+    x = frames + _sinusoidal(F, d, frames.dtype, frames.device)
+    for i in range(cfg.encoder_layers):
+        p = layer(params["enc_blocks"], i)
+        h = L.apply_norm(cfg.norm, p["ln1"], x)
+        x = x + attn.gqa_forward(p["attn"], h, cfg, causal=False,
+                                 use_rope=False)
+        h = L.apply_norm(cfg.norm, p["ln2"], x)
+        x = x + L.mlp(p["mlp"], h, cfg.act)
+    return L.apply_norm(cfg.norm, params["enc_norm"], x)
+
+
+def whisper_decoder_inputs(params, cfg: ModelConfig, tokens, enc):
+    """(x, positions, enc_pos) of Whisper's decoder: the token embeddings
+    plus the fp32 sinusoid cast to their dtype, and the arange positions
+    of the tokens and of the encoder's frames."""
+    B, S = tokens.shape
+    x = L.embed(params["embed"], tokens)
+    x = x + _sinusoidal(S, cfg.d_model, torch.float32, x.device).to(x.dtype)
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    F = enc.shape[1]
+    enc_pos = torch.arange(F, dtype=torch.int32,
+                           device=x.device).expand(B, F)
+    return x, positions, enc_pos
+
+
+def whisper_dec_block(p, x, cfg: ModelConfig, positions, enc, enc_pos):
+    """One decoder layer over the tokens: causal self-attention without
+    RoPE (K3 on the card), cross-attention over the encoder states
+    (``blocked_attention``), the MLP.  Returns (x, the self-attention's
+    (k, v, positions), the cross (k, v))."""
+    h = L.apply_norm(cfg.norm, p["ln1"], x)
+    a, kv = attn.gqa_forward(p["self"], h, cfg, positions=positions,
+                             causal=True, use_rope=False, return_kv=True)
+    x = x + a
+    h = L.apply_norm(cfg.norm, p["lnx"], x)
+    c = p["cross"]
+    kx = torch.einsum("bsd,dke->bske", enc, c["wk"])
+    vx = torch.einsum("bsd,dke->bske", enc, c["wv"])
+    if cfg.qkv_bias:
+        kx = kx + c["bk"].to(kx.dtype)
+        vx = vx + c["bv"].to(vx.dtype)
+    x = x + attn.gqa_forward(c, h, cfg, causal=False, use_rope=False,
+                             kv_override=(kx, vx, enc_pos))
+    h = L.apply_norm(cfg.norm, p["ln2"], x)
+    return x + L.mlp(p["mlp"], h, cfg.act), kv, (kx, vx)
+
+
+def _whisper_hidden(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    enc = _whisper_encode(params, cfg, batch["frames"])
+    x, positions, enc_pos = whisper_decoder_inputs(params, cfg,
+                                                   batch["tokens"], enc)
+    for i in range(cfg.n_layers):
+        x = whisper_dec_block(layer(params["dec_blocks"], i), x, cfg,
+                              positions, enc, enc_pos)[0]
+    return L.apply_norm(cfg.norm, params["final_norm"], x)
 
 
 def forward_hidden(params, cfg: ModelConfig, batch) -> torch.Tensor:
-    """Token inputs -> final hidden states (B, S, d)."""
-    x, positions = _embed_inputs(params, cfg, batch)
+    """Token (and stub) inputs -> final hidden states (B, S, d)."""
+    if cfg.family == "audio":
+        return _whisper_hidden(params, cfg, batch)
+    x, positions, mrope_pos = _embed_inputs(params, cfg, batch)
     if cfg.family == "hybrid":
         for kind, p in hybrid_layers(params, cfg):
             x = _hybrid_sub(p, x, cfg, kind)
@@ -220,7 +334,7 @@ def forward_hidden(params, cfg: ModelConfig, batch) -> torch.Tensor:
                 p["mamba"], L.apply_norm(cfg.norm, p["ln"], x), cfg)
         else:
             x = _dense_block(p, x, cfg, positions=positions,
-                             window=cfg.sliding_window)
+                             mrope_pos=mrope_pos, window=cfg.sliding_window)
     return L.apply_norm(cfg.norm, params["final_norm"], x)
 
 

@@ -336,17 +336,41 @@ def test_params_from_numpy_carries_nested_trees_as_copies():
 
 
 def test_unported_features_raise_by_name():
+    """Cross-attention (``kv_override``) and M-RoPE positions on TinyLlama
+    match the JAX ``gqa_forward``: a config without M-RoPE sections
+    rotates by plain RoPE whatever ``mrope_pos`` says, and cross-attention
+    rotates only q.  A family the JAX package lacks raises by name, and
+    the transformer's training loss still raises (the training slice)."""
+    from repro.models import attention as jattn
+
     cfg = get_arch("tinyllama-1.1b").reduced()
-    with pytest.raises(NotImplementedError, match="vlm"):
-        build_model(dataclasses.replace(cfg, family="vlm"))
-    _, _, tm, p = _pair("tinyllama-1.1b")
-    x = torch.zeros(1, 4, cfg.d_model)
-    a = p["blocks"]["attn"]
-    a0 = {k: v[0] for k, v in a.items()}
-    with pytest.raises(NotImplementedError, match="kv_override"):
-        attn.gqa_forward(a0, x, cfg, kv_override=(x, x, x))
-    with pytest.raises(NotImplementedError, match="mrope"):
-        attn.gqa_forward(a0, x, cfg, mrope_pos=torch.zeros(3, 1, 4))
+    with pytest.raises(ValueError, match="nonesuch"):
+        build_model(dataclasses.replace(cfg, family="nonesuch"))
+    jm, w, tm, p = _pair("tinyllama-1.1b")
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2, 6, cfg.d_model)).astype(np.float32)
+    k = rng.standard_normal((2, 9, cfg.n_kv_heads, cfg.head_dim)).astype(
+        np.float32)
+    kpos = np.broadcast_to(np.arange(9, dtype=np.int32), (2, 9)).copy()
+    mpos = np.broadcast_to(np.arange(6, dtype=np.int32)[::-1],
+                           (3, 2, 6)).copy()
+    ja = jax.tree.map(lambda a: jnp.asarray(a[0]), w["blocks"]["attn"])
+    ta = {n: t[0] for n, t in p["blocks"]["attn"].items()}
+    for kw in ({"kv_override": (k, 2 * k, kpos), "causal": False},
+               {"mrope_pos": mpos}):
+        want = jattn.gqa_forward(ja, jnp.asarray(x), jm.cfg, LOCAL, **{
+            n: (tuple(map(jnp.asarray, v)) if isinstance(v, tuple)
+                else jnp.asarray(v) if isinstance(v, np.ndarray) else v)
+            for n, v in kw.items()})
+        got = attn.gqa_forward(ta, torch.tensor(x), cfg, **{
+            n: (tuple(map(torch.tensor, v)) if isinstance(v, tuple)
+                else torch.tensor(v) if isinstance(v, np.ndarray) else v)
+            for n, v in kw.items()})
+        assert _rel(got, want) < TOL, sorted(kw)
+    assert torch.equal(
+        attn.gqa_forward(ta, torch.tensor(x), cfg,
+                         mrope_pos=torch.tensor(mpos)),
+        attn.gqa_forward(ta, torch.tensor(x), cfg))
     with pytest.raises(NotImplementedError, match="training"):
         tm.loss(p, make_batch(cfg, 1, 4, device="cpu"))
 
