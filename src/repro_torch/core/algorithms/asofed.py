@@ -125,7 +125,7 @@ class AsoFedStrategy(Strategy):
         # build_fold over a whole tick: one launch on the card
         if not cfg.feature_learning:
             return None
-        first = first_layer_path(cfg_model)
+        (first,) = first_layer_path(cfg_model)  # a flat paper model
 
         def fold_tick(server, delta, idx, n_vis, t_arr, n_real, reps=None):
             w, n, received = feature_fold(server["w"], delta, first,

@@ -6,6 +6,11 @@ from repro_torch.data.synthetic import (
     fitrec_like,
     fmnist_like,
 )
+from repro_torch.data.partition import (dirichlet_partition,
+                                        label_sorted_partition)
+from repro_torch.data.lm import (batches_from_tokens,
+                                 federated_token_clients,
+                                 synthetic_token_stream)
 
 __all__ = [
     "airquality_like",
@@ -14,4 +19,9 @@ __all__ = [
     "fitrec_like",
     "fmnist_like",
     "DATASETS",
+    "dirichlet_partition",
+    "label_sorted_partition",
+    "synthetic_token_stream",
+    "federated_token_clients",
+    "batches_from_tokens",
 ]

@@ -7,6 +7,11 @@ called through ``ctypes`` on PyTorch's current stream.  It reads the
 model's layout directly (q ``(B, Sq, KV, G, hd)``, k/v ``(B, Skv, KV,
 hd)``), so no transposed copies are made around it.
 
+The kernel computes the forward pass only: the wrapper refuses inputs
+that require grad under grad mode rather than return an output with no
+autograd history.  Training takes the plain attention
+(``gqa_forward(..., attention="blocked")``, what ``Model.loss`` does).
+
 ``flash_attention_kernel.launches`` counts the launches this process
 made; a run that resets it to 0 and reads it afterwards can show that its
 main path went through the kernel.
@@ -88,7 +93,14 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, Sq, KV, G, hd), k/v: (B, Skv, KV, hd), positions (B, Sq) /
     (B, Skv) int32, all contiguous on one CUDA device, q/k/v fp32 or bf16
     -> attention output (B, Sq, KV, G, hd) in q's dtype, with scores
-    scaled by 1 / sqrt(hd).  Raises on anything else."""
+    scaled by 1 / sqrt(hd).  Raises on anything else, and where grad mode
+    is on and q, k or v requires grad."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_kernel has no backward, and its output would "
+            "train with missing gradients: training on the card takes the "
+            "plain attention (gqa_forward(..., attention='blocked'), as "
+            "Model.loss does)")
     _check(q, k, v, q_positions, k_positions)
     B, Sq, KV, G, hd = q.shape
     out = torch.empty_like(q)

@@ -5,6 +5,11 @@ The kernel (``csrc/linear_scan.cu``) replaces the Pallas TPU kernel
 with ``nvcc`` at first use (``repro_torch.kernels.build``) and called
 through ``ctypes`` on PyTorch's current stream.
 
+The kernel computes the forward recurrence only: the wrapper refuses
+inputs that require grad under grad mode rather than return states with
+no autograd history, so the SSM and hybrid models do not train on the
+card until the scan has a backward.
+
 ``linear_scan_kernel.launches`` counts the launches this process made; a
 run that resets it to 0 and reads it afterwards can show that its main
 path went through the kernel.
@@ -38,7 +43,12 @@ def linear_scan_kernel(a: torch.Tensor, b: torch.Tensor
     """a: (B, S, C) or (B, S, 1) (broadcast over C), b: (B, S, C), both
     contiguous CUDA tensors of one dtype (fp32 or bf16) -> (h (B, S, C),
     h_last (B, C)) in that dtype, from a zero carry.  Raises on anything
-    else."""
+    else, and where grad mode is on and a or b requires grad."""
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        raise RuntimeError(
+            "linear_scan_kernel has no backward, and its states would train "
+            "with missing gradients: a backward scan is later work, so the "
+            "SSM and hybrid models (Mamba, RG-LRU) train on the CPU only")
     if not (a.is_cuda and b.is_cuda):
         raise ValueError(
             f"linear_scan_kernel needs CUDA tensors, got {a.device} and "

@@ -3,9 +3,13 @@ decode) and DeepSeek-style multi-head latent attention (MLA).
 
 Mirrors ``repro.models.attention`` on one card: the JAX code's
 ``DistContext`` argument is gone (its ``constrain`` is a no-op off a
-mesh) and its ``attention_impl`` switch becomes the port's dispatch — a
-CUDA tensor runs the hand-written flash-attention kernel (K3), a CPU
-tensor its plain version.  One-token decode attention is plain PyTorch,
+mesh) and its ``attention_impl`` switch becomes ``gqa_forward``'s
+``attention``: ``"flash"`` (serving) is the port's dispatch — a CUDA
+tensor runs the hand-written flash-attention kernel (K3), a CPU tensor
+its plain version — and ``"blocked"`` (training, JAX's ``"xla"``) runs
+``blocked_attention`` on every device, under autograd: K3 has no
+backward, and its wrapper refuses inputs that require grad.  One-token
+decode attention is plain PyTorch,
 as it is plain jnp in the JAX package.  MLA's prefill runs
 ``blocked_attention``, plain PyTorch on every device, as every JAX
 branch does (its q/k head dim differs from its v head dim, and K3 never
@@ -29,6 +33,9 @@ from repro_torch.models.spec import ParamDef
 
 NEG_INF = -1e30
 INT_SENTINEL = 2 ** 31 - 1
+# gqa_forward's self-attention: "flash" (the flash_attention dispatcher:
+# K3 on the card) or "blocked" (blocked_attention, differentiable)
+ATTENTIONS = ("flash", "blocked")
 
 
 def _pick_block(s_kv: int, target: int = 1024) -> int:
@@ -55,8 +62,8 @@ def blocked_attention(q, k, v, *, q_positions, k_positions,
     hd), k (B, Skv, KV, hd), v (B, Skv, KV, vd) (the value dim may differ
     from the key dim), positions (B, Sq) / (B, Skv) int -> (B, Sq, KV, G,
     vd) in q's dtype.  The JAX function's block choice and arithmetic,
-    block by block; each block's scores are masked, exponentiated and
-    rescaled in place."""
+    block by block, out of place (differentiable: the training loss runs
+    it under autograd)."""
     B, Sq, KV, G, hd = q.shape
     S_kv = k.shape[1]
     vd = v.shape[-1]
@@ -75,16 +82,16 @@ def blocked_attention(q, k, v, *, q_positions, k_positions,
         vi = v[:, t0:t0 + blk].to(torch.float32)
         kp = k_positions[:, t0:t0 + blk].to(torch.int64)[:, None, None,
                                                           None, :]
-        s = torch.einsum("bqkgd,btkd->bqkgt", q32, ki).mul_(scale)
+        s = torch.einsum("bqkgd,btkd->bqkgt", q32, ki) * scale
         mask = torch.ones((1, 1, 1, 1, 1), dtype=torch.bool,
                           device=q.device)
         if causal:
             mask = mask & (kp <= qp)
         if window > 0:
             mask = mask & ((qp - kp) < window)
-        s.masked_fill_(~mask, NEG_INF)
+        s = s.masked_fill(~mask, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
-        p = s.sub_(m_new[..., None]).exp_()
+        p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
         pv = torch.einsum("bqkgt,btkd->bqkgd", p, vi)
@@ -183,12 +190,16 @@ def _apply_rope(cfg: ModelConfig, q, k, q_pos, k_pos, mrope_pos=None):
 def gqa_forward(params, x, cfg: ModelConfig, *, positions=None,
                 mrope_pos=None, causal: bool = True, window: int = 0,
                 use_rope: bool = True, kv_override=None,
-                return_kv: bool = False):
+                return_kv: bool = False, attention: str = "flash"):
     """x (B, S, d) -> (B, S, d); with ``return_kv`` also the rotated
     (k, v, k_positions) for the cache.  Self-attention runs through
-    ``flash_attention`` (K3 on the card); with ``kv_override = (k, v,
-    k_positions)`` (cross-attention: keys and values given, (B, Skv, KV,
-    hd)) only q is projected, and ``blocked_attention`` attends."""
+    ``flash_attention`` (K3 on the card) with ``attention="flash"`` and
+    through ``blocked_attention`` with ``"blocked"`` (training); with
+    ``kv_override = (k, v, k_positions)`` (cross-attention: keys and
+    values given, (B, Skv, KV, hd)) only q is projected, and
+    ``blocked_attention`` attends either way."""
+    if attention not in ATTENTIONS:
+        raise ValueError(f"attention={attention!r}: one of {ATTENTIONS}")
     B, S, _ = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // KV
@@ -210,9 +221,11 @@ def gqa_forward(params, x, cfg: ModelConfig, *, positions=None,
             q, k = _apply_rope(cfg, q, k, positions, positions, mrope_pos)
         k_positions = positions
         # head h = kv * G + g reads KV head h // G: the JAX ops' order
-        out = flash_attention(q.reshape(B, S, KV, G, hd), k, v,
-                              q_positions=positions, k_positions=positions,
-                              causal=causal, window=window)
+        attend = (flash_attention if attention == "flash"
+                  else blocked_attention)
+        out = attend(q.reshape(B, S, KV, G, hd), k, v,
+                     q_positions=positions, k_positions=positions,
+                     causal=causal, window=window)
     out = out.reshape(B, S, H, hd)
     y = torch.einsum("bshe,hed->bsd", out, params["wo"])
     if return_kv:

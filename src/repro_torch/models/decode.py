@@ -255,7 +255,7 @@ def _moe_prefill(params, cfg: ModelConfig, x, positions, slots: int):
         x = x + a
         hh = L.apply_norm(cfg.norm, p["ln2"], x)
         x = x + (L.mlp(p["mlp"], hh, cfg.act) if kind == "dense"
-                 else moe_ffn(p, hh, cfg))
+                 else moe_ffn(p, hh, cfg)[0])
         for name, t in entry.items():
             c[name].copy_(t)
     return x, cache
@@ -401,7 +401,7 @@ def _moe_decode(params, cfg: ModelConfig, cache, x, cur_index):
         x = x + a
         hh = L.apply_norm(cfg.norm, p["ln2"], x)
         x = x + (L.mlp(p["mlp"], hh, cfg.act) if kind == "dense"
-                 else moe_ffn(p, hh, cfg))
+                 else moe_ffn(p, hh, cfg)[0])
     for kind, (ks, vs) in new.items():
         if ks:
             _commit_kv(cache[f"{kind}_kv"], torch.stack(ks), torch.stack(vs),

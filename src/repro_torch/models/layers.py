@@ -1,4 +1,5 @@
-"""Core layer library: norms, MLPs, embeddings, RoPE and M-RoPE.
+"""Core layer library: norms, MLPs, embeddings, RoPE and M-RoPE, and the
+chunked cross-entropy the training loss takes.
 
 Pure functions over explicit parameter dicts in the JAX layouts, with the
 ``*_spec`` companions that declare them, as ``repro.models.layers``.
@@ -95,6 +96,36 @@ def embed(params, tokens: torch.Tensor) -> torch.Tensor:
 
 def lm_head_spec(d: int, vocab: int):
     return {"w": ParamDef((d, vocab), init="fan_in")}
+
+
+def chunked_softmax_xent(x: torch.Tensor, head_w: torch.Tensor,
+                         labels: torch.Tensor, n_chunks: int = 8,
+                         mask=None) -> torch.Tensor:
+    """Mean token cross-entropy of x (B, S, d) through ``head_w`` (d, V)
+    against ``labels`` (B, S) int, over ``n_chunks`` sequence chunks (one
+    when S does not divide): each chunk's logits are formed in fp32 and
+    reduced to ``logsumexp`` minus the label's logit before the next
+    chunk's, and the masked sum is divided by the mask's count (at least
+    1), as ``repro.models.layers.chunked_softmax_xent`` (its mesh-only
+    ``constrain`` is not ported)."""
+    B, S, D = x.shape
+    if S % n_chunks:
+        n_chunks = 1
+    xc = x.reshape(B, n_chunks, S // n_chunks, D).transpose(0, 1)
+    lc = labels.reshape(B, n_chunks, S // n_chunks).transpose(0, 1).long()
+    mc = (torch.ones(lc.shape, dtype=torch.float32, device=x.device)
+          if mask is None else
+          mask.reshape(B, n_chunks, S // n_chunks).transpose(0, 1)
+          .to(torch.float32))
+    tot = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for xi, li, mi in zip(xc, lc, mc):
+        logits = (xi @ head_w).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, li[..., None])[..., 0]
+        tot = tot + torch.sum((lse - ll) * mi)
+        cnt = cnt + torch.sum(mi)
+    return tot / torch.clamp(cnt, min=1.0)
 
 
 # ---------------------------------------------------------------------------

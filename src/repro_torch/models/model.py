@@ -5,7 +5,8 @@ prefix), the MoE family (``moe``: GQA or MLA attention), the Mamba-1 SSM
 (``audio``).
 
 Mirrors ``repro.models.model.Model``: ``init`` / ``loss`` / ``predict``
-over plain parameter dicts in the JAX layouts, plus ``prefill`` /
+over plain parameter dicts in the JAX layouts (``loss`` for every
+family, the transformer's the training loss), plus ``prefill`` /
 ``decode_step`` / ``init_cache`` for serving every transformer family.
 The paper
 models' ``loss`` and ``predict`` accept single or client-stacked
@@ -68,10 +69,14 @@ class Model:
         return out
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict]:
+        """(loss, metrics).  A transformer's is ``transformer.loss_fn``:
+        the chunked cross-entropy plus 0.01 x the MoE load-balance term,
+        metrics ``{"ce", "aux"}``, on the plain ``blocked_attention``
+        (differentiable on every device).  Its Mamba and RG-LRU
+        recurrences reach K2 on the card, which refuses inputs that
+        require grad: SSM and hybrid models train on the CPU only."""
         if self.cfg.family not in PAPER_FAMILIES:
-            raise NotImplementedError(
-                "the transformer's training loss belongs to the training "
-                "slice of the port; this slice serves it")
+            return tf.loss_fn(params, self.cfg, batch)
         pred = self.predict(params, batch)
         task = batch.get("task", "regression")
         if self.cfg.family == "cnn" or task == "classification":

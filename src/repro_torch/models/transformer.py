@@ -12,6 +12,16 @@ under ``"dense_blocks"`` (the leading dense layers) and ``"moe_blocks"``
 layout, so ``params_from_numpy`` carries a JAX tree across leaf for
 leaf.  The forward walks them with a Python loop over views where the
 JAX code scans.
+
+``forward_hidden`` takes the self-attention as ``attention``: ``"flash"``
+(K3 on the card; the serve path and ``logits_fn``) or ``"blocked"``
+(``blocked_attention``, what ``loss_fn`` trains on, as the JAX package
+trains on XLA's).  The Mamba and RG-LRU recurrences have one route,
+``kernels/linear_scan/ops.py::linear_scan``, the counterpart of both JAX
+scan branches: its plain recurrence on the CPU, which autograd
+differentiates, and K2 on the card, which has no backward and refuses
+inputs that require grad, so SSM and hybrid models do not train on the
+card.
 """
 from __future__ import annotations
 
@@ -28,6 +38,8 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.spec import stack_spec
 
 FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
+# the weight of the MoE load-balance term in the training loss
+AUX_LOSS_WEIGHT = 0.01
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -131,40 +143,46 @@ def layer(stacked, i: int):
 
 
 def attend(p, h, cfg: ModelConfig, *, positions=None, mrope_pos=None,
-           window=0, return_kv: bool = False):
-    """The layer's causal self-attention: MLA or GQA (K3 on the card),
-    rotated by ``mrope_pos`` where the config has M-RoPE sections."""
+           window=0, return_kv: bool = False, attention: str = "flash"):
+    """The layer's causal self-attention: MLA (``blocked_attention``
+    whatever ``attention`` says) or GQA (``attention`` as in
+    ``gqa_forward``), rotated by ``mrope_pos`` where the config has
+    M-RoPE sections."""
     if cfg.use_mla:
         return attn.mla_forward(p, h, cfg, positions=positions,
                                 window=window, return_kv=return_kv)
     return attn.gqa_forward(p, h, cfg, positions=positions,
                             mrope_pos=mrope_pos, causal=True, window=window,
-                            return_kv=return_kv)
+                            return_kv=return_kv, attention=attention)
 
 
 def _dense_block(p, x, cfg: ModelConfig, *, positions=None, mrope_pos=None,
-                 window=0):
+                 window=0, attention: str = "flash"):
     h = L.apply_norm(cfg.norm, p["ln1"], x)
     x = x + attend(p["attn"], h, cfg, positions=positions,
-                   mrope_pos=mrope_pos, window=window)
+                   mrope_pos=mrope_pos, window=window, attention=attention)
     h = L.apply_norm(cfg.norm, p["ln2"], x)
     return x + L.mlp(p["mlp"], h, cfg.act)
 
 
 def moe_ffn(p, h, cfg: ModelConfig):
-    """The MoE layer's feed-forward on the normed input: the routed
-    experts plus the shared MLP."""
-    y, _ = moe_lib.moe_forward(p["moe"], h, cfg)
+    """The MoE layer's feed-forward on the normed input, the routed
+    experts plus the shared MLP, and the routing's load-balance term."""
+    y, aux = moe_lib.moe_forward(p["moe"], h, cfg)
     if cfg.n_shared_experts:
         y = y + L.mlp(p["shared"], h, cfg.act)
-    return y
+    return y, aux
 
 
-def _moe_block(p, x, cfg: ModelConfig, *, positions=None):
+def _moe_block(p, x, cfg: ModelConfig, *, positions=None,
+               attention: str = "flash"):
+    """(x after the layer, its load-balance term)."""
     h = L.apply_norm(cfg.norm, p["ln1"], x)
-    x = x + attend(p["attn"], h, cfg, positions=positions)
+    x = x + attend(p["attn"], h, cfg, positions=positions,
+                   attention=attention)
     h = L.apply_norm(cfg.norm, p["ln2"], x)
-    return x + moe_ffn(p, h, cfg)
+    y, aux = moe_ffn(p, h, cfg)
+    return x + y, aux
 
 
 def moe_layers(tree, cfg: ModelConfig):
@@ -180,7 +198,8 @@ def moe_layers(tree, cfg: ModelConfig):
                for i in range(cfg.n_layers - nd)])
 
 
-def _hybrid_sub(p, x, cfg: ModelConfig, kind: str):
+def _hybrid_sub(p, x, cfg: ModelConfig, kind: str,
+                attention: str = "flash"):
     """One hybrid layer: the mixer (RG-LRU, or local attention over the
     last ``local_window`` positions) and the MLP, each pre-normed and
     residual."""
@@ -189,7 +208,7 @@ def _hybrid_sub(p, x, cfg: ModelConfig, kind: str):
         m = rglru_lib.rglru_forward(p["mix"], h, cfg)
     else:
         m = attn.gqa_forward(p["mix"], h, cfg, causal=True,
-                             window=cfg.local_window)
+                             window=cfg.local_window, attention=attention)
     x = x + m
     h = L.apply_norm(cfg.norm, p["ln2"], x)
     return x + L.mlp(p["mlp"], h, cfg.act)
@@ -243,11 +262,13 @@ def _sinusoidal(seq: int, d: int, dtype, device=None) -> torch.Tensor:
     return pe.reshape(seq, d).to(dtype)
 
 
-def _whisper_encode(params, cfg: ModelConfig, frames) -> torch.Tensor:
+def _whisper_encode(params, cfg: ModelConfig, frames,
+                    attention: str = "flash") -> torch.Tensor:
     """frames (B, F, d), the stub frontend's embeddings in the weights'
     dtype -> encoder states: the sinusoid added in the frames' dtype,
-    then per layer non-causal self-attention without RoPE (K3 on the
-    card) and the MLP, then ``enc_norm``."""
+    then per layer non-causal self-attention without RoPE (``attention``
+    as in ``gqa_forward``: K3 on the card by default) and the MLP, then
+    ``enc_norm``."""
     wdt = params["embed"]["table"].dtype
     if frames.dtype != wdt:  # JAX would promote; the port does not
         raise TypeError(f"frames are {frames.dtype}, the weights {wdt}: "
@@ -258,7 +279,7 @@ def _whisper_encode(params, cfg: ModelConfig, frames) -> torch.Tensor:
         p = layer(params["enc_blocks"], i)
         h = L.apply_norm(cfg.norm, p["ln1"], x)
         x = x + attn.gqa_forward(p["attn"], h, cfg, causal=False,
-                                 use_rope=False)
+                                 use_rope=False, attention=attention)
         h = L.apply_norm(cfg.norm, p["ln2"], x)
         x = x + L.mlp(p["mlp"], h, cfg.act)
     return L.apply_norm(cfg.norm, params["enc_norm"], x)
@@ -279,14 +300,17 @@ def whisper_decoder_inputs(params, cfg: ModelConfig, tokens, enc):
     return x, positions, enc_pos
 
 
-def whisper_dec_block(p, x, cfg: ModelConfig, positions, enc, enc_pos):
+def whisper_dec_block(p, x, cfg: ModelConfig, positions, enc, enc_pos,
+                      attention: str = "flash"):
     """One decoder layer over the tokens: causal self-attention without
-    RoPE (K3 on the card), cross-attention over the encoder states
+    RoPE (``attention`` as in ``gqa_forward``: K3 on the card by
+    default), cross-attention over the encoder states
     (``blocked_attention``), the MLP.  Returns (x, the self-attention's
     (k, v, positions), the cross (k, v))."""
     h = L.apply_norm(cfg.norm, p["ln1"], x)
     a, kv = attn.gqa_forward(p["self"], h, cfg, positions=positions,
-                             causal=True, use_rope=False, return_kv=True)
+                             causal=True, use_rope=False, return_kv=True,
+                             attention=attention)
     x = x + a
     h = L.apply_norm(cfg.norm, p["lnx"], x)
     c = p["cross"]
@@ -301,41 +325,51 @@ def whisper_dec_block(p, x, cfg: ModelConfig, positions, enc, enc_pos):
     return x + L.mlp(p["mlp"], h, cfg.act), kv, (kx, vx)
 
 
-def _whisper_hidden(params, cfg: ModelConfig, batch) -> torch.Tensor:
-    enc = _whisper_encode(params, cfg, batch["frames"])
+def _whisper_hidden(params, cfg: ModelConfig, batch,
+                    attention: str = "flash") -> torch.Tensor:
+    enc = _whisper_encode(params, cfg, batch["frames"], attention)
     x, positions, enc_pos = whisper_decoder_inputs(params, cfg,
                                                    batch["tokens"], enc)
     for i in range(cfg.n_layers):
         x = whisper_dec_block(layer(params["dec_blocks"], i), x, cfg,
-                              positions, enc, enc_pos)[0]
+                              positions, enc, enc_pos, attention)[0]
     return L.apply_norm(cfg.norm, params["final_norm"], x)
 
 
-def forward_hidden(params, cfg: ModelConfig, batch) -> torch.Tensor:
-    """Token (and stub) inputs -> final hidden states (B, S, d)."""
+def forward_hidden(params, cfg: ModelConfig, batch,
+                   attention: str = "flash"):
+    """Token (and stub) inputs -> (final hidden states (B, S, d), aux):
+    aux is the fp32 sum of the MoE layers' load-balance terms (0 for
+    the other families), as the JAX ``forward_hidden`` returns it."""
     if cfg.family == "audio":
-        return _whisper_hidden(params, cfg, batch)
+        x = _whisper_hidden(params, cfg, batch, attention)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
     x, positions, mrope_pos = _embed_inputs(params, cfg, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "hybrid":
         for kind, p in hybrid_layers(params, cfg):
-            x = _hybrid_sub(p, x, cfg, kind)
-        return L.apply_norm(cfg.norm, params["final_norm"], x)
-    if cfg.family == "moe":
+            x = _hybrid_sub(p, x, cfg, kind, attention)
+    elif cfg.family == "moe":
         for kind, p in moe_layers(params, cfg):
             if kind == "dense":
-                x = _dense_block(p, x, cfg, positions=positions)
+                x = _dense_block(p, x, cfg, positions=positions,
+                                 attention=attention)
             else:
-                x = _moe_block(p, x, cfg, positions=positions)
-        return L.apply_norm(cfg.norm, params["final_norm"], x)
-    for i in range(cfg.n_layers):
-        p = layer(params["blocks"], i)
-        if cfg.family == "ssm":
-            x = x + ssm_lib.mamba_forward(
-                p["mamba"], L.apply_norm(cfg.norm, p["ln"], x), cfg)
-        else:
-            x = _dense_block(p, x, cfg, positions=positions,
-                             mrope_pos=mrope_pos, window=cfg.sliding_window)
-    return L.apply_norm(cfg.norm, params["final_norm"], x)
+                x, block_aux = _moe_block(p, x, cfg, positions=positions,
+                                          attention=attention)
+                aux = aux + block_aux
+    else:
+        for i in range(cfg.n_layers):
+            p = layer(params["blocks"], i)
+            if cfg.family == "ssm":
+                x = x + ssm_lib.mamba_forward(
+                    p["mamba"], L.apply_norm(cfg.norm, p["ln"], x), cfg)
+            else:
+                x = _dense_block(p, x, cfg, positions=positions,
+                                 mrope_pos=mrope_pos,
+                                 window=cfg.sliding_window,
+                                 attention=attention)
+    return L.apply_norm(cfg.norm, params["final_norm"], x), aux
 
 
 def _head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
@@ -344,5 +378,17 @@ def _head_matrix(params, cfg: ModelConfig) -> torch.Tensor:
     return params["lm_head"]["w"]
 
 
+def loss_fn(params, cfg: ModelConfig, batch, attention: str = "blocked"):
+    """(ce + AUX_LOSS_WEIGHT * aux, {"ce", "aux"}): the chunked token
+    cross-entropy against ``batch["labels"]`` (masked by
+    ``batch["mask"]`` where given) through the head, on hidden states
+    formed with ``attention`` (``"blocked"``: differentiable on every
+    device)."""
+    x, aux = forward_hidden(params, cfg, batch, attention)
+    ce = L.chunked_softmax_xent(x, _head_matrix(params, cfg),
+                                batch["labels"], mask=batch.get("mask"))
+    return ce + AUX_LOSS_WEIGHT * aux, {"ce": ce, "aux": aux}
+
+
 def logits_fn(params, cfg: ModelConfig, batch) -> torch.Tensor:
-    return forward_hidden(params, cfg, batch) @ _head_matrix(params, cfg)
+    return forward_hidden(params, cfg, batch)[0] @ _head_matrix(params, cfg)

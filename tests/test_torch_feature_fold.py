@@ -102,7 +102,7 @@ def test_ref_bitwise_equals_former_loop(name, case):
     args = _torch(*_tick(shapes, S, n_real, repeat))
     cfg = get_workload(name).run_config()
     want = _old_loop(model, cfg_model, cfg, *args, n_real)
-    got = feature_fold(*args[:1], args[1], first_layer_path(cfg_model),
+    got = feature_fold(*args[:1], args[1], first_layer_path(cfg_model)[0],
                        *args[2:], n_real)
     assert torch.equal(got[1], want[1])
     for part in (0, 2):
@@ -149,7 +149,7 @@ def test_ref_matches_jax_sequential_scan(name, case, lowering):
     w_j, n_j, rec_j = _jax_scan(name, *inputs, n_real,
                                 lowering == "pallas_interpret")
     w_t, n_t, rec_t = feature_fold_ref(
-        *_torch(*inputs)[:2], first_layer_path(cfg_model),
+        *_torch(*inputs)[:2], first_layer_path(cfg_model)[0],
         *_torch(*inputs)[2:], n_real)
     np.testing.assert_array_equal(n_t.numpy(), n_j)
     for k in shapes:
@@ -344,7 +344,7 @@ def test_ref_with_reps_matches_jax_sequential_scan(name, pattern, lowering):
     w_j, n_j, rec_j = _jax_scan_reps(name, *inputs, reps,
                                      lowering == "pallas_interpret")
     w_t, n_t, rec_t = feature_fold(
-        *_torch(*inputs)[:2], first_layer_path(cfg_model),
+        *_torch(*inputs)[:2], first_layer_path(cfg_model)[0],
         *_torch(*inputs)[2:], n_real, reps=torch.tensor(reps))
     np.testing.assert_array_equal(n_t.numpy(), n_j)
     for k in shapes:
@@ -365,7 +365,7 @@ def test_reps_none_bitwise_equals_reps_all_ones(name, case):
     S, n_real, repeat = CASES[case]
     cfg_model, _, shapes = _shapes(name)
     args = _torch(*_tick(shapes, S, n_real, repeat, seed=4))
-    first = first_layer_path(cfg_model)
+    (first,) = first_layer_path(cfg_model)
     want = feature_fold(args[0], args[1], first, *args[2:], n_real)
     got = feature_fold(args[0], args[1], first, *args[2:], n_real,
                        reps=torch.ones(S, dtype=torch.int32))

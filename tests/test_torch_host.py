@@ -1,6 +1,7 @@
 """The port's copies of the numpy host layer replay the JAX package's
-draws exactly: synthetic data bitwise, the async arrival stream event for
-event, the staging buffers byte for byte."""
+draws exactly: synthetic data bitwise, the language-model token streams
+and the partitions bitwise, the async arrival stream event for event,
+the staging buffers byte for byte."""
 import dataclasses
 
 import numpy as np
@@ -90,4 +91,46 @@ def test_tick_builder_stages_the_same_window():
     (aw, tw, mw), (ag, tg, mg) = blocks
     assert tg == tw and mg == mw
     for g, w in zip(ag, aw):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_token_streams_are_bitwise_equal():
+    """``data/lm.py``: the domain chains, each client's stream and the
+    batches cut from it."""
+    from repro.data import lm as jax_lm
+    from repro_torch.data import lm as port_lm
+
+    np.testing.assert_array_equal(
+        port_lm.synthetic_token_stream(700, 3_000, domain_seed=2, seed=5),
+        jax_lm.synthetic_token_stream(700, 3_000, domain_seed=2, seed=5))
+    got = port_lm.federated_token_clients(5, 300, 2_000, n_domains=3, seed=1)
+    want = jax_lm.federated_token_clients(5, 300, 2_000, n_domains=3, seed=1)
+    assert len(got) == len(want) == 5
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    for i, s in enumerate(got):
+        gi = port_lm.batches_from_tokens(s, 3, 17, seed=i)
+        wi = jax_lm.batches_from_tokens(want[i], 3, 17, seed=i)
+        for _ in range(4):
+            gb, wb = next(gi), next(wi)
+            assert sorted(gb) == sorted(wb) == ["labels", "tokens"]
+            for k in gb:
+                assert gb[k].dtype == wb[k].dtype
+                np.testing.assert_array_equal(gb[k], wb[k])
+
+
+@pytest.mark.parametrize("kind,kw", [
+    ("dirichlet_partition", dict(alpha=0.3, seed=2)),
+    ("dirichlet_partition", dict(alpha=5.0, seed=0)),
+    ("label_sorted_partition", dict(shards_per_client=2, seed=2)),
+    ("label_sorted_partition", dict(shards_per_client=3, seed=0))])
+def test_partitions_are_bitwise_equal(kind, kw):
+    """``data/partition.py``: the same index lists for the same labels."""
+    labels = np.random.default_rng(4).integers(0, 7, 500)
+    got = getattr(port_data, kind)(labels, 6, **kw)
+    want = getattr(jax_data, kind)(labels, 6, **kw)
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
