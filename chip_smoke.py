@@ -96,10 +96,22 @@ drives the port's paths through its entry points:
   under autograd, the ASO-Fed transform, the fold and one per-row K1
   launch a fold over the (151936, 896) token embedding, gated on the
   first local step lowering its batch's loss and changing it over the
-  step by what its gradient predicts, then one more step profiled; ``train_card_vs_cpu`` holds
-  its full width at 2 layers against the CPU, and ``quickstart_path``
-  runs the quickstart (reduced TinyLlama, 24 rounds, then K3 once a
-  layer of the prefill).
+  step by what its gradient predicts, then one more step profiled;
+* ``train_path_mamba``: the same loop on Falcon-Mamba-7B at full width
+  (d_inner 8192, N 16, vocab 65024, tied) with its depth cut to 4 of 64
+  layers, from the seed-0 weights as drawn: a gradient runs K2 and its
+  backward kernel once a layer at (8, 128, 131072) fp32, a fold one
+  per-row K1 launch over the (65024, 4096) embedding; gated on the first
+  local step as train_path, then one step profiled;
+* ``train_step_rgemma``: one loss and gradient of RecurrentGemma-9B at
+  full width, depth cut to one (rglru, rglru, attn) period, batch 8 x
+  128 (K2 and its backward twice at (8, 128, 4096)), gated on the
+  central difference along its first ASO-Fed step; its whole loop does
+  not fit one card at this width;
+* ``train_card_vs_cpu`` holds train_path's full width at 2 layers,
+  Falcon-Mamba's at 2 layers (its gradient, then its loop) and
+  RecurrentGemma's gradient at 3 against the CPU, and ``quickstart_path`` runs the quickstart (reduced
+  TinyLlama, 24 rounds, then K3 once a layer of the prefill).
 
 Before the paths, ``fold_vs_plain`` holds ``feature_fold`` against its
 plain version (the per-arrival loop) and times it beside the per-arrival
@@ -112,9 +124,10 @@ and the card's prefill and teacher-forced decode logits and caches
 against the CPU's (TinyLlama, Falcon-Mamba, RecurrentGemma, whose
 reduced config wraps its local-attention ring on the card,
 DeepSeek-V2-Lite, Kimi-K2, Whisper and Qwen2-VL).
-``scan_vs_plain`` also holds K2 at the Mamba and RG-LRU prefills' shapes
-bit for bit against its plain version, before any model's weights are
-on the card.  Prints one JSON
+``scan_vs_plain`` also holds K2 at the Mamba and RG-LRU prefills' and
+training paths' shapes bit for bit against its plain version, and K2's
+backward kernel at the training shapes against its plain reverse loop,
+before any model's weights are on the card.  Prints one JSON
 line per phase, then a ``{"kernels": [...]}`` line, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line; without a CUDA card it
@@ -154,9 +167,13 @@ FEATURE_SHAPES = [(8, 256), (32, 32), (9, 32), (8, 32), (100, 33), (9, 129),
 # rows reach |out| of 8-32, where one fp32 ulp is already 1e-6 to 4e-6:
 # an absolute 1e-6 would demand bitwise-equal reductions.
 TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}
-# K1 at train_path's first layer, Qwen2-0.5B's (vocab, d) token embedding
-# (544.6 MB in fp32), timed over fewer calls a graph (~0.3-0.5 ms each)
-EMBED_TABLE, EMBED_REPS = (151936, 896), 20
+# K1 at the training paths' first layer, the (vocab, d) token embedding:
+# Qwen2-0.5B's (544.6 MB in fp32, train_path) and Falcon-Mamba-7B's
+# (1.065 GB, 16 KB rows, train_path_mamba), timed over fewer calls a
+# graph (~0.3-0.8 ms each); {case: shape}
+EMBED_TABLES = {"embed_table": (151936, 896),
+                "embed_table_mamba": (65024, 4096)}
+EMBED_REPS = 20
 # linear recurrence (K2) cases: (shape, a broadcast over C).  The main
 # path's carrier leaves at its S=64 bucket (paper LSTM at hidden 64:
 # w_x, w_h, b, fc_w, fc_b), tests/test_kernels.py's grid, S=1 and a
@@ -286,6 +303,18 @@ def scan_bound(a: torch.Tensor, b: torch.Tensor):
                                                            "operations")
 
 
+def scan_backward_bound(shape, with_last: bool):
+    """(bound_ms, bound_by) of the reverse recurrence on fp32 (B, S, C):
+    a, h and dh (and dh_last) read once, da and db written once, over HBM
+    bandwidth, against a multiply, an add and a multiply an element."""
+    B, S, C = shape
+    nbytes = (5 * B * S * C + (B * C if with_last else 0)) * 4
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = 3 * B * S * C / FP32_OPS_PER_S * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms,
+                                                           "operations")
+
+
 def phase_build():
     from repro_torch.kernels import build
 
@@ -342,9 +371,21 @@ def phase_kernel_vs_plain():
                        "bound_ms": bound_ms, "bound_by": bound_by}
                 emit(rec)
                 rows_out[(tuple(shape), dtype, normalize)] = rec
-    # train_path's feature pass: Qwen2-0.5B's (151936, 896) fp32 token
+    # the training paths' feature pass on the (vocab, d) fp32 token
     # embedding, drawn as its init (N(0, 0.02)), once a fold
-    w = torch.randn(EMBED_TABLE, generator=torch.Generator(
+    for case, table in EMBED_TABLES.items():
+        rows_out[case] = _embed_table_case(case, table)
+    return rows_out
+
+
+def _embed_table_case(case: str, table):
+    """K1 against its plain version at a training path's embedding."""
+    from repro_torch.kernels.feature_attention.kernel import (
+        feature_attention_kernel)
+    from repro_torch.kernels.feature_attention.ref import (
+        feature_attention_ref)
+
+    w = torch.randn(table, generator=torch.Generator(
         device="cuda").manual_seed(0), device="cuda").mul_(0.02)
     got = feature_attention_kernel(w, True)
     want = feature_attention_ref(w, True)
@@ -355,11 +396,11 @@ def phase_kernel_vs_plain():
     if not err < tol:
         raise AssertionError(
             f"feature_attention kernel disagrees with its plain version at "
-            f"the embedding table {EMBED_TABLE}: max abs err {err} "
+            f"the embedding table {table}: max abs err {err} "
             f"(tolerance {tol})")
-    bound_ms, bound_by = feature_bound(*EMBED_TABLE, 4)
+    bound_ms, bound_by = feature_bound(*table, 4)
     rec = {"phase": "kernel_vs_plain", "kernel": "feature_attention",
-           "case": "embed_table", "shape": list(EMBED_TABLE),
+           "case": case, "shape": list(table),
            "dtype": str(torch.float32), "normalize": True,
            "max_abs_err": err, "tolerance": tol,
            "ms": device_ms(lambda: feature_attention_kernel(w, True),
@@ -370,10 +411,9 @@ def phase_kernel_vs_plain():
                               EMBED_REPS),
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     emit(rec)
-    rows_out["embed_table"] = rec
     del w
     torch.cuda.empty_cache()
-    return rows_out
+    return rec
 
 
 def _scan_case(a, b, check_tol: float):
@@ -441,7 +481,75 @@ def phase_scan_vs_plain():
                                          MAMBA_SCAN_REPS)
     rows_out["rglru"] = _model_scan_case("rglru_prefill", RGEMMA_SCAN_SHAPE,
                                          RGEMMA_SCAN_REPS)
+    for key, case, shape in (("mamba_train", "mamba_train",
+                              MAMBA_TRAIN_SCAN),
+                             ("rglru_train", "rglru_train",
+                              RGEMMA_TRAIN_SCAN)):
+        rows_out[key], rows_out[key + "_backward"] = _train_scan_case(
+            case, shape)
     return rows_out
+
+
+def _train_scan_case(case: str, shape):
+    """K2's forward and backward kernels at a training path's scan, fp32,
+    drawn on the card: a uniform in (0.5, 0.999), b, the gradient dh of h
+    and dh_last of h_last N(0, 1).  Each is held bit for bit against its
+    plain version (the forward's plain loop, ``linear_scan_backward_ref``)
+    and timed with SCAN_TRAIN_REPS launches a graph; no PyTorch call
+    computes either (torch.cumsum only the a = 1 forward), so
+    ``library_ms`` is None.  Returns (forward record, backward record)."""
+    from repro_torch.kernels.linear_scan.kernel import (
+        linear_scan_backward_kernel, linear_scan_kernel)
+    from repro_torch.kernels.linear_scan.ref import (
+        linear_scan_backward_ref, linear_scan_ref)
+
+    B, S, C = shape
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    a = torch.rand((B, S, C), generator=gen, device=DEV).mul_(0.499).add_(0.5)
+    b = torch.randn((B, S, C), generator=gen, device=DEV)
+    dh = torch.randn((B, S, C), generator=gen, device=DEV)
+    dh_last = torch.randn((B, C), generator=gen, device=DEV)
+    h, h_last = linear_scan_kernel(a, b)
+    want, want_last = linear_scan_ref(a, b)
+    torch.cuda.synchronize()
+    fwd_bitwise = torch.equal(h, want) and torch.equal(h_last, want_last)
+    fwd_err = max(_max_abs_diff(h, want), _max_abs_diff(h_last, want_last))
+    del want, want_last
+    da, db = linear_scan_backward_kernel(a, h, dh, dh_last)
+    want_da, want_db = linear_scan_backward_ref(a, h, dh, dh_last)
+    torch.cuda.synchronize()
+    bwd_bitwise = torch.equal(da, want_da) and torch.equal(db, want_db)
+    bwd_err = max(_max_abs_diff(da, want_da), _max_abs_diff(db, want_db))
+    finite = bool(torch.isfinite(h_last).all() and torch.isfinite(da).all())
+    del da, db, want_da, want_db, h_last
+    if not (fwd_bitwise and bwd_bitwise and finite):
+        raise AssertionError(
+            f"linear_scan at the {case} shape {shape} fp32: forward bit for "
+            f"bit {fwd_bitwise} (max abs err {fwd_err}), backward bit for "
+            f"bit {bwd_bitwise} (max abs err {bwd_err}), finite {finite}")
+    out = []
+    for kernel, err, kern, plain, (bound_ms, bound_by) in (
+            ("linear_scan", fwd_err, lambda: linear_scan_kernel(a, b),
+             lambda: linear_scan_ref(a, b), scan_bound(a, b)),
+            ("linear_scan_backward", bwd_err,
+             lambda: linear_scan_backward_kernel(a, h, dh, dh_last),
+             lambda: linear_scan_backward_ref(a, h, dh, dh_last),
+             scan_backward_bound(shape, True))):
+        rec = {"phase": "kernel_vs_plain", "kernel": kernel, "case": case,
+               "shape": [B, S, C], "dtype": str(torch.float32),
+               "a": "uniform(0.5, 0.999)", "bitwise": True,
+               "max_abs_err": err, "tolerance": 0.0,
+               "ms": device_ms(kern, reps=SCAN_TRAIN_REPS),
+               "call_ms": call_ms(kern, reps=SCAN_TRAIN_REPS),
+               # the plain loops issue ~2-5 ops a step: one call a graph
+               "plain_ms": device_ms(plain, reps=1),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": None}
+        emit(rec)
+        out.append(rec)
+    del a, b, dh, dh_last, h
+    torch.cuda.empty_cache()
+    return tuple(out)
 
 
 def _max_abs_diff(x: torch.Tensor, y: torch.Tensor) -> float:
@@ -760,8 +868,9 @@ def _reset_launches():
     feature_attention_kernel.launches = 0
     linear_scan_kernel.launches = 0
     flash_attention_kernel.launches = 0
-    if _fold_kernel() is not None:
-        _fold_kernel().launches = 0
+    for k in (_fold_kernel(), _scan_backward_kernel()):
+        if k is not None:
+            k.launches = 0
 
 
 def _launches():
@@ -778,6 +887,20 @@ def _fold_launches() -> int:
     the fused fold)."""
     fk = _fold_kernel()
     return 0 if fk is None else fk.launches
+
+
+def _scan_backward_kernel():
+    """K2's backward wrapper, or None in an older checkout's package."""
+    from repro_torch.kernels.linear_scan import kernel
+
+    return getattr(kernel, "linear_scan_backward_kernel", None)
+
+
+def _scan_backward_launches() -> int:
+    """K2 backward launches since the last reset (0 in a package without
+    the backward kernel)."""
+    k = _scan_backward_kernel()
+    return 0 if k is None else k.launches
 
 
 def _flash_launches() -> int:
@@ -1871,7 +1994,13 @@ DEV = "cuda"
 SERVE_ARCH = "tinyllama-1.1b"
 # prompt + generated = 2048, TinyLlama's whole context
 SERVE_B, SERVE_PROMPT, SERVE_GEN = 8, 2016, 32
-SERVE_REPEATS = 2
+# serve() runs of a path timed after its warm-up: one, so that the
+# training phases fit the script's time (PERF.md §4)
+SERVE_REPEATS = 1
+# tokens the warm-up serve() generates: the prefill and one decode step
+# warm cuBLAS, the allocator and every decode kernel; the path's whole
+# decode (32, Whisper's 124) cost the script ~21 s (PERF.md §4)
+SERVE_WARMUP_GEN = 2
 # serve_path_phi4's architecture (head dim 128) and its flash_vs_plain case
 PHI4_ARCH, PHI4_CASE = "phi4-mini-3.8b", "phi4_layer0"
 # serve_path_mamba's architecture, and K2 at its prefill's scan: (B, S,
@@ -1880,11 +2009,12 @@ PHI4_ARCH, PHI4_CASE = "phi4-mini-3.8b", "phi4_layer0"
 MAMBA_ARCH = "falcon-mamba-7b"
 MAMBA_SCAN_SHAPE = (SERVE_B, SERVE_PROMPT, 8192 * 16)
 MAMBA_SCAN_REPS = 5
-# decode steps of every serve path's profiled run: the profiler's cost
-# grows with the eager ops of each decode step (~3,000 a step over
-# Falcon-Mamba's 64 layers: ~85 s for 32 steps; phi4-mini's 32 took 65
-# s); the kernels' shares of the prefill need none of them
-SERVE_PROFILE_GEN = 4
+# tokens of every serve path's profiled run (the prefill and one decode
+# step; 4 before PR 25): the profiler's cost grows with the eager ops of
+# each decode step (~3,000 a step over Falcon-Mamba's 64 layers: ~85 s
+# for 32 steps; phi4-mini's 32 took 65 s); the kernels' shares of the
+# prefill need none of them
+SERVE_PROFILE_GEN = 2
 # serve_path_rgemma's architecture (RG-LRU + local MQA hybrid, head dim
 # 256), its flash_vs_plain cases and K2 at its prefill's RG-LRU scan:
 # (B, S, lru_width) = (8, 2016, 4096)
@@ -2266,8 +2396,8 @@ def phase_serve_path(cfg, model, params, batch, init_s: float,
     ``batch`` (tokens and stubs) of the architecture's serve shape: the
     family's kernels (K3 for a dense model, K2 for the SSM, both for the
     hybrid) once per layer of the prefill, no kernel in decode; the rates
-    of SERVE_REPEATS runs; then one profiled run of SERVE_PROFILE_GEN
-    decode steps.  Phases ``serve_path``,
+    of SERVE_REPEATS runs after a warm-up of SERVE_WARMUP_GEN tokens;
+    then one profiled run of SERVE_PROFILE_GEN tokens.  Phases ``serve_path``,
     ``serve_path_spread``, ``serve_profile`` (fp32) or the same names
     with the suffix ``sfx`` (default ``_bf16`` for bf16 weights).
     Returns the (K3, K2) launches of one run."""
@@ -2281,14 +2411,14 @@ def phase_serve_path(cfg, model, params, batch, init_s: float,
     full = get_arch(cfg.name)
     B, prompt, n_gen = _serve_shape(cfg)
     want = _expected_launches(cfg)  # in the prefill
-    _serve_once(model, params, batch, n_gen)  # warm-up: cuBLAS, allocator
+    _serve_once(model, params, batch, SERVE_WARMUP_GEN)  # warm-up
     runs = []
     for _ in range(SERVE_REPEATS):
         torch.cuda.reset_peak_memory_stats()
         _reset_launches()
         gen, stats = _serve_once(model, params, batch, n_gen)
         k1, k2 = _launches()
-        k1 += _fold_launches()
+        k1 += _fold_launches() + _scan_backward_launches()
         k3 = _flash_launches()
         # an older checkout's serve() counts no K2 (--only A/B)
         got = (stats["k3_launches"], stats.get("k2_launches", 0))
@@ -2298,7 +2428,8 @@ def phase_serve_path(cfg, model, params, batch, init_s: float,
             raise AssertionError(
                 f"serve path{sfx}: (K3, K2) launches {(k3, k2)}, "
                 f"{got} in the prefill and {decode} in decode; expected "
-                f"{want} and (0, 0); K1 {k1}")
+                f"{want} and (0, 0); K1, feature_fold and K2 backward "
+                f"{k1}")
         if not stats["finite_logits"] or tuple(gen.shape) != (B, n_gen + 1):
             raise AssertionError(f"serve path{sfx}: non-finite logits or "
                                  f"tokens of shape {tuple(gen.shape)}")
@@ -2329,9 +2460,13 @@ def phase_serve_path(cfg, model, params, batch, init_s: float,
                          max_decode_len=cfg.max_decode_len,
                          prefill_frames_per_s=B * cfg.encoder_frames
                          / stats["prefill_s"])
-        if cut:  # {field: [the config's value, the value run]}
-            shape["reduced"] = {k: [getattr(full, k), v]
-                                for k, v in cut.items()}
+        # {field: [the config's value or the script's former setting,
+        # the value run]}
+        shape["reduced"] = {**{k: [getattr(full, k), v]
+                               for k, v in (cut or {}).items()},
+                            "timed_runs": [2, SERVE_REPEATS],
+                            "warmup_gen": [n_gen, SERVE_WARMUP_GEN],
+                            "profiled_gen": [4, SERVE_PROFILE_GEN]}
         rec = {"phase": "serve_path" + sfx, "arch": cfg.name,
                "n_layers": cfg.n_layers, "d_model": cfg.d_model, **shape,
                "batch": B, "prompt_len": prompt,
@@ -2343,6 +2478,7 @@ def phase_serve_path(cfg, model, params, batch, init_s: float,
                "weight_bytes": sum(t.numel() * t.element_size()
                                    for t in tree_leaves(params)),
                "flash_attention_launches": k3, "linear_scan_launches": k2,
+               "linear_scan_backward_launches": _scan_backward_launches(),
                "init_s": init_s,
                "first_request_tokens": gen[0, :8].tolist()}
         emit(rec)
@@ -2591,6 +2727,12 @@ TRAIN_HYPER = {"eta": 3e-3, "lam": 0.1, "beta": 0.001}
 TRAIN_TOKENS = 20_000
 # steps left out of the step-time median and p90 (cuBLAS, the allocator)
 TRAIN_WARMUP = 2
+# the training paths' scans at batch 8 x 128 (K2 forward and backward):
+# Falcon-Mamba-7B's (B, S, d_inner x N), 537 MB a tensor in fp32, and
+# RecurrentGemma-9B's (B, S, lru_width); launches a graph when timed
+MAMBA_TRAIN_SCAN = (TRAIN_B, TRAIN_S, 8192 * 16)
+RGEMMA_TRAIN_SCAN = (TRAIN_B, TRAIN_S, 4096)
+SCAN_TRAIN_REPS = 20
 # train_card_vs_cpu: Qwen2-0.5B at full width (vocab 151936: K1 at the
 # embedding's real shape) with its depth cut to 2 layers; 3 clients,
 # batch 2, seq 64, 6 steps, the same weights and streams on both sides
@@ -2619,6 +2761,17 @@ TRAIN_COOL = 0.125
 # RMSNorm gradient fails, and so do no update and an uphill one
 TRAIN_FO_FRAC = 0.125
 TRAIN_FO_TOL = 0.02
+# the SSM-family paths' gated fraction.  From the seed-0 weights as drawn
+# their first ASO-Fed step leaves the loss's linear range far behind: on
+# an H100 (train_witness.py, ROADMAP.md §3) Falcon-Mamba-7B's central
+# difference at 4 of 64 layers is ~0.13 of the prediction over 1/8 of
+# the step and nears 1 as the fraction shrinks, the mark of curvature
+# (RecurrentGemma-9B's with its attention cooled the same).  The gate
+# stays TRAIN_FO_TOL.  It sees a wrong db of the scan (the Falcon-Mamba
+# case of tests/test_torch_train.py's gate test) but not a wrong da,
+# whose leaves move the loss along the step by ~1e-5 of its change:
+# train_card_vs_cpu holds every gradient leaf for that
+TRAIN_FO_FRAC_SSM = 1 / 2048
 # the losses of the initial and final server weights, recorded (not
 # gated), on one fixed batch a client drawn with seed TRAIN_EVAL_SEED + i
 TRAIN_EVAL_SEED = 1000
@@ -2627,6 +2780,34 @@ TRAIN_EVAL_SEED = 1000
 # least 1); the fp32 scaled bound (1e-6) compounded over 6 steps of
 # gradient, update, fold and feature pass
 TRAIN_TOL = 1e-4
+# a gradient leaf against the CPU's: per unit of its largest magnitude,
+# floored at this share of the largest over all leaves (a leaf whose true
+# gradient is ~0 holds only rounding noise), as tests/test_torch_train.py
+GRAD_FLOOR = 1e-3
+# train_path_mamba: Falcon-Mamba-7B at full width (d 4096, d_inner 8192,
+# N 16, vocab 65024, tied), depth 64 -> 4 (0.6876e9 parameters, 2.75 GB
+# in fp32): the loop holds ~18.6x its weights (4 clients' fp32 slots,
+# snapshots, gradients) plus three saved 537 MB scan tensors a layer, and
+# 6 layers would leave the card no margin; the training CLI's defaults
+MAMBA_TRAIN_CUT = {"n_layers": 4}
+# train_step_rgemma: RecurrentGemma-9B at full width, depth 38 -> 3 (one
+# (rglru, rglru, attn) period: 2.754e9 parameters, 11.0 GB in fp32), one
+# loss and gradient at batch 8 x 128: the whole loop (~15-19x its
+# weights) does not fit one card at any depth of this width
+RGEMMA_TRAIN_CUT = {"n_layers": 3}
+# train_step_rgemma and its card-vs-CPU gradient scale the attention's
+# wq and wk by TRAIN_COOL: as drawn the local attention is near one-hot,
+# the card's gradient lies ~1.6e-3 per unit from the CPU's and the loss
+# ~1000x past its linear range along the first step (train_witness.py;
+# ROADMAP.md §3)
+# train_card_vs_cpu's SSM cases: Falcon-Mamba at full width, 2 layers,
+# its gradient at batch 2 x 32, then 2 clients, batch 2 x 32, 4 steps;
+# RecurrentGemma's gradient at full width, 3 layers, batch 1 x 32 (the
+# same weights on both sides)
+MAMBA_CMP_CUT = {"n_layers": 2}
+MAMBA_CMP = {"batch": 2, "seq": 32, "steps": 4}
+MAMBA_CMP_CLIENTS, MAMBA_CMP_TOKENS = 2, 5_000
+RGEMMA_CMP_B, RGEMMA_CMP_S = 1, 32
 
 
 def _train_streams(n: int, vocab: int, tokens: int):
@@ -2653,6 +2834,17 @@ def _train_launches():
     return k1, _fold_launches(), k2, _flash_launches()
 
 
+def _recurrent_layers(cfg) -> int:
+    """Mamba or RG-LRU layers of ``cfg``: K2 forward and backward launches
+    a gradient (the hybrid's superblocks, then its rglru tail)."""
+    if cfg.family == "ssm":
+        return cfg.n_layers
+    if cfg.family == "hybrid":
+        return sum(kind == "rglru" for kind in (
+            cfg.block_pattern * cfg.n_layers)[:cfg.n_layers])
+    return 0
+
+
 def _batch(stream, seed: int):
     from repro_torch.data.lm import batches_from_tokens
 
@@ -2660,11 +2852,11 @@ def _batch(stream, seed: int):
         batches_from_tokens(stream, TRAIN_B, TRAIN_S, seed=seed)).items()}
 
 
-def _first_step_check(model, params, streams):
+def _first_step_check(model, params, streams, frac: float = TRAIN_FO_FRAC):
     """Client 0's first local step of the loop (its first batch, its
     delay, fresh slots, the server snapshot ``params``): the loss change
     on that batch and its first-order prediction <g, u>, and the central
-    difference over TRAIN_FO_FRAC of the step against its prediction.
+    difference over ``frac`` of the step against its prediction.
     The gradient is taken over every leaf: autograd refuses a leaf the
     loss does not reach."""
     from repro_torch.common.pytree import tree_leaves, tree_map
@@ -2685,22 +2877,23 @@ def _first_step_check(model, params, streams):
         return sum(float(torch.sum(gi * (x - y), dtype=torch.float64))
                    for gi, x, y in zip(g, tree_leaves(a), tree_leaves(b)))
 
-    t = TRAIN_FO_FRAC
     with torch.no_grad():
         pred = dot(new, params)
         loss1 = float(model.loss(new, batch)[0])
-        fwd = tree_map(lambda n, w: w + t * (n - w), new, params)
-        bwd = tree_map(lambda n, w: w - t * (n - w), new, params)
+        fwd = tree_map(lambda n, w: w + frac * (n - w), new, params)
+        bwd = tree_map(lambda n, w: w - frac * (n - w), new, params)
         del new
         pred_t = dot(fwd, bwd)
         central = (float(model.loss(fwd, batch)[0])
                    - float(model.loss(bwd, batch)[0]))
-    del g, fwd, bwd
+        del fwd, bwd
+    del g
     torch.cuda.empty_cache()
     return {"loss_before": loss0, "loss_after": loss1,
             "change": loss1 - loss0, "predicted": pred,
             "ratio_whole_step": (loss1 - loss0) / pred if pred else math.nan,
-            "fraction": t, "central": central, "central_predicted": pred_t,
+            "fraction": frac, "central": central,
+            "central_predicted": pred_t,
             "ratio": central / pred_t if pred_t else math.nan}
 
 
@@ -2763,10 +2956,12 @@ def phase_train_path():
     eval_loss = (_eval_loss(model, params, streams),
                  _eval_loss(model, res["params"], streams))
     last10 = float(np.mean(losses[-10:]))
-    if launches != (TRAIN_STEPS, 0, 0, 0):
+    launches += (_scan_backward_launches(),)
+    if launches != (TRAIN_STEPS, 0, 0, 0, 0):
         raise AssertionError(
-            f"train_path: (K1, feature_fold, K2, K3) launches {launches}; "
-            f"expected ({TRAIN_STEPS}, 0, 0, 0): one per-row K1 a fold")
+            f"train_path: (K1, feature_fold, K2, K3, K2 backward) launches "
+            f"{launches}; expected ({TRAIN_STEPS}, 0, 0, 0, 0): one per-row "
+            f"K1 a fold")
     finite = all(math.isfinite(v) for v in losses) and all(
         bool(torch.isfinite(t).all()) for t in tree_leaves(res["params"]))
     if not (finite and last10 < losses[0]):
@@ -2818,61 +3013,401 @@ def phase_train_path():
     return launches[0]
 
 
-def phase_train_card_vs_cpu():
-    """``train`` on Qwen2-0.5B at full width, 2 layers, on the card and on
-    the CPU from the same weights (seed 0, wq and wk cooled by TRAIN_COOL
-    on both sides) and streams: each step's loss and each final server
-    leaf within TRAIN_TOL per unit.  Returns the card run's K1
-    launches."""
-    from repro_torch.common.pytree import tree_flatten_with_path, tree_map
+def _first_asofed_step_eps(n_clients: int) -> float:
+    """``r eta``: client 0's first ASO-Fed step from fresh slots at the
+    server weights is ``-r eta g`` with ``r = max(1, ln delay)`` (Eq. 11
+    over one round)."""
+    delay = float(np.float32(np.random.default_rng(0).uniform(
+        10.0, 100.0, size=n_clients)[0]))
+    return max(1.0, math.log(delay)) * TRAIN_HYPER["eta"]
+
+
+def _grad(model, params, batch):
+    """(loss, [gradient of each leaf of params])."""
+    from repro_torch.common.pytree import tree_leaves, tree_map
+
+    q = tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss = model.loss(q, batch)[0]
+    return loss.detach(), list(torch.autograd.grad(loss, tree_leaves(q)))
+
+
+def phase_train_path_mamba():
+    """``repro_torch.launch.train.train`` on Falcon-Mamba-7B at full width,
+    depth cut to MAMBA_TRAIN_CUT, from the port's own seed-0 weights as
+    drawn, at train_path's settings: a gradient runs K2 forward and K2's
+    backward once a layer, a fold one per-row K1 launch over the
+    (65024, 4096) tied embedding, no K3, no feature_fold.  Then one
+    further step (one client, fresh slots) profiled.  Gated: client 0's
+    first local step (``_first_step_check`` over TRAIN_FO_FRAC_SSM of
+    it), finite losses and weights, the launches; the gates raise after
+    the records.  Returns (K1, K2, K2 backward) launches of the run."""
+    from repro_torch.common.pytree import tree_leaves
     from repro_torch.configs import get_arch
     from repro_torch.launch.train import train
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_arch(TRAIN_ARCH), **TRAIN_CUT)
+    full = get_arch(MAMBA_ARCH)
+    cfg = dataclasses.replace(full, **MAMBA_TRAIN_CUT)
     model = build_model(cfg)
-    params = _cool_attention(model.init(torch.Generator().manual_seed(0),
-                                        device="cpu"))
-    streams = _train_streams(TRAIN_CMP_CLIENTS, cfg.vocab_size,
-                             TRAIN_CMP_TOKENS)
-    kw = {**TRAIN_CMP, **TRAIN_HYPER, "seed": 0, "log": None}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=DEV).manual_seed(0),
+                        device=DEV)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    t0 = time.perf_counter()
+    streams = _train_streams(TRAIN_CLIENTS, cfg.vocab_size, TRAIN_TOKENS)
+    streams_s = time.perf_counter() - t0
+    first = _first_step_check(model, params, streams, TRAIN_FO_FRAC_SSM)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    res = train(model, params, streams, steps=TRAIN_STEPS, batch=TRAIN_B,
+                seq=TRAIN_S, seed=0, device=DEV, log=None, **TRAIN_HYPER)
+    torch.cuda.synchronize()
+    launches = _train_launches() + (_scan_backward_launches(),)
+    peak = torch.cuda.max_memory_allocated()
+    layers = _recurrent_layers(cfg)
+    want = (TRAIN_STEPS, 0, TRAIN_STEPS * layers, 0, TRAIN_STEPS * layers)
+    losses = res["losses"]
+    finite = all(math.isfinite(v) for v in losses) and all(
+        bool(torch.isfinite(t).all()) for t in tree_leaves(res["params"]))
+    # the gates, raised after the records: one failed gate shows the rest
+    failed = [msg for ok, msg in (
+        (_first_step_ok(first),
+         f"client 0's first step {first}: the loss change must be negative "
+         f"and the central difference within {TRAIN_FO_TOL} of its "
+         f"prediction per unit"),
+        (launches == want,
+         f"(K1, feature_fold, K2, K3, K2 backward) launches {launches}; "
+         f"expected {want}: one per-row K1 a fold, K2 and its backward "
+         f"once a layer a gradient"),
+        (finite, f"losses {losses} or the final server weights not "
+                 f"finite")) if not ok]
+    eval_loss = (_eval_loss(model, params, streams),
+                 _eval_loss(model, res["params"], streams))
+    steady = res["step_s"][TRAIN_WARMUP:]
+    med = statistics.median(steady)
+    emit({"phase": "train_path_mamba", "arch": cfg.name,
+          "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
+          "vocab": cfg.vocab_size, "params": n_params,
+          "weight_bytes": 4 * n_params, "dtype": "float32",
+          "clients": TRAIN_CLIENTS, "batch": TRAIN_B, "seq": TRAIN_S,
+          "steps": TRAIN_STEPS, **TRAIN_HYPER, "feature_learning": True,
+          "tokens_per_client": TRAIN_TOKENS, "init_s": init_s,
+          "streams_s": streams_s, "wall_s": res["wall_s"],
+          "step_s": res["step_s"], "warmup_steps": TRAIN_WARMUP,
+          "step_s_median": med,
+          "step_s_p90": float(np.percentile(steady, 90)),
+          "tokens_per_s": TRAIN_B * TRAIN_S / med,
+          "first_loss": losses[0],
+          "last10_loss_mean": float(np.mean(losses[-10:])),
+          "losses": losses, "clients_order": res["clients"],
+          "first_step": first, "first_step_tolerance": TRAIN_FO_TOL,
+          "eval_loss_initial": eval_loss[0], "eval_loss_final": eval_loss[1],
+          "peak_device_bytes": peak,
+          "feature_attention_launches": launches[0],
+          "feature_fold_launches": launches[1],
+          "linear_scan_launches": launches[2],
+          "flash_attention_launches": launches[3],
+          "linear_scan_backward_launches": launches[4]})
+    final = res["params"]
+    del res, params
+    torch.cuda.empty_cache()
+    _, wall, per = _device_profile(lambda: train(
+        model, final, streams[:1], steps=1, batch=TRAIN_B, seq=TRAIN_S,
+        seed=0, device=DEV, log=None, **TRAIN_HYPER))
+    names = {"k1": "feature_attention_rows", "k2": "linear_scan_channels",
+             "k2_backward": "linear_scan_backward_channels"}
+    rec = _profile_record(per, wall, tuple(names.values()))
+    busy = sum(ms for _, ms, _ in per)
+    shares = {}
+    for tag, name in names.items():
+        ms = sum(m for k, m, _ in per if name in k)
+        shares[f"{tag}_ms"] = ms
+        shares[f"{tag}_share_of_busy"] = ms / busy if busy else \
+            "not measured"
+    emit({"phase": "train_profile_mamba", "arch": cfg.name, "steps": 1,
+          "clients": 1, "wall_s": wall, **rec, **shares})
+    del final
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("train_path_mamba: " + "; ".join(failed))
+    return launches[0], launches[2], launches[4]
+
+
+def _central_along_gradient(model, params, g, batch, frac: float,
+                            step_eps: float):
+    """Along the first ASO-Fed step from ``params`` with fresh slots,
+    ``-step_eps g``, over ``frac`` of it: (the central difference
+    ``L(w - t step_eps g) - L(w + t step_eps g)``, its prediction
+    ``<g, fwd - bwd>`` on the rounded weights).  One perturbed copy of
+    the weights at a time."""
+    from repro_torch.common.pytree import tree_leaves, tree_unflatten
+
+    leaves = tree_leaves(params)
+    side = []
+    with torch.no_grad():
+        for sign in (1.0, -1.0):
+            moved = [w - sign * frac * step_eps * gi
+                     for w, gi in zip(leaves, g)]
+            side.append(float(model.loss(
+                tree_unflatten(params, moved), batch)[0]))
+            del moved
+        # <g, fwd - bwd>, a leaf at a time
+        predicted = sum(float(torch.sum(
+            gi * ((w - frac * step_eps * gi) - (w + frac * step_eps * gi)),
+            dtype=torch.float64)) for w, gi in zip(leaves, g))
+    return side[0] - side[1], predicted
+
+
+def phase_train_step_rgemma():
+    """One loss and gradient of RecurrentGemma-9B at full width, depth cut
+    to RGEMMA_TRAIN_CUT (both RG-LRU layers and the hd-256 local
+    attention, on the plain ``blocked_attention``), batch 8 x 128, from
+    the port's seed-0 weights with every wq and wk scaled by TRAIN_COOL:
+    K2 forward and backward once an RG-LRU layer, no K3, after one
+    warm-up gradient.  Gated: along client 0's first ASO-Fed step from
+    these weights, ``-r eta g`` (fresh slots), over TRAIN_FO_FRAC_SSM of
+    it, the central difference within TRAIN_FO_TOL of its prediction
+    (``_central_along_gradient``; weights, gradient and a copy: ~33 GB).
+    Returns (K2, K2 backward) launches of the counted gradient."""
+    from repro_torch.common.pytree import tree_leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, make_batch
+
+    full = get_arch(RGEMMA_ARCH)
+    cfg = dataclasses.replace(full, **RGEMMA_TRAIN_CUT)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    params = _cool_attention(model.init(
+        torch.Generator(device=DEV).manual_seed(0), device=DEV))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    batch = make_batch(cfg, TRAIN_B, TRAIN_S, seed=0, device=DEV)
+    _grad(model, params, batch)  # warm-up: cuBLAS, the allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    loss, g = _grad(model, params, batch)
+    loss0 = float(loss)
+    step_s = time.perf_counter() - t0
+    launches = _train_launches() + (_scan_backward_launches(),)
+    peak = torch.cuda.max_memory_allocated()
+    layers = _recurrent_layers(cfg)
+    gsq = sum(float(torch.sum(gi * gi, dtype=torch.float64)) for gi in g)
+    gmax = max(float(gi.abs().max()) for gi in g)
+    step_eps = _first_asofed_step_eps(TRAIN_CLIENTS)
+    central, predicted = _central_along_gradient(
+        model, params, g, batch, TRAIN_FO_FRAC_SSM, step_eps)
+    ratio = central / predicted if predicted else math.nan
+    finite = math.isfinite(loss0) and math.isfinite(gsq)
+    rec = {"phase": "train_step_rgemma", "arch": cfg.name,
+           "reduced": {"n_layers": [full.n_layers, cfg.n_layers],
+                       "loop": "one gradient: the ASO-Fed loop at full "
+                               "width does not fit one card"},
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "lru_width": cfg.lru_width, "vocab": cfg.vocab_size,
+           "params": n_params, "weight_bytes": 4 * n_params,
+           "dtype": "float32", "batch": TRAIN_B, "seq": TRAIN_S,
+           "loss": loss0, "step_s": step_s,
+           "tokens_per_s": TRAIN_B * TRAIN_S / step_s,
+           "grad_max_abs": gmax, "grad_sq_norm": gsq,
+           "step_eps": step_eps, "fraction": TRAIN_FO_FRAC_SSM,
+           "central": central, "central_predicted": predicted,
+           "ratio": ratio, "attention_wq_wk_scale": TRAIN_COOL,
+           "tolerance": TRAIN_FO_TOL, "peak_device_bytes": peak,
+           "linear_scan_launches": launches[2],
+           "linear_scan_backward_launches": launches[4],
+           "flash_attention_launches": launches[3]}
+    emit(rec)
+    del g, params, batch
+    torch.cuda.empty_cache()
+    want = (0, 0, layers, 0, layers)
+    if not (finite and predicted < 0 and launches == want
+            and abs(ratio - 1.0) <= TRAIN_FO_TOL):
+        raise AssertionError(
+            f"train_step_rgemma: loss {loss0}, central difference {central} "
+            f"against {predicted} (ratio {ratio}, tolerance "
+            f"{TRAIN_FO_TOL}); (K1, feature_fold, K2, K3, K2 backward) "
+            f"launches {launches}, expected {want}")
+    return launches[2], launches[4]
+
+
+def _per_unit(got, want) -> float:
+    """max |got - want| per unit of want's largest magnitude (at least 1);
+    got may be on the card."""
+    return float((got.cpu() - want).abs().max()) / max(
+        float(want.abs().max()), 1.0)
+
+
+def _loop_card_vs_cpu(cfg, params, n_clients: int, tokens: int, loop):
+    """``train`` on the card and on the CPU from ``params`` (CPU tensors)
+    and the same streams: (record fields, (K1, feature_fold, K2, K3, K2
+    backward) launches of the card's run)."""
+    from repro_torch.common.pytree import tree_flatten_with_path, tree_map
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+
+    model = build_model(cfg)
+    streams = _train_streams(n_clients, cfg.vocab_size, tokens)
+    kw = {**loop, **TRAIN_HYPER, "seed": 0, "log": None}
     card_params = tree_map(lambda t: t.to(DEV), params)
     _reset_launches()
     card = train(model, card_params, streams, device=DEV, **kw)
     torch.cuda.synchronize()
-    launches = _train_launches()
+    launches = _train_launches() + (_scan_backward_launches(),)
     t0 = time.perf_counter()
     cpu = train(model, params, streams, device="cpu", **kw)
     cpu_s = time.perf_counter() - t0
-    if launches != (TRAIN_CMP["steps"], 0, 0, 0):
-        raise AssertionError(f"train_card_vs_cpu: (K1, feature_fold, K2, "
-                             f"K3) launches {launches}")
     want = np.array(cpu["losses"])
     loss_err = float(np.max(np.abs(np.array(card["losses"]) - want))) / max(
         float(np.max(np.abs(want))), 1.0)
-    leaf_err = {}
     got = dict(tree_flatten_with_path(card["params"]))
-    for path, w in tree_flatten_with_path(cpu["params"]):
-        g = got[path].cpu()
-        leaf_err["/".join(path)] = float((g - w).abs().max()) / max(
-            float(w.abs().max()), 1.0)
-    worst = max(leaf_err.values())
-    emit({"phase": "train_card_vs_cpu", "arch": cfg.name,
-          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-          "vocab": cfg.vocab_size, "clients": TRAIN_CMP_CLIENTS,
-          **TRAIN_CMP, "attention_wq_wk_scale": TRAIN_COOL,
-          "card_losses": card["losses"], "cpu_losses": cpu["losses"],
-          "loss_err_per_unit": loss_err, "weight_err_per_unit": worst,
-          "weight_err_by_leaf": leaf_err, "tolerance": TRAIN_TOL,
-          "card_wall_s": card["wall_s"], "cpu_wall_s": cpu_s,
-          "feature_attention_launches": launches[0]})
-    if not (loss_err <= TRAIN_TOL and worst <= TRAIN_TOL):
-        raise AssertionError(
-            f"train_card_vs_cpu: losses {loss_err}, weights {worst} per "
-            f"unit (tolerance {TRAIN_TOL})")
-    del card, cpu, card_params
+    leaf_err = {"/".join(path): _per_unit(got[path], w)
+                for path, w in tree_flatten_with_path(cpu["params"])}
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "clients": n_clients, **loop,
+           "card_losses": card["losses"], "cpu_losses": cpu["losses"],
+           "loss_err_per_unit": loss_err,
+           "weight_err_per_unit": max(leaf_err.values()),
+           "weight_err_by_leaf": leaf_err, "tolerance": TRAIN_TOL,
+           "card_wall_s": card["wall_s"], "cpu_wall_s": cpu_s,
+           "feature_attention_launches": launches[0],
+           "linear_scan_launches": launches[2],
+           "linear_scan_backward_launches": launches[4]}
+    return rec, launches
+
+
+def _grad_gaps(paths, got, want):
+    """{leaf path: max |got - want| per unit of want's largest magnitude,
+    floored at GRAD_FLOOR of the largest over all leaves}; ``got`` may be
+    on the card, ``want`` on the CPU."""
+    floor = GRAD_FLOOR * max(float(w.abs().max()) for w in want)
+    return {path: float((x.to(w.device, w.dtype) - w).abs().max())
+            / max(float(w.abs().max()), floor)
+            for path, x, w in zip(paths, got, want)}
+
+
+def _grad_card_vs_cpu(cfg, params, B: int, S: int):
+    """``cfg``'s loss and gradient on batch B x S (``make_batch``, seed
+    0) from ``params`` on the card and from a copy on the CPU, every leaf
+    within ``_grad_gaps``.  Returns (record, (K2, K2 backward) launches of
+    the card's gradient)."""
+    from repro_torch.common.pytree import tree_flatten_with_path, tree_map
+    from repro_torch.models import build_model, make_batch
+
+    model = build_model(cfg)
+    card_params = tree_map(lambda t: t.to(DEV), params)
+    params = tree_map(lambda t: t.cpu(), params)
+    batch = make_batch(cfg, B, S, seed=0, device="cpu")
+    _reset_launches()
+    card_loss, card_g = _grad(model, card_params,
+                              {k: v.to(DEV) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launches = (_launches()[1], _scan_backward_launches())
+    del card_params
+    t0 = time.perf_counter()
+    cpu_loss, cpu_g = _grad(model, params, batch)
+    cpu_s = time.perf_counter() - t0
+    paths = ["/".join(p) for p, _ in tree_flatten_with_path(params)]
+    grad_err = _grad_gaps(paths, card_g, cpu_g)
+    loss_err = abs(float(card_loss) - float(cpu_loss)) / max(
+        abs(float(cpu_loss)), 1.0)
+    rec = {"arch": cfg.name, "case": "gradient",
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "batch": B, "seq": S,
+           "card_loss": float(card_loss), "cpu_loss": float(cpu_loss),
+           "loss_err_per_unit": loss_err,
+           "grad_err_per_unit": max(grad_err.values()),
+           "grad_err_by_leaf": grad_err, "grad_floor_share": GRAD_FLOOR,
+           "tolerance": TRAIN_TOL, "cpu_s": cpu_s,
+           "linear_scan_launches": launches[0],
+           "linear_scan_backward_launches": launches[1]}
+    del card_g, cpu_g, params
     torch.cuda.empty_cache()
-    return launches[0]
+    return rec, launches
+
+
+def phase_train_card_vs_cpu():
+    """The training slice on the card against the CPU, each within
+    TRAIN_TOL per unit: ``train`` on Qwen2-0.5B at full width, 2 layers
+    (wq and wk cooled by TRAIN_COOL on both sides; each step's loss and
+    each final server leaf), and on Falcon-Mamba-7B at full width, 2
+    layers (as drawn; the same, and first every gradient leaf at the
+    initial weights: a fault in the scan's ``da`` moves the loss along a
+    step by ~1e-5 of its change, past what a loss difference or the
+    weights per unit can show, and the A_log gradient by its own size);
+    RecurrentGemma-9B's loss and every gradient leaf at full width, 3
+    layers (cooled, the same weights on both sides).  Returns
+    {architecture: (K1, K2, K2 backward) launches of its card runs}."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    out = {}
+
+    def grad_case(cfg, params, B, S, cool):
+        rec, launches = _grad_card_vs_cpu(cfg, params, B, S)
+        emit({"phase": "train_card_vs_cpu", **rec,
+              "attention_wq_wk_scale": TRAIN_COOL if cool else 1.0})
+        layers = _recurrent_layers(cfg)
+        if launches != (layers, layers) or not (
+                rec["loss_err_per_unit"] <= TRAIN_TOL
+                and rec["grad_err_per_unit"] <= TRAIN_TOL):
+            raise AssertionError(
+                f"train_card_vs_cpu {cfg.name} gradient: (K2, K2 backward) "
+                f"launches {launches}, expected {(layers, layers)}; loss "
+                f"{rec['loss_err_per_unit']}, gradient "
+                f"{rec['grad_err_per_unit']} per unit (tolerance "
+                f"{TRAIN_TOL})")
+        return launches
+
+    for arch, cut, cool, n, tokens, loop in (
+            (TRAIN_ARCH, TRAIN_CUT, True, TRAIN_CMP_CLIENTS,
+             TRAIN_CMP_TOKENS, TRAIN_CMP),
+            (MAMBA_ARCH, MAMBA_CMP_CUT, False, MAMBA_CMP_CLIENTS,
+             MAMBA_CMP_TOKENS, MAMBA_CMP)):
+        cfg = dataclasses.replace(get_arch(arch), **cut)
+        params = build_model(cfg).init(torch.Generator().manual_seed(0),
+                                       device="cpu")
+        if cool:
+            params = _cool_attention(params)
+        grad = (0, 0)
+        if cfg.family == "ssm":
+            grad = grad_case(cfg, params, loop["batch"], loop["seq"],
+                             cool)
+        rec, launches = _loop_card_vs_cpu(cfg, params, n, tokens, loop)
+        del params
+        layers = _recurrent_layers(cfg)
+        want = (loop["steps"], 0, loop["steps"] * layers, 0,
+                loop["steps"] * layers)
+        emit({"phase": "train_card_vs_cpu", **rec,
+              "attention_wq_wk_scale": TRAIN_COOL if cool else 1.0})
+        if launches != want:
+            raise AssertionError(
+                f"train_card_vs_cpu {arch}: (K1, feature_fold, K2, K3, K2 "
+                f"backward) launches {launches}; expected {want}")
+        if not (rec["loss_err_per_unit"] <= TRAIN_TOL
+                and rec["weight_err_per_unit"] <= TRAIN_TOL):
+            raise AssertionError(
+                f"train_card_vs_cpu {arch}: losses "
+                f"{rec['loss_err_per_unit']}, weights "
+                f"{rec['weight_err_per_unit']} per unit (tolerance "
+                f"{TRAIN_TOL})")
+        out[arch] = (launches[0], launches[2] + grad[0],
+                     launches[4] + grad[1])
+        torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_arch(RGEMMA_ARCH), **RGEMMA_TRAIN_CUT)
+    params = _cool_attention(build_model(cfg).init(
+        torch.Generator(device=DEV).manual_seed(0), device=DEV))
+    out[RGEMMA_ARCH] = (0,) + grad_case(cfg, params, RGEMMA_CMP_B,
+                                        RGEMMA_CMP_S, True)
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 def phase_quickstart_path():
@@ -2915,7 +3450,8 @@ SERVE_PHASES = ("flash_vs_plain", "serve_path", "serve_path_bf16",
 ONLY_PHASES = ("main_path", "assoc_path", "oracle_path", "sweep_path",
                "paper_rows", "residency_path", "chaos_path",
                "resume_path") + SERVE_PHASES + ("serve_card_vs_cpu",) \
-    + ("train_path", "train_card_vs_cpu", "quickstart_path")
+    + ("train_path", "train_path_mamba", "train_step_rgemma",
+       "train_card_vs_cpu", "quickstart_path")
 # the serve paths after serve_path: (phase, architecture, weights' dtype,
 # the config's fields cut)
 SERVE_MODEL_PATHS = (
@@ -2996,7 +3532,8 @@ def serve_phases(names):
 # the paths the kernels line counts each kernel's launches on
 LAUNCH_PATHS = ("main_path", "assoc_path", "oracle_path", "sweep_path",
                 "residency_path", "chaos_path", "resume_path") \
-    + SERVE_PHASES[1:] + ("train_path", "train_card_vs_cpu",
+    + SERVE_PHASES[1:] + ("train_path", "train_path_mamba",
+                          "train_step_rgemma", "train_card_vs_cpu",
                           "quickstart_path")
 
 
@@ -3022,6 +3559,27 @@ def _flash_entry(name, rec, launches, by_path, design):
         "dtype": rec["dtype"].split(".")[-1],
         "design_source": "src/repro_torch/kernels/flash_attention/csrc/"
                          + design,
+        "launches_by_path": _by_path(**by_path)}
+
+
+def _scan_train_entry(name, rec, by_path):
+    """The kernels line's entry for K2 forward or backward at a training
+    scan; ``launches`` is the path of the case's model (its first)."""
+    backward = rec["kernel"] == "linear_scan_backward"
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
+        "replaces": "src/repro/kernels/linear_scan/kernel.py:56",
+        "entry": ("linear_scan_backward_launch" if backward
+                  else "linear_scan_launch"),
+        **({"note": "the reverse of that kernel's recurrence; the TPU "
+                    "kernel has no backward (JAX trains on XLA's scans)"}
+           if backward else {}),
+        "launches": next(iter(by_path.values())),
+        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+        "call_ms": rec["call_ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": None, "shape": rec["shape"],
         "launches_by_path": _by_path(**by_path)}
 
 
@@ -3080,6 +3638,10 @@ def main(argv=None) -> int:
             phase_serve_card_vs_cpu()
         if "train_path" in only:
             phase_train_path()
+        if "train_path_mamba" in only:
+            phase_train_path_mamba()
+        if "train_step_rgemma" in only:
+            phase_train_step_rgemma()
         if "train_card_vs_cpu" in only:
             phase_train_card_vs_cpu()
         if "quickstart_path" in only:
@@ -3132,7 +3694,12 @@ def main(argv=None) -> int:
     card_cpu = timed("serve_card_vs_cpu", phase_serve_card_vs_cpu)
     # the training slice last, on a card the serve paths have left empty
     train_k1 = timed("train_path", phase_train_path)
-    train_cmp_k1 = timed("train_card_vs_cpu", phase_train_card_vs_cpu)
+    mamba_k1, mamba_k2, mamba_k2b = timed("train_path_mamba",
+                                          phase_train_path_mamba)
+    rgemma_k2, rgemma_k2b = timed("train_step_rgemma",
+                                  phase_train_step_rgemma)
+    train_cmp = timed("train_card_vs_cpu", phase_train_card_vs_cpu)
+    train_cmp_k1 = sum(k1 for k1, _, _ in train_cmp.values())
     quick_k1, quick_k3 = timed("quickstart_path", phase_quickstart_path)
     emit({"phase": "timing", "seconds": seconds,
           "total_s": time.perf_counter() - t_start})
@@ -3148,7 +3715,7 @@ def main(argv=None) -> int:
         raise AssertionError(f"serve_path_deepseek launched K3 "
                              f"{flash_launches_deepseek} times (MLA: 0)")
     main_rec = kv[((8, 256), torch.float32, True)]
-    embed_rec = kv["embed_table"]
+    embed_rec, embed_mamba_rec = kv["embed_table"], kv["embed_table_mamba"]
     fold_rec = fv_fold["main_tick"]
     reps_rec = fv_fold["main_tick_reps"]
     # K2 at the main path's largest leaf (w_h), a = 1: the case with a
@@ -3156,6 +3723,19 @@ def main(argv=None) -> int:
     # on the values of a
     scan_rec = sv[((1, 64, 16384), torch.float32, "ones")]
     mamba_rec, rglru_rec = sv["mamba"], sv["rglru"]
+    # K2 forward and backward on the training paths: the gradients of
+    # train_path_mamba (4 layers a gradient), train_step_rgemma (2) and
+    # train_card_vs_cpu (Falcon-Mamba 2 a gradient, RecurrentGemma 2)
+    cmp_mamba, cmp_rgemma = train_cmp[MAMBA_ARCH], train_cmp[RGEMMA_ARCH]
+    scan_train_by_path = {
+        "mamba_train": dict(train_path_mamba=mamba_k2,
+                            train_card_vs_cpu=cmp_mamba[1]),
+        "mamba_train_backward": dict(train_path_mamba=mamba_k2b,
+                                     train_card_vs_cpu=cmp_mamba[2]),
+        "rglru_train": dict(train_step_rgemma=rgemma_k2,
+                            train_card_vs_cpu=cmp_rgemma[1]),
+        "rglru_train_backward": dict(train_step_rgemma=rgemma_k2b,
+                                     train_card_vs_cpu=cmp_rgemma[2])}
     emit({"kernels": [{
         # K1 redesigned for the main path: the tick's whole sequential fold
         "name": "feature_fold", "route": "cuda",
@@ -3205,7 +3785,8 @@ def main(argv=None) -> int:
         "launches_by_path": _by_path(
             oracle_path=k1_oracle, residency_path=res_k1,
             chaos_path=chaos_k1, train_path=train_k1,
-            train_card_vs_cpu=train_cmp_k1, quickstart_path=quick_k1)}, {
+            train_path_mamba=mamba_k1, train_card_vs_cpu=train_cmp_k1,
+            quickstart_path=quick_k1)}, {
         # the same kernel at train_path's first layer, Qwen2-0.5B's
         # (151936, 896) fp32 token embedding, once a server fold
         "name": "feature_attention_embed_table", "route": "cuda",
@@ -3218,7 +3799,23 @@ def main(argv=None) -> int:
         "bound_by": embed_rec["bound_by"], "library_ms": None,
         "call_ms": embed_rec["call_ms"], "shape": embed_rec["shape"],
         "launches_by_path": _by_path(
-            train_path=train_k1, train_card_vs_cpu=train_cmp_k1)}, {
+            train_path=train_k1,
+            train_card_vs_cpu=train_cmp[TRAIN_ARCH][0])}, {
+        # the same kernel at train_path_mamba's first layer, Falcon-Mamba's
+        # (65024, 4096) fp32 tied embedding (16 KB rows), once a fold
+        "name": "feature_attention_embed_table_mamba", "route": "cuda",
+        "source": "src/repro_torch/kernels/feature_attention/csrc/"
+                  "feature_attention.cu",
+        "replaces": "src/repro/kernels/feature_attention/kernel.py:38",
+        "launches": mamba_k1, "max_abs_err": embed_mamba_rec["max_abs_err"],
+        "ms": embed_mamba_rec["ms"], "plain_ms": embed_mamba_rec["plain_ms"],
+        "bound_ms": embed_mamba_rec["bound_ms"],
+        "bound_by": embed_mamba_rec["bound_by"], "library_ms": None,
+        "call_ms": embed_mamba_rec["call_ms"],
+        "shape": embed_mamba_rec["shape"],
+        "launches_by_path": _by_path(
+            train_path_mamba=mamba_k1,
+            train_card_vs_cpu=train_cmp[MAMBA_ARCH][0])}, {
         "name": "linear_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
         "replaces": "src/repro/kernels/linear_scan/kernel.py:56",
@@ -3276,6 +3873,15 @@ def main(argv=None) -> int:
         "library": rglru_rec["library"], "shape": rglru_rec["shape"],
         "launches_by_path": _by_path(
             serve_path_rgemma=scan_launches_rgemma)},
+        # K2 forward and its backward kernel at the training paths' scans,
+        # (8, 128, 8192 x 16) and (8, 128, 4096) fp32: once a recurrent
+        # layer a gradient each
+        *(_scan_train_entry(name, sv[key], scan_train_by_path[key])
+          for name, key in (
+              ("linear_scan_mamba_train", "mamba_train"),
+              ("linear_scan_backward", "mamba_train_backward"),
+              ("linear_scan_rglru_train", "rglru_train"),
+              ("linear_scan_backward_rglru", "rglru_train_backward"))),
         # K3's head-dim-256 instances at RecurrentGemma-9B's layer 0 (16
         # heads over 1 KV head, window 2048, which 2016 keys do not bind):
         # bf16 on serve_path_rgemma once a superblock of the prefill, fp32

@@ -32,6 +32,20 @@
 // The multiply and the add are rounded separately (__fmul_rn, __fadd_rn:
 // no fused multiply-add), as PyTorch's elementwise a * h + b rounds them,
 // so in fp32 the kernel reproduces the plain version bit for bit.
+//
+// The backward entry (linear_scan_backward_launch) replaces no TPU kernel:
+// the JAX package's Pallas scan has no VJP and it trains on XLA's scans.
+// The port trains along its one scan route, so the recurrence gets its
+// reverse here.  For fp32 (B, S, C) a, the forward's h and the gradients
+// dh (B, S, C) and dh_last (B, C) (null: zero), from the zero carry:
+//   g[S-1] = dh[S-1] + dh_last,  g[t] = dh[t] + a[t+1] * g[t+1]
+//   db[t] = g[t],  da[t] = g[t] * h[t-1]  (h[-1] = 0)
+// It is the same recurrence walked down S, with the same design: one
+// thread per channel, neighbouring threads on neighbouring channels,
+// kUnroll steps of a, h[t-1] and dh loaded before they are computed.
+// Bound: bytes, 3 tensors read and 2 written with 3 operations an
+// element.  Each product and sum is rounded on its own, as autograd of
+// the plain loop rounds them, so it is bit for bit the plain reverse loop.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -96,6 +110,54 @@ int launch(const void* a, const void* b, void* h, void* h_last, int B, int S,
   return static_cast<int>(cudaGetLastError());
 }
 
+__global__ void __launch_bounds__(kThreads)
+linear_scan_backward_channels(const float* __restrict__ a,
+                              const float* __restrict__ h,
+                              const float* __restrict__ dh,
+                              const float* __restrict__ dh_last,
+                              float* __restrict__ da, float* __restrict__ db,
+                              int S, int C) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= C) return;
+  const size_t bi = blockIdx.y;
+  const size_t base = bi * static_cast<size_t>(S) * C + c;
+  const float* ap = a + base;
+  const float* hp = h + base;
+  const float* dp = dh + base;
+  float* dap = da + base;
+  float* dbp = db + base;
+
+  // g carries g[t + 1], a_next a[t + 1]; at t = S - 1 the carry is dh_last
+  float g = 0.0f, a_next = 0.0f;
+  const bool seeded = dh_last != nullptr;
+  const float g_last = seeded ? dh_last[bi * C + c] : 0.0f;
+  for (int hi = S - 1; hi >= 0; hi -= kUnroll) {
+    float av[kUnroll], hv[kUnroll], dv[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int t = hi - u;
+      if (t >= 0) {
+        av[u] = ap[static_cast<size_t>(t) * C];
+        dv[u] = dp[static_cast<size_t>(t) * C];
+        hv[u] = t > 0 ? hp[static_cast<size_t>(t - 1) * C] : 0.0f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int t = hi - u;
+      if (t >= 0) {
+        if (t == S - 1)
+          g = seeded ? __fadd_rn(dv[u], g_last) : dv[u];
+        else
+          g = __fadd_rn(dv[u], __fmul_rn(g, a_next));
+        dbp[static_cast<size_t>(t) * C] = g;
+        dap[static_cast<size_t>(t) * C] = __fmul_rn(g, hv[u]);
+        a_next = av[u];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // C entry for ctypes.  dtype: 0 = fp32, 1 = bf16 (a, b, h and h_last all
@@ -113,4 +175,23 @@ extern "C" int linear_scan_launch(const void* a, const void* b, void* h,
   if (dtype == 1)
     return launch<__nv_bfloat16>(a, b, h, h_last, B, S, C, a_cstride, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// C entry for ctypes: the backward, fp32 only, a full (B, S, C) a.
+// dh_last may be null (a zero gradient of h_last).  Launches on `stream`,
+// does not synchronise, returns cudaGetLastError().
+extern "C" int linear_scan_backward_launch(const void* a, const void* h,
+                                           const void* dh,
+                                           const void* dh_last, void* da,
+                                           void* db, int B, int S, int C,
+                                           void* stream) {
+  if (B <= 0 || S <= 0 || C <= 0) return 0;
+  if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((C + kThreads - 1) / kThreads, B);
+  linear_scan_backward_channels<<<grid, kThreads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(h),
+      static_cast<const float*>(dh), static_cast<const float*>(dh_last),
+      static_cast<float*>(da), static_cast<float*>(db), S, C);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -5,19 +5,22 @@ The kernel (``csrc/linear_scan.cu``) replaces the Pallas TPU kernel
 with ``nvcc`` at first use (``repro_torch.kernels.build``) and called
 through ``ctypes`` on PyTorch's current stream.
 
-The kernel computes the forward recurrence only: the wrapper refuses
-inputs that require grad under grad mode rather than return states with
-no autograd history, so the SSM and hybrid models do not train on the
-card until the scan has a backward.
+``linear_scan_kernel`` launches the forward recurrence and
+``linear_scan_backward_kernel`` its reverse (fp32, the gradients of a
+and b).  The forward wrapper refuses inputs that require grad under grad
+mode rather than return states with no autograd history: the
+differentiable route is ``ops.linear_scan``, whose autograd Function
+launches both, and through which the SSM and hybrid models train on the
+card.
 
-``linear_scan_kernel.launches`` counts the launches this process made; a
+Each wrapper's ``launches`` counts the launches this process made; a
 run that resets it to 0 and reads it afterwards can show that its main
 path went through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -26,16 +29,28 @@ from repro_torch.kernels import build
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _entry():
-    lib = build.load("linear_scan")
-    fn = lib.linear_scan_launch
+# C entry -> (pointer arguments, int arguments), then the stream
+_ENTRIES = {"linear_scan_launch": (4, 5),
+            "linear_scan_backward_launch": (6, 3)}
+
+
+def _entry(name: str = "linear_scan_launch"):
+    fn = getattr(build.load("linear_scan"), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p]
+        ptrs, ints = _ENTRIES[name]
+        fn.argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(fn, args, ref: torch.Tensor) -> int:
+    """``fn(*args, stream)`` on ``ref``'s device and current stream."""
+    if ref.get_device() == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    # the runtime launches on its current device: switch to ref's
+    with torch.cuda.device(ref.device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 def linear_scan_kernel(a: torch.Tensor, b: torch.Tensor
@@ -46,9 +61,10 @@ def linear_scan_kernel(a: torch.Tensor, b: torch.Tensor
     else, and where grad mode is on and a or b requires grad."""
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         raise RuntimeError(
-            "linear_scan_kernel has no backward, and its states would train "
-            "with missing gradients: a backward scan is later work, so the "
-            "SSM and hybrid models (Mamba, RG-LRU) train on the CPU only")
+            "linear_scan_kernel returns states with no autograd history: "
+            "call repro_torch.kernels.linear_scan.ops.linear_scan, the "
+            "differentiable route, which launches this kernel and "
+            "linear_scan_backward_kernel")
     if not (a.is_cuda and b.is_cuda):
         raise ValueError(
             f"linear_scan_kernel needs CUDA tensors, got {a.device} and "
@@ -73,14 +89,9 @@ def linear_scan_kernel(a: torch.Tensor, b: torch.Tensor
                          "grid or 32-bit sequence/channel indices")
     h = torch.empty_like(b)
     h_last = torch.empty((B, C), dtype=b.dtype, device=b.device)
-    fn = _entry()
-    args = (a.data_ptr(), b.data_ptr(), h.data_ptr(), h_last.data_ptr(),
-            B, S, C, int(a.shape[2] != 1), _DTYPES[b.dtype])
-    if b.get_device() == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:  # the runtime launches on its current device: switch to b's
-        with torch.cuda.device(b.device):
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    err = _launch(_entry(), (a.data_ptr(), b.data_ptr(), h.data_ptr(),
+                             h_last.data_ptr(), B, S, C,
+                             int(a.shape[2] != 1), _DTYPES[b.dtype]), b)
     if err != 0:
         raise RuntimeError(
             f"linear_scan kernel launch failed: CUDA error {err} at shape "
@@ -90,3 +101,56 @@ def linear_scan_kernel(a: torch.Tensor, b: torch.Tensor
 
 
 linear_scan_kernel.launches = 0
+
+
+def linear_scan_backward_kernel(a: torch.Tensor, h: torch.Tensor,
+                                dh: torch.Tensor,
+                                dh_last: Optional[torch.Tensor] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reverse of the recurrence: a, the forward's h and the gradient
+    dh of h, all (B, S, C), and the gradient dh_last (B, C) of h_last
+    (None: zero), contiguous fp32 CUDA tensors -> (da, db), both (B, S,
+    C) fp32.  Raises on anything else: bf16, a broadcast (B, S, 1) a,
+    CPU tensors."""
+    ts = (a, h, dh) + (() if dh_last is None else (dh_last,))
+    if any(t.dtype != torch.float32 for t in ts):
+        raise ValueError(
+            "linear_scan_backward_kernel takes float32 only; got "
+            f"{[str(t.dtype) for t in ts]}")
+    if h.dim() != 3 or a.shape != h.shape or dh.shape != h.shape or (
+            dh_last is not None and dh_last.shape != (h.shape[0],
+                                                      h.shape[2])):
+        raise ValueError(
+            "linear_scan_backward_kernel takes a full (B, S, C) a (not a "
+            "broadcast (B, S, 1) one), h and dh of that shape and dh_last "
+            f"(B, C); got a {tuple(a.shape)}, h {tuple(h.shape)}, dh "
+            f"{tuple(dh.shape)}, dh_last "
+            f"{None if dh_last is None else tuple(dh_last.shape)}")
+    if not all(t.is_cuda for t in ts):
+        raise ValueError(
+            "linear_scan_backward_kernel needs CUDA tensors, got "
+            f"{[str(t.device) for t in ts]}")
+    if any(t.device != h.device for t in ts):
+        raise ValueError(f"tensors on {[str(t.device) for t in ts]}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("linear_scan_backward_kernel takes contiguous "
+                         "tensors")
+    B, S, C = h.shape
+    if B > 65535 or h.numel() >= 2 ** 62 or max(S, C) >= 2 ** 31:
+        raise ValueError(f"shape {tuple(h.shape)} exceeds the kernel's "
+                         "grid or 32-bit sequence/channel indices")
+    da = torch.empty_like(h)
+    db = torch.empty_like(h)
+    err = _launch(_entry("linear_scan_backward_launch"), (
+        a.data_ptr(), h.data_ptr(), dh.data_ptr(),
+        None if dh_last is None else dh_last.data_ptr(), da.data_ptr(),
+        db.data_ptr(), B, S, C), h)
+    if err != 0:
+        raise RuntimeError(
+            f"linear_scan backward kernel launch failed: CUDA error {err} "
+            f"at shape {tuple(h.shape)}")
+    linear_scan_backward_kernel.launches += 1
+    return da, db
+
+
+linear_scan_backward_kernel.launches = 0

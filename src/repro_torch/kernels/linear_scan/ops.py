@@ -7,6 +7,12 @@ raises.  ``use_kernel`` (``RunConfig.fold_kernel`` for the fold) may only
 confirm what the device decides — ``None`` lets the device decide,
 ``True`` on a CPU tensor or ``False`` on a CUDA tensor raises.
 
+Under grad, :func:`linear_scan` goes through :class:`LinearScan`, whose
+backward is the reverse recurrence: the backward kernel on a CUDA
+tensor, the plain reverse loop on a CPU tensor.  Everything else
+(serving, the fold) takes the forward alone, launch for launch as
+before.
+
 :func:`fold_prefix` maps one tick's affine server-fold stream onto the
 recurrence: B=1, S = the tick's bucket, C = one carrier leaf's size, the
 (S,) coefficients broadcast over C — one launch per carrier leaf.
@@ -18,8 +24,10 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.common.pytree import Tree, tree_flatten, tree_unflatten
-from repro_torch.kernels.linear_scan.kernel import linear_scan_kernel
-from repro_torch.kernels.linear_scan.ref import linear_scan_ref
+from repro_torch.kernels.linear_scan.kernel import (
+    linear_scan_backward_kernel, linear_scan_kernel)
+from repro_torch.kernels.linear_scan.ref import (linear_scan_backward_ref,
+                                                 linear_scan_ref)
 
 
 def _on_card(x: torch.Tensor, use_kernel: Optional[bool]) -> bool:
@@ -39,6 +47,51 @@ def _scan(a: torch.Tensor, b: torch.Tensor, on_card: bool
     return linear_scan_ref(a, b)
 
 
+class LinearScan(torch.autograd.Function):
+    """The recurrence on (B, S, C) ``a`` and ``b`` under autograd: the
+    forward as :func:`_scan` dispatches it, saving ``(a, h)``; the
+    backward the reverse recurrence, the backward kernel on a CUDA
+    tensor and its plain version on a CPU tensor.  A gradient of ``h``
+    or ``h_last`` that autograd passes as None is taken as zero."""
+
+    @staticmethod
+    def forward(ctx, a, b, on_card: bool):
+        h, h_last = _scan(a, b, on_card)
+        ctx.save_for_backward(a, h)
+        ctx.set_materialize_grads(False)
+        return h, h_last
+
+    @staticmethod
+    def backward(ctx, dh, dh_last):
+        a, h = ctx.saved_tensors
+        if dh is None:
+            dh = torch.zeros_like(h)
+        if a.is_cuda:
+            da, db = linear_scan_backward_kernel(
+                a, h, dh.contiguous(),
+                None if dh_last is None else dh_last.contiguous())
+        else:
+            da, db = linear_scan_backward_ref(a, h, dh, dh_last)
+        return da, db, None
+
+
+def _check_grad(a: torch.Tensor, b: torch.Tensor) -> None:
+    """The shapes and types :class:`LinearScan` differentiates."""
+    if a.shape != b.shape:
+        raise ValueError(
+            "LinearScan differentiates a full (B, S, C) a only; got a "
+            f"{tuple(a.shape)} broadcast over b {tuple(b.shape)} (the "
+            "fold's layout, which is never differentiated)")
+    # float32, the backward kernel's type; on the CPU float64 as well,
+    # for gradient checks
+    types = (torch.float32,) if b.is_cuda else (torch.float32, torch.float64)
+    if a.dtype != b.dtype or b.dtype not in types:
+        raise TypeError(
+            f"LinearScan on {b.device.type} differentiates a and b of one "
+            f"type of {[str(t) for t in types]}; got {a.dtype} and "
+            f"{b.dtype} (no bfloat16 backward)")
+
+
 def linear_scan(a: torch.Tensor, b: torch.Tensor, *,
                 use_kernel: Optional[bool] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -47,11 +100,21 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, *,
     ``a`` and ``b`` share a ``(B, S, ...)`` layout (Mamba's ``(B, S,
     d_inner, N)``, RG-LRU's ``(B, S, width)``), flattened to ``C``
     channels.  Returns ``(h, h_last)`` in that layout and ``b.dtype``.
+    With grad mode on and ``a`` or ``b`` requiring grad it goes through
+    :class:`LinearScan` (a full ``a``, fp32; fp64 too on the CPU);
+    otherwise the forward alone.
     """
     shape = b.shape
     B, S = shape[0], shape[1]
-    h, h_last = _scan(a.reshape(B, S, -1), b.reshape(B, S, -1),
-                      _on_card(b, use_kernel))
+    a3, b3 = a.reshape(B, S, -1), b.reshape(B, S, -1)
+    on_card = _on_card(b, use_kernel)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        _check_grad(a3, b3)
+        if on_card:  # the kernels take contiguous tensors (no copy if so)
+            a3, b3 = a3.contiguous(), b3.contiguous()
+        h, h_last = LinearScan.apply(a3, b3, on_card)
+    else:
+        h, h_last = _scan(a3, b3, on_card)
     return h.reshape(shape), h_last.reshape((B,) + tuple(shape[2:]))
 
 

@@ -15,8 +15,10 @@ the samples seen, and the Eq. (5)-(6) feature pass on the first layer
 model.  ``main`` prints the JAX training script's lines and final JSON.
 
 On the card the loss runs the plain ``blocked_attention`` under
-autograd and the feature pass is one launch of the per-row feature
-kernel (K1) over the (vocab, d) embedding a fold; ``main`` computes in
+autograd, a Mamba or RG-LRU layer's scan one launch of the recurrence
+kernel (K2) and one of its backward a gradient, and the feature pass
+is one launch of the per-row feature kernel (K1) over the (vocab, d)
+embedding a fold; ``main`` computes in
 fp32 with full-fp32 matrix products (TF32 off).  Every update is out of
 place, so a client's parameters and the server snapshot its prox term
 reads are the server's tensors of that pull, shared, never written.

@@ -73,8 +73,9 @@ class Model:
         the chunked cross-entropy plus 0.01 x the MoE load-balance term,
         metrics ``{"ce", "aux"}``, on the plain ``blocked_attention``
         (differentiable on every device).  Its Mamba and RG-LRU
-        recurrences reach K2 on the card, which refuses inputs that
-        require grad: SSM and hybrid models train on the CPU only."""
+        recurrences go through ``linear_scan``'s autograd Function: on
+        the card K2 forward and K2's backward kernel, one launch each a
+        recurrent layer, so every family trains on the card."""
         if self.cfg.family not in PAPER_FAMILIES:
             return tf.loss_fn(params, self.cfg, batch)
         pred = self.predict(params, batch)

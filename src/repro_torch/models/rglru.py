@@ -10,7 +10,9 @@ their product is projected back.
 
 The prefill's recurrence goes through
 ``kernels/linear_scan/ops.py::linear_scan``: K2's CUDA kernel on a CUDA
-tensor (one launch a layer), its plain version on a CPU tensor.  Both
+tensor (one launch a layer), its plain version on a CPU tensor; under
+grad its backward is K2's backward kernel on the card (one launch a
+layer) and the plain reverse loop on the CPU.  Both
 JAX branches map to it: ``scan_impl="pallas"`` calls the same kernel, and
 the default ``chunked_linear_scan`` is XLA's blocked form of the same
 recurrence, which has no port.  Decode is one plain fp32 step

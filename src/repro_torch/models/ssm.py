@@ -6,15 +6,20 @@ every fp32 operation.  The prefill's selective scan is that package's
 discretized coefficients ``dA`` and ``dBx`` as ``(B, S, d_inner, N)``
 fp32 tensors and ``kernels/linear_scan/ops.py::linear_scan`` solves the
 recurrence over them, which on a CUDA tensor is K2's CUDA kernel (one
-launch a layer) and on a CPU tensor its plain version.  The JAX default,
-``_fused_chunk_scan``, is XLA's fusion of the same recurrence and is not
+launch a layer) and on a CPU tensor its plain version.  Under grad the
+scan's backward is K2's backward kernel on the card (one launch a layer)
+and its plain reverse loop on the CPU, so the SSM trains on either.  The
+JAX default, ``_fused_chunk_scan``, is XLA's fusion of the same
+recurrence (rematerialized chunk by chunk in training) and is not
 ported.  Decode is one plain fp32 recurrence step (``linear_scan_step``)
 and launches no kernel.
 
 At Falcon-Mamba-7B's width a batch of 8 x 2016 tokens makes each of
 ``dA``, ``dBx`` and the scan's states 8.46 GB: the products are formed in
 place where that leaves their values unchanged, and ``dA`` / ``dBx`` are
-freed before the C-projection.
+freed before the C-projection.  Under grad a layer keeps three
+``(B, S, d_inner, N)`` fp32 tensors for its backward: ``dA``, ``dt * B``
+and the states ``h`` (537 MB each at 8 x 128 tokens).
 """
 from __future__ import annotations
 
@@ -81,9 +86,13 @@ def _ssm_coeffs(params, xh: torch.Tensor):
                    + params["b_dt"].to(torch.float32))  # (B, S, di)
     A = -torch.exp(params["A_log"].to(torch.float32))  # (di, N)
     dA = (dt[..., None] * A).exp_()
-    # (dt * B) * x, the JAX order; the second product in place
+    # (dt * B) * x, the JAX order.  The second product in place where
+    # autograd does not track it (serving); out of place under grad, where
+    # in place autograd would clone dt * B for its backward: the same
+    # values, one copy pass fewer
     dBx = dt[..., None] * Bc[..., None, :].to(torch.float32)
-    dBx.mul_(xh[..., None].to(torch.float32))
+    x32 = xh[..., None].to(torch.float32)
+    dBx = dBx * x32 if dBx.requires_grad else dBx.mul_(x32)
     return dA, dBx, Cc
 
 

@@ -18,10 +18,10 @@ JAX code scans.
 (``blocked_attention``, what ``loss_fn`` trains on, as the JAX package
 trains on XLA's).  The Mamba and RG-LRU recurrences have one route,
 ``kernels/linear_scan/ops.py::linear_scan``, the counterpart of both JAX
-scan branches: its plain recurrence on the CPU, which autograd
-differentiates, and K2 on the card, which has no backward and refuses
-inputs that require grad, so SSM and hybrid models do not train on the
-card.
+scan branches: its plain recurrence on the CPU and K2 on the card, under
+grad through an autograd Function whose backward is the reverse
+recurrence (K2's backward kernel on the card), so every family trains on
+either device.
 """
 from __future__ import annotations
 

@@ -1,6 +1,7 @@
 """Import hygiene of the port: no module of ``repro_torch`` and nothing
-``chip_smoke.py`` imports pulls in ``jax`` or the JAX package, and the
-port's entry points default to the CUDA card (no silent CPU fallback)."""
+``chip_smoke.py`` or ``train_witness.py`` imports pulls in ``jax`` or the
+JAX package, and the port's entry points default to the CUDA card (no
+silent CPU fallback)."""
 import os
 import shutil
 import subprocess
@@ -23,6 +24,7 @@ for name in names:
     importlib.import_module(name)
 sys.path.insert(0, ROOT)
 import chip_smoke  # its top-level imports; main() is not run
+import train_witness  # the same
 bad = sorted(m for m in sys.modules
              if m in ("jax", "repro") or m.startswith(("jax.", "repro.")))
 print(len(names), bad)

@@ -3,9 +3,15 @@
 On the CPU the port's dispatcher runs its plain PyTorch version; it is
 held against the JAX plain version and against the JAX Pallas kernel in
 interpret mode, on the shape x dtype grid of ``tests/test_kernels.py``,
-and the port's ``fold_prefix`` against the JAX one.  The CUDA kernel
-itself is checked on the card (``cuda`` marker; skipped where there is
-none).  Inputs come from numpy with a seed.
+and the port's ``fold_prefix`` against the JAX one.  Under grad the
+recurrence goes through ``LinearScan``: its plain reverse loop
+(``linear_scan_backward_ref``) is held bit for bit against autograd of
+the plain forward loop, the Function against ``gradcheck`` in fp64 and
+against ``jax.grad`` of the JAX package's ``linear_scan_ref`` and
+``chunked_linear_scan``.  The CUDA forward kernel is checked on the card
+(``cuda`` marker; skipped where there is none); the backward kernel in
+``tests/test_torch_train_card.py``, which runs without JAX.  Inputs come
+from numpy with a seed.
 """
 import numpy as np
 import pytest
@@ -13,17 +19,21 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.linear_scan.ops import (  # noqa: E402
     fold_prefix as jax_fold_prefix, linear_scan as jax_linear_scan)
 from repro.kernels.linear_scan.ref import (  # noqa: E402
     linear_scan_ref as jax_linear_scan_ref)
+from repro.models.scan_utils import chunked_linear_scan  # noqa: E402
+from repro_torch.kernels.linear_scan import ops  # noqa: E402
 from repro_torch.kernels.linear_scan.kernel import (  # noqa: E402
-    linear_scan_kernel)
+    linear_scan_backward_kernel, linear_scan_kernel)
 from repro_torch.kernels.linear_scan.ops import (  # noqa: E402
-    fold_prefix, linear_scan)
-from repro_torch.kernels.linear_scan.ref import linear_scan_ref  # noqa: E402
+    LinearScan, fold_prefix, linear_scan)
+from repro_torch.kernels.linear_scan.ref import (  # noqa: E402
+    linear_scan_backward_ref, linear_scan_ref)
 
 SHAPES = [(2, 64, 32), (1, 128, 16), (2, 100, 8), (1, 256, 128),
           (2, 32, 4)]
@@ -170,6 +180,133 @@ def test_kernel_wrapper_refuses_cpu_tensors():
     assert linear_scan_kernel.launches == before
 
 
+# ---------------------------------------------------------------------------
+# the backward: the reverse recurrence under LinearScan
+# ---------------------------------------------------------------------------
+
+def _grad_inputs(shape, seed=5):
+    """a in (0.5, 0.999), b, and the upstream gradients dh (of h) and
+    dh_last (of h_last), fp32 numpy."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.5, 0.999, shape).astype(np.float32)
+    b, dh = (rng.standard_normal(shape).astype(np.float32) for _ in "bd")
+    dh_last = rng.standard_normal(shape[:1] + shape[2:]).astype(np.float32)
+    return a, b, dh, dh_last
+
+
+def _torch_grads(scan, a, b, dh, dh_last, with_last):
+    """(da, db) of <h, dh> (+ <h_last, dh_last>) through ``scan``."""
+    a_t = torch.tensor(a, requires_grad=True)
+    b_t = torch.tensor(b, requires_grad=True)
+    h, h_last = scan(a_t, b_t)
+    loss = (h * torch.tensor(dh)).sum()
+    if with_last:
+        loss = loss + (h_last * torch.tensor(dh_last)).sum()
+    return torch.autograd.grad(loss, [a_t, b_t])
+
+
+@pytest.mark.parametrize("S", [1, 3, 8, 13])
+@pytest.mark.parametrize("with_last", [False, True])
+def test_backward_ref_is_autograd_of_the_plain_loop(S, with_last):
+    """Bit for bit in fp32: the plain reverse loop rounds each product and
+    sum as autograd of the plain forward loop does; LinearScan's CPU
+    backward is that loop; h_last's gradient seeds the last step."""
+    a, b, dh, dh_last = _grad_inputs((2, S, 5))
+    want = _torch_grads(linear_scan_ref, a, b, dh, dh_last, with_last)
+    h, _ = linear_scan_ref(torch.tensor(a), torch.tensor(b))
+    got = linear_scan_backward_ref(
+        torch.tensor(a), h, torch.tensor(dh),
+        torch.tensor(dh_last) if with_last else None)
+    fn = _torch_grads(linear_scan, a, b, dh, dh_last, with_last)
+    for w, g, f in zip(want, got, fn):
+        assert g.dtype == torch.float32
+        assert torch.equal(g, w) and torch.equal(f, w)
+
+
+@pytest.mark.parametrize("outputs", ["h", "h_last", "both"])
+def test_linear_scan_gradcheck_fp64(outputs):
+    """The Function's analytic gradients against finite differences, in
+    fp64 (the plain versions compute in fp64 for fp64 inputs); a gradient
+    of an unused output arrives as None and counts as zero."""
+    rng = np.random.default_rng(7)
+    a = torch.tensor(rng.uniform(0.5, 0.999, (2, 6, 3)), requires_grad=True)
+    b = torch.tensor(rng.standard_normal((2, 6, 3)), requires_grad=True)
+    pick = {"h": lambda h, hl: h, "h_last": lambda h, hl: hl,
+            "both": lambda h, hl: (h, hl)}[outputs]
+    assert torch.autograd.gradcheck(
+        lambda x, y: pick(*LinearScan.apply(x, y, False)), (a, b))
+
+
+@pytest.mark.parametrize("jax_scan", ["linear_scan_ref",
+                                      "chunked_linear_scan"])
+@pytest.mark.parametrize("shape", [(2, 64, 6), (2, 48, 4, 3)])
+def test_gradients_match_jax_grad(jax_scan, shape):
+    """``linear_scan``'s gradients against ``jax.grad`` of the JAX
+    package's plain scan and of its chunked XLA scan (chunks of 16: four
+    carries across chunks), on the flat and on Mamba's (B, S, d, N)
+    layout: 1e-6 per unit of the largest magnitude (the chunked scan sums
+    in another order)."""
+    a, b, dh, dh_last = _grad_inputs(shape)
+    fn = {"linear_scan_ref": lambda x, y: jax_linear_scan_ref(
+              x.reshape(x.shape[:2] + (-1,)), y.reshape(y.shape[:2] + (-1,))),
+          "chunked_linear_scan": lambda x, y: chunked_linear_scan(
+              x, y, chunk=16)}[jax_scan]
+
+    def loss(x, y):
+        h, h_last = fn(x, y)
+        return (jnp.sum(h.reshape(dh.shape) * dh)
+                + jnp.sum(h_last.reshape(dh_last.shape) * dh_last))
+
+    want = jax.grad(loss, argnums=(0, 1))(jnp.asarray(a), jnp.asarray(b))
+    got = _torch_grads(linear_scan, a, b, dh, dh_last, True)
+    for g, w in zip(got, want):
+        _assert_close(g, w, 1e-6)
+
+
+def test_no_grad_and_grad_free_inputs_take_the_forward_alone():
+    """Serving and the fold: no autograd node, nothing saved."""
+    a, b = _inputs((1, 8, 4))
+    a_t, b_t = torch.tensor(a, requires_grad=True), torch.tensor(b)
+    with torch.no_grad():
+        h, _ = linear_scan(a_t, b_t)
+    assert h.grad_fn is None
+    h, _ = linear_scan(a_t.detach(), b_t)
+    assert h.grad_fn is None
+    h, _ = linear_scan(a_t, b_t)
+    assert type(h.grad_fn.next_functions[0][0]).__name__ == \
+        "LinearScanBackward"
+
+
+def test_grad_refuses_a_broadcast_a_bf16_and_a_kernel_forced_on_cpu():
+    a, b = _inputs((1, 8, 4))
+    a1 = torch.tensor(a[:, :, :1], requires_grad=True)
+    with pytest.raises(ValueError, match="LinearScan differentiates a full "
+                       r"\(B, S, C\) a only"):
+        linear_scan(a1, torch.tensor(b))
+    with pytest.raises(TypeError, match="no bfloat16 backward"):
+        linear_scan(torch.tensor(a, dtype=torch.bfloat16,
+                                 requires_grad=True),
+                    torch.tensor(b, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="contradicts"):
+        linear_scan(torch.tensor(a, requires_grad=True), torch.tensor(b),
+                    use_kernel=True)
+
+
+def test_backward_kernel_wrapper_refuses():
+    """By name, before any launch: bf16, a broadcast a, CPU tensors."""
+    before = linear_scan_backward_kernel.launches
+    a, b = _inputs((1, 8, 4))
+    t = torch.tensor(b)
+    with pytest.raises(ValueError, match="takes float32 only"):
+        linear_scan_backward_kernel(t.bfloat16(), t.bfloat16(), t.bfloat16())
+    with pytest.raises(ValueError, match=r"full \(B, S, C\) a \(not a "
+                       "broadcast"):
+        linear_scan_backward_kernel(torch.tensor(a[:, :, :1]), t, t)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        linear_scan_backward_kernel(torch.tensor(a), t, t, t[:, 0])
+    assert linear_scan_backward_kernel.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,broadcast", [
     *((s, False) for s in SHAPES),
@@ -192,3 +329,4 @@ def test_cuda_kernel_matches_plain_version(shape, broadcast, dtype):
     want, want_last = linear_scan_ref(a_t, b_t)
     _assert_close(h.cpu(), want.cpu(), tol)
     _assert_close(h_last.cpu(), want_last.cpu(), tol)
+

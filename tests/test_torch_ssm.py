@@ -234,6 +234,36 @@ def test_ssm_coeffs_matches_jax():
     assert float(dA.min()) > 0.0 and float(dA.max()) < 1.0
 
 
+def test_mamba_layer_keeps_three_scan_tensors_for_backward():
+    """Under grad a Mamba layer keeps three (B, S, d_inner, N) fp32
+    tensors for its backward: dA, dt * B and the states h (what sizes
+    the training path's activations); ``_ssm_coeffs`` gives the same
+    values bit for bit with and without grad (its second product runs in
+    place only where autograd does not track it)."""
+    _, _, tm, p = _pair()
+    tp = tree_map(lambda t: t.detach().requires_grad_(),
+                  layer(p["blocks"], 0)["mamba"])
+    x = torch.tensor(_normal((B, 9, tm.cfg.d_model), 4))
+    numel = B * 9 * tm.cfg.d_inner * tm.cfg.ssm_state
+    storages = set()
+
+    def pack(t):
+        if t.numel() == numel:
+            storages.add(t.untyped_storage().data_ptr())
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        ssm.mamba_forward(tp, x, tm.cfg)
+    assert len(storages) == 3
+    xh = torch.tensor(_normal((B, 9, tm.cfg.d_inner), 3))
+    with torch.no_grad():
+        want = ssm._ssm_coeffs(tp, xh)
+    got = ssm._ssm_coeffs(tp, xh.requires_grad_())
+    assert got[1].requires_grad
+    for g, w in zip(got, want):
+        assert torch.equal(g.detach(), w)
+
+
 def test_linear_scan_step_matches_jax():
     a, b = _normal((B, 8, 4), 4), _normal((B, 8, 4), 5)
     h = _normal((B, 8, 4), 6)

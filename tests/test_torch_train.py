@@ -20,20 +20,21 @@ Checked, with the tolerance stated at each:
   bf16 slots;
 * (d) each optimizer of ``optim/optimizers.py`` step by step;
 * (e) the port's training loop against the JAX training script's loop,
-  written here from the JAX package's functions (reduced Qwen2-0.5B, 3
-  clients, 8 steps: every client holds a server snapshot that later
-  folds must leave as it was);
+  written here from the JAX package's functions (reduced Qwen2-0.5B,
+  Falcon-Mamba-7B and RecurrentGemma-9B, 3 clients, 8 steps: every
+  client holds a server snapshot that later folds must leave as it was;
+  the recurrent layers' gradients go through ``LinearScan``);
 * (f) the quickstart path's per-round losses and final prefill logits
   against the JAX example's loop;
 * (g) ``--checkpoint`` written by the port, read by
   ``repro.checkpoint.load_checkpoint``;
-* (h) the refusals: K3's and K2's wrappers under grad, then
-  ``first_layer_path`` of every family and the feature pass on a tied
-  embedding.
+* (h) the refusals: K3's and K2's wrappers under grad, then the SSM and
+  hybrid gradients through ``LinearScan``, ``first_layer_path`` of every
+  family and the feature pass on a tied embedding.
 
-The card's cases (SSM / hybrid training refused there, K1 once a fold,
-card against CPU) are in ``tests/test_torch_train_card.py``, which
-imports no JAX.
+The card's cases (K1 once a fold, the SSM and hybrid gradients and the
+dense loop on the card against the CPU) are in
+``tests/test_torch_train_card.py``, which imports no JAX.
 """
 import dataclasses
 import heapq
@@ -68,6 +69,7 @@ from repro_torch.core import feature_learning as fl  # noqa: E402
 from repro_torch.data import lm  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_kernel)
+from repro_torch.kernels.linear_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.linear_scan.kernel import (  # noqa: E402
     linear_scan_kernel)
 from repro_torch.launch import quickstart as qs  # noqa: E402
@@ -470,17 +472,48 @@ def _assert_tree_close(got, want, tol):
     return worst
 
 
+def _recurrent_layers(cfg) -> int:
+    """Mamba or RG-LRU layers of ``cfg``: K2 launches a gradient."""
+    if cfg.family == "ssm":
+        return cfg.n_layers
+    if cfg.family == "hybrid":
+        return sum(kind == "rglru" for kind in (
+            cfg.block_pattern * cfg.n_layers)[:cfg.n_layers])
+    return 0
+
+
+def _count_scan_backwards(monkeypatch):
+    """A list that gets one entry per LinearScan backward on the CPU."""
+    calls = []
+    ref = scan_ops.linear_scan_backward_ref
+
+    def spy(*args):
+        calls.append(tuple(args[0].shape))
+        return ref(*args)
+
+    monkeypatch.setattr(scan_ops, "linear_scan_backward_ref", spy)
+    return calls
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "falcon-mamba-7b",
+                                  "recurrentgemma-9b"])
 @pytest.mark.parametrize("feature_learning", [True, False])
-def test_train_loop_matches_the_jax_loop(feature_learning):
+def test_train_loop_matches_the_jax_loop(feature_learning, arch,
+                                         monkeypatch):
     """Reduced Qwen2-0.5B (tied embeddings: the feature pass reweights
-    the head too), 3 clients, 8 steps.  Each client's prox term reads the
-    server as of its last pull; a fold or feature pass written in place
-    would rewrite those snapshots and part the trajectories."""
-    jm, w, tm, p = _pair("qwen2-0.5b", cool=True)
+    the head too), Falcon-Mamba-7B (tied) and RecurrentGemma-9B, 3
+    clients, 8 steps.  Each client's prox term reads the server as of its
+    last pull; a fold or feature pass written in place would rewrite
+    those snapshots and part the trajectories.  The Mamba and RG-LRU
+    layers' gradients go through LinearScan, one backward a layer a
+    step."""
+    jm, w, tm, p = _pair(arch, cool=True)
+    calls = _count_scan_backwards(monkeypatch)
     streams = lm.federated_token_clients(3, tm.cfg.vocab_size, 4_000)
     jstreams = jlm.federated_token_clients(3, tm.cfg.vocab_size, 4_000)
     res = tr.train(tm, p, streams, device="cpu", log=None,
                    feature_learning=feature_learning, **LOOP)
+    assert len(calls) == LOOP["steps"] * _recurrent_layers(tm.cfg)
     want_losses, want_w = _jax_train_loop(
         jm, jm.cfg, jax.tree.map(jnp.asarray, w), jstreams,
         feature_learning=feature_learning, **LOOP)
@@ -553,19 +586,38 @@ def _wrong_rmsnorm(params, x, eps=1e-6):
             * params["scale"].to(torch.float32)).to(x.dtype)
 
 
-@pytest.mark.parametrize("n_layers,vocab", [(2, 512), (4, 8192)])
-def test_chip_smoke_first_step_gate(n_layers, vocab, monkeypatch, capsys):
-    """``chip_smoke.py``'s ``train_path`` gate, run on the CPU at reduced
-    width: client 0's first local step lowers its batch's loss, and its
-    central difference over the step is the first-order prediction
-    <g, u> within ``TRAIN_FO_TOL``; a wrong gradient (RMSNorm's variance
-    left out of it) or a step of the wrong sign fails it.  Printed
-    (``-s``): the ratios."""
+def _scaled_scan_backward(da_scale, db_scale):
+    """``LinearScan``'s CPU backward with its ``da`` and ``db`` scaled."""
+    plain = scan_ops.linear_scan_backward_ref
+
+    def wrong(*args, **kw):
+        da, db = plain(*args, **kw)
+        return da * da_scale, db * db_scale
+
+    return wrong
+
+
+@pytest.mark.parametrize("arch,n_layers,vocab,frac", [
+    pytest.param("qwen2-0.5b", 2, 512, "TRAIN_FO_FRAC", id="2-512"),
+    pytest.param("qwen2-0.5b", 4, 8192, "TRAIN_FO_FRAC", id="4-8192"),
+    pytest.param("falcon-mamba-7b", 4, 8192, "TRAIN_FO_FRAC_SSM",
+                 id="falcon-mamba-7b-4-8192")])
+def test_chip_smoke_first_step_gate(arch, n_layers, vocab, frac,
+                                    monkeypatch, capsys):
+    """``chip_smoke.py``'s first-step gate (``train_path``'s over
+    ``TRAIN_FO_FRAC`` of the step, ``train_path_mamba``'s over
+    ``TRAIN_FO_FRAC_SSM``), run on the CPU at reduced width: client 0's
+    first local step lowers its batch's loss, and its central difference
+    is the first-order prediction <g, u> within ``TRAIN_FO_TOL``; a wrong
+    gradient fails it (RMSNorm's variance left out of it; on Falcon-Mamba
+    the scan's ``db`` scaled by 0.9 in ``LinearScan``'s backward), and so
+    does a step of the wrong sign.  Printed (``-s``): the ratios."""
     monkeypatch.syspath_prepend(ROOT)
     import chip_smoke as cs
 
     monkeypatch.setattr(cs, "DEV", "cpu")
-    cfg = dataclasses.replace(get_arch("qwen2-0.5b").reduced(),
+    frac = getattr(cs, frac)
+    cfg = dataclasses.replace(get_arch(arch).reduced(),
                               n_layers=n_layers, vocab_size=vocab)
     model = build_model(cfg)
     params = cs._cool_attention(model.init(torch.Generator().manual_seed(0),
@@ -573,22 +625,78 @@ def test_chip_smoke_first_step_gate(n_layers, vocab, monkeypatch, capsys):
     streams = cs._train_streams(cs.TRAIN_CLIENTS, vocab, 5_000)
 
     passes = cs._first_step_ok
-    right = cs._first_step_check(model, params, streams)
+    right = cs._first_step_check(model, params, streams, frac)
     assert passes(right), right
     with monkeypatch.context() as m:
-        m.setattr(layers, "rmsnorm", _wrong_rmsnorm)
-        wrong = cs._first_step_check(model, params, streams)
+        if cfg.family == "ssm":
+            m.setattr(scan_ops, "linear_scan_backward_ref",
+                      _scaled_scan_backward(1.0, 0.9))
+        else:
+            m.setattr(layers, "rmsnorm", _wrong_rmsnorm)
+        wrong = cs._first_step_check(model, params, streams, frac)
     assert wrong["loss_before"] == right["loss_before"]
     assert not passes(wrong), wrong
     with monkeypatch.context() as m:
         m.setitem(cs.TRAIN_HYPER, "eta", -cs.TRAIN_HYPER["eta"])
-        uphill = cs._first_step_check(model, params, streams)
+        uphill = cs._first_step_check(model, params, streams, frac)
     assert not passes(uphill), uphill
     with capsys.disabled():
-        print(f"\nfirst-step gate, {n_layers} layers, vocab {vocab}: "
-              f"ratio {right['ratio']:.5f} (whole step "
-              f"{right['ratio_whole_step']:.5f}); wrong RMSNorm gradient "
+        print(f"\nfirst-step gate, {arch}, {n_layers} layers, vocab "
+              f"{vocab}, fraction {frac}: ratio {right['ratio']:.5f} (whole "
+              f"step {right['ratio_whole_step']:.5f}); wrong gradient "
               f"{wrong['ratio']:.5f}")
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
+def test_chip_smoke_gradient_gap_sees_the_scan_da(arch, monkeypatch):
+    """``train_card_vs_cpu``'s gradient check (``_grad_gaps`` within
+    ``TRAIN_TOL``) at reduced width, 2 x 32 tokens: a ``da`` of the scan
+    scaled by 1.001 in ``LinearScan``'s backward lies past the tolerance
+    on the recurrence's leaves, which the first-step gate cannot see."""
+    monkeypatch.syspath_prepend(ROOT)
+    import chip_smoke as cs
+
+    cfg = get_arch(arch).reduced()
+    model = build_model(cfg)
+    params = cs._cool_attention(model.init(torch.Generator().manual_seed(0),
+                                           device="cpu"))
+    paths = ["/".join(p) for p, _ in tree_flatten_with_path(params)]
+    batch = make_batch(cfg, 2, 32, seed=0, device="cpu")
+    _, right = cs._grad(model, params, batch)
+    assert max(cs._grad_gaps(paths, right, right).values()) == 0.0
+    with monkeypatch.context() as m:
+        m.setattr(scan_ops, "linear_scan_backward_ref",
+                  _scaled_scan_backward(1.001, 1.0))
+        _, wrong = cs._grad(model, params, batch)
+    gaps = cs._grad_gaps(paths, wrong, right)
+    worst = max(gaps, key=gaps.get)
+    assert gaps[worst] > 3 * cs.TRAIN_TOL, gaps
+    assert worst.split("/")[-1] in ("A_log", "lam", "w_a"), worst
+
+
+def test_train_witness_fp64_leaves_no_float32(monkeypatch):
+    """``train_witness.py``'s fp64 gradient on reduced RecurrentGemma
+    (cooled, as its phases run): every leaf in fp64, no float32 tensor
+    made on the way, the loss the fp32 one's within 1e-6, and the fp32
+    gradient within ``TRAIN_TOL`` of it per leaf."""
+    monkeypatch.syspath_prepend(ROOT)
+    import chip_smoke as cs
+    import train_witness as tw
+
+    cfg = get_arch("recurrentgemma-9b").reduced()
+    model = build_model(cfg)
+    params = cs._cool_attention(model.init(torch.Generator().manual_seed(0),
+                                           device="cpu"))
+    paths = ["/".join(p) for p, _ in tree_flatten_with_path(params)]
+    batch = make_batch(cfg, 1, 32, seed=0, device="cpu")
+    loss, g = cs._grad(model, params, batch)
+    wide_loss, wide, seen = tw.grad_fp64(model, params, batch)
+    assert seen == 0
+    assert torch.get_default_dtype() == torch.float32
+    assert {x.dtype for x in wide} == {torch.float64}
+    assert wide_loss.dtype == torch.float64
+    assert abs(float(loss) - float(wide_loss)) <= 1e-6 * abs(float(wide_loss))
+    assert max(cs._grad_gaps(paths, g, wide).values()) <= cs.TRAIN_TOL
 
 
 def test_train_main_checkpoint_loads_in_jax(tmp_path, capsys):
@@ -705,8 +813,9 @@ def test_k3_wrapper_refuses_inputs_that_require_grad():
 def test_k2_wrapper_refuses_inputs_that_require_grad():
     a = torch.zeros((1, 4, 8))
     b = torch.zeros((1, 4, 8), requires_grad=True)
-    with pytest.raises(RuntimeError, match="linear_scan_kernel has no "
-                       "backward.*backward scan is later work"):
+    with pytest.raises(RuntimeError, match="linear_scan_kernel returns "
+                       "states with no autograd history.*ops.linear_scan, "
+                       "the differentiable route"):
         linear_scan_kernel(a, b)
     with torch.no_grad():
         with pytest.raises(ValueError, match="needs CUDA tensors"):
@@ -714,12 +823,17 @@ def test_k2_wrapper_refuses_inputs_that_require_grad():
 
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
-def test_ssm_and_hybrid_train_on_the_cpu(arch):
-    """Their recurrences take the plain scan on the CPU, which autograd
-    differentiates: every leaf gets a finite gradient."""
+def test_ssm_and_hybrid_train_on_the_cpu(arch, monkeypatch):
+    """Their gradients come through LinearScan, whose CPU backward is the
+    plain reverse loop: one backward a recurrent layer, at the layer's
+    (B, S, C) shape, and every leaf gets a finite gradient."""
     _, _, tm, p = _pair(arch)
+    calls = _count_scan_backwards(monkeypatch)
     _, _, g = _port_grad(tm, p, make_batch(tm.cfg, B, S, seed=1,
                                            device="cpu"))
+    C = (tm.cfg.d_inner * tm.cfg.ssm_state if tm.cfg.family == "ssm"
+         else tm.cfg.lru_width)
+    assert calls == [(B, S, C)] * _recurrent_layers(tm.cfg)
     assert all(torch.isfinite(t).all() for t in tree_leaves(g))
 
 

@@ -2,9 +2,16 @@
 marker and skips without a card; this file imports no JAX, so it runs
 where the port runs).
 
-* K3's and K2's wrappers refuse CUDA inputs that require grad, and SSM
-  and hybrid training on the card (whose recurrences reach K2) raises
-  by name;
+* K3's and K2's forward wrappers refuse CUDA inputs that require grad
+  (K2's names ``ops.linear_scan``, its differentiable route);
+* K2's backward kernel bit for bit against its plain reverse loop, S a
+  multiple of its unroll or not, alone and under ``ops.linear_scan``'s
+  autograd Function;
+* reduced Falcon-Mamba-7B's and RecurrentGemma-9B's loss and gradient on
+  the card, through K2 and its backward kernel (one launch each a
+  recurrent layer), track the CPU's from the same weights and batch
+  within ``RUN_TOL`` per unit (the test keeps the name it had when SSM
+  and hybrid training raised on the card);
 * reduced Qwen2-0.5B trains through ``repro_torch.launch.train.train``
   on the card with one per-row K1 launch a fold and no K3 (the loss
   takes the plain attention), and tracks the CPU run from the same
@@ -26,7 +33,10 @@ from repro_torch.kernels.feature_attention.kernel import (  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_kernel)
 from repro_torch.kernels.linear_scan.kernel import (  # noqa: E402
-    linear_scan_kernel)
+    linear_scan_backward_kernel, linear_scan_kernel)
+from repro_torch.kernels.linear_scan.ops import linear_scan  # noqa: E402
+from repro_torch.kernels.linear_scan.ref import (  # noqa: E402
+    linear_scan_backward_ref)
 from repro_torch.launch import train as tr  # noqa: E402
 from repro_torch.models import build_model, make_batch  # noqa: E402
 
@@ -59,22 +69,43 @@ def test_k3_and_k2_refuse_card_inputs_that_require_grad():
         flash_attention_kernel(q, k, k, pos, pos, causal=True, window=0,
                                contiguous=True)
     b = torch.zeros((1, 8, 16), device="cuda", requires_grad=True)
-    with pytest.raises(RuntimeError, match="linear_scan_kernel has no "
-                       "backward"):
+    with pytest.raises(RuntimeError, match="linear_scan_kernel returns "
+                       "states with no autograd history.*ops.linear_scan"):
         linear_scan_kernel(b.detach(), b)
+
+
+def _loss_and_grads(model, params, batch):
+    q = tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss, _ = model.loss(q, batch)
+    grads = torch.autograd.grad(loss, [t for _, t in
+                                       tree_flatten_with_path(q)])
+    return float(loss), grads
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
 def test_ssm_and_hybrid_loss_on_the_card_raises(arch):
+    """No longer raises: the gradient on the card, K2 forward and backward
+    once a recurrent layer, tracks the CPU's (the attention cooled)."""
     _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
     tm = build_model(get_arch(arch).reduced())
-    p = tm.init(torch.Generator(device="cuda").manual_seed(0),
-                device="cuda")
-    p = tree_map(lambda t: t.requires_grad_(), p)
-    with pytest.raises(RuntimeError, match="linear_scan_kernel has no "
-                       "backward"):
-        tm.loss(p, make_batch(tm.cfg, 2, 24, seed=1, device="cuda"))
+    p = _cooled(tm.init(torch.Generator().manual_seed(0), device="cpu"))
+    batch = make_batch(tm.cfg, 2, 24, seed=1, device="cpu")
+    k2, k2b = linear_scan_kernel.launches, linear_scan_backward_kernel.launches
+    card_loss, card = _loss_and_grads(
+        tm, tree_map(lambda t: t.to("cuda"), p),
+        {k: v.to("cuda") for k, v in batch.items()})
+    torch.cuda.synchronize()
+    layers = (tm.cfg.n_layers if tm.cfg.family == "ssm"
+              else 2 * (tm.cfg.n_layers // 3) + tm.cfg.n_layers % 3)
+    assert linear_scan_kernel.launches - k2 == layers
+    assert linear_scan_backward_kernel.launches - k2b == layers
+    cpu_loss, cpu = _loss_and_grads(tm, p, batch)
+    assert abs(card_loss - cpu_loss) <= RUN_TOL * max(abs(cpu_loss), 1.0)
+    for (path, _), g, w in zip(tree_flatten_with_path(p), card, cpu):
+        err = float((g.cpu() - w).abs().max())
+        assert err <= RUN_TOL * max(float(w.abs().max()), 1.0), path
 
 
 @pytest.mark.cuda
@@ -97,3 +128,41 @@ def test_dense_training_on_the_card_tracks_the_cpu():
     for path, w in tree_flatten_with_path(cpu["params"]):
         err = float((got[path].cpu() - w).abs().max())
         assert err <= RUN_TOL * max(float(w.abs().max()), 1.0), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 64, 32), (2, 13, 33), (1, 1, 300),
+                                   (1, 100, 1024), (3, 9, 7)])
+@pytest.mark.parametrize("with_last", [False, True])
+def test_k2_backward_kernel_matches_plain_version(shape, with_last):
+    """Bit for bit in fp32, S a multiple of the kernel's unroll (8) or
+    not; then through LinearScan: one forward and one backward launch,
+    the gradients bit for bit the plain loop's."""
+    _card()
+    rng = np.random.default_rng(5)
+    a = torch.tensor(rng.uniform(0.5, 0.999, shape), dtype=torch.float32,
+                     device="cuda")
+    b, dh = (torch.tensor(rng.standard_normal(shape), dtype=torch.float32,
+                          device="cuda") for _ in "bd")
+    dh_last = torch.tensor(rng.standard_normal((shape[0], shape[2])),
+                           dtype=torch.float32, device="cuda")
+    h, _ = linear_scan_kernel(a, b)
+    dl = dh_last if with_last else None
+    before = linear_scan_backward_kernel.launches
+    got = linear_scan_backward_kernel(a, h, dh, dl)
+    torch.cuda.synchronize()
+    assert linear_scan_backward_kernel.launches == before + 1
+    want = linear_scan_backward_ref(a, h, dh, dl)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    k2 = linear_scan_kernel.launches
+    a_g, b_g = a.clone().requires_grad_(), b.clone().requires_grad_()
+    h2, h2_last = linear_scan(a_g, b_g)
+    loss = (h2 * dh).sum() + ((h2_last * dh_last).sum() if with_last else 0)
+    fn = torch.autograd.grad(loss, [a_g, b_g])
+    torch.cuda.synchronize()
+    assert linear_scan_kernel.launches == k2 + 1
+    assert linear_scan_backward_kernel.launches == before + 2
+    assert torch.equal(h2, h)
+    for f, w in zip(fn, want):
+        assert torch.equal(f, w)
