@@ -99,19 +99,33 @@ drives the port's paths through its entry points:
   step by what its gradient predicts, then one more step profiled;
 * ``train_path_mamba``: the same loop on Falcon-Mamba-7B at full width
   (d_inner 8192, N 16, vocab 65024, tied) with its depth cut to 4 of 64
-  layers, from the seed-0 weights as drawn: a gradient runs K2 and its
-  backward kernel once a layer at (8, 128, 131072) fp32, a fold one
-  per-row K1 launch over the (65024, 4096) embedding; gated on the first
-  local step as train_path, then one step profiled;
+  layers, from the seed-0 weights as drawn: a gradient runs K2 twice a
+  layer at (8, 128, 131072) fp32 (the scan is checkpointed, as the JAX
+  chunk body: its forward and the recompute) and its backward kernel
+  once, a fold one per-row K1 launch over the (65024, 4096) embedding;
+  gated on the first local step as train_path, then one step profiled;
+* ``train_path_deepseek``: the same loop on DeepSeek-V2-Lite-16B at full
+  width with its depth cut to 2 of 27 layers (the dense layer and one
+  64-expert MoE layer), attention cooled: MLA and the gathered expert
+  products under autograd (one host read of the per-expert counts a
+  forward), one per-row K1 launch a fold over the (102400, 2048)
+  embedding, then one step profiled;
 * ``train_step_rgemma``: one loss and gradient of RecurrentGemma-9B at
   full width, depth cut to one (rglru, rglru, attn) period, batch 8 x
   128 (K2 and its backward twice at (8, 128, 4096)), gated on the
   central difference along its first ASO-Fed step; its whole loop does
   not fit one card at this width;
+* ``train_step_families``: one loss and gradient each, gated the same
+  way and launching no kernel, of Kimi-K2 (full width, 2 layers, 16
+  experts), Whisper-small (full size, 1536 stub frames a clip) and
+  Qwen2-VL-72B (full width, 2 layers, 1024 stub patches + 992 tokens);
 * ``train_card_vs_cpu`` holds train_path's full width at 2 layers,
-  Falcon-Mamba's at 2 layers (its gradient, then its loop) and
-  RecurrentGemma's gradient at 3 against the CPU, and ``quickstart_path`` runs the quickstart (reduced
-  TinyLlama, 24 rounds, then K3 once a layer of the prefill).
+  Falcon-Mamba's and DeepSeek-V2-Lite's at 2 layers (each its gradient,
+  then its loop), RecurrentGemma's gradient at 3 and Kimi-K2's, Whisper's
+  and Qwen2-VL's at cut depth against the CPU (the MoE cases with the
+  CPU taking the card's expert ids, the flips counted), and
+  ``quickstart_path`` runs the quickstart (reduced TinyLlama, 24 rounds,
+  then K3 once a layer of the prefill).
 
 Before the paths, ``fold_vs_plain`` holds ``feature_fold`` against its
 plain version (the per-arrival loop) and times it beside the per-arrival
@@ -123,7 +137,9 @@ strategy, the associative fold against the sequential one on the card,
 and the card's prefill and teacher-forced decode logits and caches
 against the CPU's (TinyLlama, Falcon-Mamba, RecurrentGemma, whose
 reduced config wraps its local-attention ring on the card,
-DeepSeek-V2-Lite, Kimi-K2, Whisper and Qwen2-VL).
+DeepSeek-V2-Lite, whose full-width case also counts its routing flips
+and measures the gap again with the card's expert ids forced on the
+CPU, Kimi-K2, Whisper and Qwen2-VL).
 ``scan_vs_plain`` also holds K2 at the Mamba and RG-LRU prefills' and
 training paths' shapes bit for bit against its plain version, and K2's
 backward kernel at the training shapes against its plain reverse loop,
@@ -168,11 +184,13 @@ FEATURE_SHAPES = [(8, 256), (32, 32), (9, 32), (8, 32), (100, 33), (9, 129),
 # an absolute 1e-6 would demand bitwise-equal reductions.
 TOL = {torch.float32: 1e-6, torch.bfloat16: 2e-2}
 # K1 at the training paths' first layer, the (vocab, d) token embedding:
-# Qwen2-0.5B's (544.6 MB in fp32, train_path) and Falcon-Mamba-7B's
-# (1.065 GB, 16 KB rows, train_path_mamba), timed over fewer calls a
-# graph (~0.3-0.8 ms each); {case: shape}
+# Qwen2-0.5B's (544.6 MB in fp32, train_path), Falcon-Mamba-7B's (1.065
+# GB, 16 KB rows, train_path_mamba) and DeepSeek-V2-Lite's (839 MB, 8 KB
+# rows, train_path_deepseek), timed over fewer calls a graph (~0.3-0.9 ms
+# each); {case: shape}
 EMBED_TABLES = {"embed_table": (151936, 896),
-                "embed_table_mamba": (65024, 4096)}
+                "embed_table_mamba": (65024, 4096),
+                "embed_table_deepseek": (102400, 2048)}
 EMBED_REPS = 20
 # linear recurrence (K2) cases: (shape, a broadcast over C).  The main
 # path's carrier leaves at its S=64 bucket (paper LSTM at hidden 64:
@@ -2031,6 +2049,9 @@ KIMI_ARCH, KIMI_CASE = "kimi-k2-1t-a32b", "kimi_layer0"
 KIMI_CUT = {"n_layers": 2}
 # serve_card_vs_cpu's Kimi-K2 case at full width (2 layers, 16 experts)
 KIMI_FULL_CASE = "full_width_2_layers_16_experts"
+# serve_card_vs_cpu's DeepSeek-V2-Lite case at full width (1 dense and 3
+# MoE layers), which also records its routing flips
+DEEPSEEK_FULL_CASE = "full_width_4_layers"
 # serve_path_whisper's architecture at full size: 32 clips of 1536 stub
 # frames (30 s at 50 Hz, padded as the config pads them), the 4-token
 # start-of-transcript prompt, 124 greedy tokens (max_len 128, inside the
@@ -2060,8 +2081,10 @@ QWEN2VL_FULL_CASE, QWEN2VL_FULL_PROMPT = "full_width_1_layer", 1024 + 32
 WHISPER_COOL = 0.125
 # serve_path_deepseek / _kimi: interleaved pairs of serve runs of
 # MOE_DECODE_GEN tokens whose decode is forced onto each of the MoE
-# layer's two expert products
-MOE_DECODE_PAIRS, MOE_DECODE_GEN = 2, 16
+# layer's two expert products (1 pair; 2 before the MoE, audio and VLM
+# training came, for the script's 1000 s)
+MOE_DECODE_PAIRS, MOE_DECODE_GEN = 1, 16
+MOE_DECODE_PAIRS_WERE = 2
 # K3 vs its plain version: max abs error per unit of the output's largest
 # magnitude (at least 1), tests/test_kernels.py's bounds.  The online and
 # the dense softmax sum in different orders; bf16 outputs round once.
@@ -2117,6 +2140,13 @@ FLASH_CASES = [
 # (tests/test_decode_consistency.py)
 SERVE_TOL = 5e-3
 FORCED_PROMPT, FORCED_STEPS = 64, 4
+# the architectures whose reduced config serve_card_vs_cpu also runs:
+# RecurrentGemma's (its 64-slot local ring wraps in the 4 forced steps),
+# DeepSeek's (the baseline of its full-width gap, ROADMAP.md §3) and
+# Kimi's at head dim 112.  TinyLlama's, Falcon-Mamba's, Whisper's and
+# Qwen2-VL's reduced cases, which their full-width cases cover, were left
+# out for the script's 1000 s when the MoE, audio and VLM training came
+SERVE_CMP_REDUCED = (RGEMMA_ARCH, DEEPSEEK_ARCH)
 # the MoE cases' batch: the prefill's 512 tokens take the gathered expert
 # products and each decode step's 8 every expert at once (moe._dispatch)
 MOE_FORCED_B = 8
@@ -2546,6 +2576,8 @@ def _moe_decode_products(cfg, model, params, tokens, sfx: str):
             moe._dispatch = pick
         rec = {"phase": f"serve_path{sfx}_moe_decode", "arch": cfg.name,
                "batch": batch, "gen": MOE_DECODE_GEN,
+               "reduced": {"pairs": [MOE_DECODE_PAIRS_WERE,
+                                     MOE_DECODE_PAIRS]},
                "rule_picks": pick(batch).__name__,
                "assignments": batch * cfg.top_k,
                "n_experts": cfg.n_experts}
@@ -2608,8 +2640,9 @@ def phase_serve_card_vs_cpu(archs=None):
     DeepSeek, 1 dense and 3 MoE layers; Kimi at 2 with its experts cut to
     16; Whisper at full size; Qwen2-VL at full width with 1 layer and a
     prompt of its 1024 patches and 32 text tokens), and on the reduced
-    config (whose local window of 64 the 4 forced steps after the
-    64-token prompt wrap on the card; Kimi's at head dim 112).  A batch
+    config of SERVE_CMP_REDUCED's architectures (RecurrentGemma's local
+    window of 64, which the 4 forced steps after the 64-token prompt wrap
+    on the card) and Kimi's at head dim 112.  A batch
     of 2, and MOE_FORCED_B for the MoE cases so both expert products meet
     the CPU; the stub frames and patches are drawn with the tokens, and
     Whisper's attention wq and wk are scaled by WHISPER_COOL.  The
@@ -2624,8 +2657,9 @@ def phase_serve_card_vs_cpu(archs=None):
                         (DEEPSEEK_ARCH, 4)):
         full = get_arch(arch)
         cases += [(f"full_width_{depth}_layers",
-                   dataclasses.replace(full, n_layers=depth)),
-                  ("reduced", full.reduced())]
+                   dataclasses.replace(full, n_layers=depth))]
+        if arch in SERVE_CMP_REDUCED:
+            cases += [("reduced", full.reduced())]
     # Kimi-K2 at its own head dim 112 (K3's fp32 hd-112 build on the
     # card): reduced() recomputes head_dim = d_model / n_heads = 64, so
     # it is set back; and at full width with 2 layers and the experts
@@ -2636,10 +2670,12 @@ def phase_serve_card_vs_cpu(archs=None):
               (KIMI_FULL_CASE, dataclasses.replace(kimi, n_layers=2,
                                                    n_experts=16))]
     cases += [("full_size", get_arch(WHISPER_ARCH)),
-              ("reduced", get_arch(WHISPER_ARCH).reduced()),
               (QWEN2VL_FULL_CASE, dataclasses.replace(get_arch(QWEN2VL_ARCH),
-                                                      n_layers=1)),
-              ("reduced", get_arch(QWEN2VL_ARCH).reduced())]
+                                                      n_layers=1))]
+    emit({"phase": "serve_card_vs_cpu", "reduced": {
+        "reduced_cases_left_out": [SERVE_ARCH, MAMBA_ARCH, WHISPER_ARCH,
+                                   QWEN2VL_ARCH],
+        "why": "each covered by its full-width case; the script's 1000 s"}})
     launches = {}
     for tag, cfg in cases:
         if archs and cfg.name not in archs:
@@ -2666,7 +2702,9 @@ def phase_serve_card_vs_cpu(archs=None):
                             device="cpu")
         del inputs["labels"]
         _reset_launches()
-        got, cache_gpu = _teacher_forced(model, params, inputs, DEV, prompt)
+        with Routing() as card_routes:
+            got, cache_gpu = _teacher_forced(model, params, inputs, DEV,
+                                             prompt)
         k3, k2 = _flash_launches(), _launches()[1]
         want, cache_cpu = _teacher_forced(model, params_cpu, inputs, "cpu",
                                           prompt)
@@ -2676,26 +2714,33 @@ def phase_serve_card_vs_cpu(archs=None):
                 f"{cfg.name} {tag}: (K3, K2) launches {(k3, k2)} in the "
                 f"card's prefill and decode, expected {expect}")
         launches[(cfg.name, tag)] = (k3, k2)
-        errs = []
-        for step, (g, w) in enumerate(zip(got, want)):
-            rel = float((g - w).abs().max()) / float(w.abs().max())
-            errs.append(rel)
+        errs, cache_errs, pos_equal = _serve_gaps(got, cache_gpu, want,
+                                                  cache_cpu)
+        for step, (g, rel) in enumerate(zip(got, errs)):
             if not (torch.isfinite(g).all() and rel <= SERVE_TOL):
                 raise AssertionError(
                     f"serve card vs CPU ({cfg.name} {tag}): logits of step "
                     f"{step} differ by {rel} per unit of max |logits| "
                     f"(tolerance {SERVE_TOL})")
-        cache_errs, pos_equal = {}, True
-        for name, w in cache_cpu.items():
-            if name.endswith("pos"):
-                pos_equal = pos_equal and torch.equal(cache_gpu[name], w)
-            else:
-                cache_errs[name] = float((cache_gpu[name] - w).abs().max()) \
-                    / float(w.abs().max())
         if max(cache_errs.values()) > SERVE_TOL or not pos_equal:
             raise AssertionError(
                 f"serve card vs CPU ({cfg.name} {tag}): cache differs: "
                 f"{cache_errs}, pos equal: {pos_equal}")
+        forced = {}
+        if (cfg.name, tag) == (DEEPSEEK_ARCH, DEEPSEEK_FULL_CASE):
+            # the gap again with the CPU taking the card's expert ids: what
+            # of it the routing flips account for (recorded, not gated)
+            with Routing(card_routes.ids) as route:
+                want, cache_cpu = _teacher_forced(
+                    model, params_cpu, inputs, "cpu", prompt)
+            f_errs, f_cache, _ = _serve_gaps(got, cache_gpu, want, cache_cpu)
+            forced = {"routing_forced": {
+                "route_flips_by_layer": _flips_by_layer(route.flips,
+                                                        _moe_layers(cfg)),
+                "route_flips_by_call": route.flips,
+                "tokens_a_call": [batch * prompt] + [batch] * FORCED_STEPS,
+                "logits_rel_err_per_step": f_errs,
+                "cache_rel_err": f_cache}}
         emit({"phase": "serve_card_vs_cpu", "case": tag, "arch": cfg.name,
               "n_layers": cfg.n_layers, "d_model": cfg.d_model,
               "head_dim": cfg.head_dim, "batch": batch,
@@ -2705,10 +2750,26 @@ def phase_serve_card_vs_cpu(archs=None):
               "tolerance": SERVE_TOL, "flash_attention_launches": k3,
               "attention_wq_wk_scale": (WHISPER_COOL if cfg.family == "audio"
                                         else 1.0),
-              "linear_scan_launches": k2})
+              "linear_scan_launches": k2, **forced})
         del params, params_cpu
         torch.cuda.empty_cache()
     return launches
+
+
+def _serve_gaps(got, cache_gpu, want, cache_cpu):
+    """(each step's logits gap per unit of max |logits|, {cache leaf: its
+    gap per unit}, the position leaves equal) of the card's teacher-forced
+    run against the CPU's."""
+    errs = [float((g - w).abs().max()) / float(w.abs().max())
+            for g, w in zip(got, want)]
+    cache_errs, pos_equal = {}, True
+    for name, w in cache_cpu.items():
+        if name.endswith("pos"):
+            pos_equal = pos_equal and torch.equal(cache_gpu[name], w)
+        else:
+            cache_errs[name] = float((cache_gpu[name] - w).abs().max()) \
+                / float(w.abs().max())
+    return errs, cache_errs, pos_equal
 
 
 # ---------------------------------------------------------------------------
@@ -2735,9 +2796,11 @@ RGEMMA_TRAIN_SCAN = (TRAIN_B, TRAIN_S, 4096)
 SCAN_TRAIN_REPS = 20
 # train_card_vs_cpu: Qwen2-0.5B at full width (vocab 151936: K1 at the
 # embedding's real shape) with its depth cut to 2 layers; 3 clients,
-# batch 2, seq 64, 6 steps, the same weights and streams on both sides
+# batch 2, seq 64, 2 steps (6 before the MoE, audio and VLM cases came:
+# the script's 1000 s; two clients' steps, the second prox against its
+# own snapshot of the server), the same weights and streams on both sides
 TRAIN_CUT = {"n_layers": 2}
-TRAIN_CMP = {"batch": 2, "seq": 64, "steps": 6}
+TRAIN_CMP = {"batch": 2, "seq": 64, "steps": 2}
 TRAIN_CMP_CLIENTS, TRAIN_CMP_TOKENS = 3, 5_000
 # every attention's wq and wk scaled by this in the training phases: as
 # drawn, the JAX spec's fan_in of a (d, heads, hd) projection is its head
@@ -2747,8 +2810,18 @@ TRAIN_CMP_CLIENTS, TRAIN_CMP_TOKENS = 3, 5_000
 # package's own loop at 8 layers: loss 12.09 -> 8,915 at step 3) and
 # near one-hot attention turns fp32 rounding into trajectory differences
 # (tests/test_torch_train.py); cooled, max |grad| is 0.20-0.27 at every
-# depth
+# depth.  The leaves scaled are TRAIN_COOL_LEAVES.  MLA has no wk: its
+# keys are the latent's up-projection by w_uk (fan_in the head count
+# too) and the shared rotary key by w_kr (fan_in d_model, scores O(1) as
+# drawn).  On an H100 (train_witness.py's "mla" reading,
+# DeepSeek-V2-Lite at 2 layers) the layer-0 scores' spread is 52.5 as
+# drawn, 6.57 with wq alone scaled and 1.15 with wq and w_uk (GQA's
+# cooled scale); the first step's central difference over 1/8 of the
+# step is 0.011, 0.906 and 1.0076 of its prediction, and the card's
+# gradient lies 3.3e-4, 1.6e-5 and 2.4e-6 from the CPU's.  So MLA's w_uk
+# is scaled with wq
 TRAIN_COOL = 0.125
+TRAIN_COOL_LEAVES = ("wq", "wk", "w_uk")
 # train_path's gate on the update: client 0's first local step (the
 # loop's own local_step, from the initial weights with fresh slots, u the
 # update it applies) must lower the loss of its own batch, and over
@@ -2801,13 +2874,61 @@ RGEMMA_TRAIN_CUT = {"n_layers": 3}
 # ~1000x past its linear range along the first step (train_witness.py;
 # ROADMAP.md §3)
 # train_card_vs_cpu's SSM cases: Falcon-Mamba at full width, 2 layers,
-# its gradient at batch 2 x 32, then 2 clients, batch 2 x 32, 4 steps;
+# its gradient at batch 2 x 32, then 1 client, batch 2 x 32, 1 step (2
+# clients and 4 steps before the MoE, audio and VLM cases came: one step
+# and its fold, K1 at the tied embedding's real shape, against the CPU);
 # RecurrentGemma's gradient at full width, 3 layers, batch 1 x 32 (the
 # same weights on both sides)
 MAMBA_CMP_CUT = {"n_layers": 2}
-MAMBA_CMP = {"batch": 2, "seq": 32, "steps": 4}
-MAMBA_CMP_CLIENTS, MAMBA_CMP_TOKENS = 2, 5_000
+MAMBA_CMP = {"batch": 2, "seq": 32, "steps": 1}
+MAMBA_CMP_CLIENTS, MAMBA_CMP_TOKENS = 1, 5_000
 RGEMMA_CMP_B, RGEMMA_CMP_S = 1, 32
+# train_path_deepseek: DeepSeek-V2-Lite-16B at full width, depth 27 -> 2
+# (the dense layer and one MoE layer of 64 routed experts top-6 and 2
+# shared; 1.08e9 parameters, 4.3 GB in fp32, untied head), at train_path's
+# settings: a fold runs K1 once over the (102400, 2048) embedding, a
+# forward the MoE layer's host read of its per-expert counts once
+DEEPSEEK_TRAIN_CUT = {"n_layers": 2}
+# train_step_families: one loss and gradient of each remaining family, as
+# train_step_rgemma: (phase case, architecture, the config's fields cut,
+# batch, seq).  Kimi-K2 at full width, 2 layers, its experts cut to 16
+# (KIMI_FULL_CASE; 384 are 67.6 GB a MoE layer in fp32); Whisper-small at
+# full size on make_batch's stub frames (1536 a clip); Qwen2-VL-72B at
+# full width, depth 80 -> 2, batch 2 x 2016 (its 1024-patch prefix and
+# 992 tokens: a sequence must be longer than the prefix).  Neither
+# package's training CLI trains Whisper or Qwen2-VL (their batches lack
+# the stubs: KeyError 'frames' / 'patches'), so the loss takes
+# make_batch's stubs
+TRAIN_FAMILIES = (
+    ("kimi", KIMI_ARCH, {"n_layers": 2, "n_experts": 16}, TRAIN_B, TRAIN_S),
+    ("whisper", WHISPER_ARCH, {}, TRAIN_B, TRAIN_S),
+    ("qwen2vl", QWEN2VL_ARCH, {"n_layers": 2}, 2, SERVE_PROMPT))
+# train_path_deepseek and train_step_families gate at TRAIN_FO_FRAC: on
+# an H100 (train_witness.py's "mla" and "families" readings) their
+# cooled models' central difference over 1/8 of the first step is 1.0076
+# (DeepSeek), 0.9928 (Kimi), 0.99998 (Whisper) and 0.9991 (Qwen2-VL) of
+# its prediction
+# train_card_vs_cpu's cases of the MoE, audio and VLM families: (case,
+# architecture, the config's fields cut, batch, seq), each gradient from
+# the same weights on both sides.  DeepSeek at train_path_deepseek's cut
+# and Kimi at train_step_families' (full width, 2 layers); Whisper at full
+# width with 2 encoder and 2 decoder layers (1536 frames: the encoder's
+# self-attention over 3 blocks of 512) and Qwen2-VL at full width with 1
+# layer, a 64-patch prefix and its vocabulary cut to 16384, so the CPU's
+# gradient takes seconds (at full depth, or past 1024 patches, minutes;
+# the 152064 x 8192 embedding and head alone 18 s); Kimi at batch 1 x 32 (its
+# CPU gradient is bound by the 1.17e9-parameter head and embedding)
+FAMILY_CMP = (
+    ("deepseek", DEEPSEEK_ARCH, DEEPSEEK_TRAIN_CUT, 2, 64),
+    ("kimi", KIMI_ARCH, {"n_layers": 2, "n_experts": 16}, 1, 32),
+    ("whisper", WHISPER_ARCH, {"n_layers": 2, "encoder_layers": 2}, 1, 64),
+    ("qwen2vl", QWEN2VL_ARCH, {"n_layers": 1, "n_patches": 64,
+                               "vocab_size": 16384}, 1, 96))
+# and DeepSeek's loop: 1 client, batch 2 x 32, 1 step (its fold and K1 at
+# the embedding's real shape; the CPU's loop at 1.085e9 parameters takes
+# ~25 s a step and client: Qwen2's loop holds the snapshots)
+DEEPSEEK_CMP = {"batch": 2, "seq": 32, "steps": 1}
+DEEPSEEK_CMP_CLIENTS, DEEPSEEK_CMP_TOKENS = 1, 5_000
 
 
 def _train_streams(n: int, vocab: int, tokens: int):
@@ -2817,14 +2938,101 @@ def _train_streams(n: int, vocab: int, tokens: int):
                                    seed=0)
 
 
-def _cool_attention(params):
-    """``params`` with every attention's wq and wk scaled by TRAIN_COOL
-    (new tensors; the rest shared)."""
+def _cool_attention(params, leaves=None):
+    """``params`` with every attention's query and key projections
+    (``leaves``, default TRAIN_COOL_LEAVES) scaled by TRAIN_COOL (new
+    tensors; the rest shared)."""
+    leaves = TRAIN_COOL_LEAVES if leaves is None else leaves
     if not isinstance(params, dict):
         return params
-    return {k: (v * TRAIN_COOL if k in ("wq", "wk")
-                and isinstance(v, torch.Tensor) else _cool_attention(v))
+    return {k: (v * TRAIN_COOL if k in leaves
+                and isinstance(v, torch.Tensor) else _cool_attention(v, leaves))
             for k, v in params.items()}
+
+
+def _scan_launches(cfg):
+    """(K2, K2 backward) launches a gradient of ``cfg``: a Mamba layer's
+    checkpointed scan runs K2 twice (its forward and the recompute in the
+    backward), an RG-LRU layer's once; the backward kernel once a
+    recurrent layer."""
+    layers = _recurrent_layers(cfg)
+    return (2 * layers if cfg.family == "ssm" else layers), layers
+
+
+class Routing:
+    """Wraps ``repro_torch.models.moe._route`` (the package is left as it
+    is) for a card-vs-CPU comparison of a MoE model whose top-k choice
+    may flip between the devices at a near tie.  ``Routing()`` records
+    each call's expert ids on the CPU (the card's run); ``Routing(ids)``
+    makes the i-th call take the i-th recorded ids, with its own softmax
+    probabilities gathered at those ids and normalised as ``_route``
+    does, and counts in ``flips[i]`` the tokens whose own top-k set
+    differs from the forced one.  Forcing a run's own ids changes
+    nothing."""
+
+    def __init__(self, ids=None):
+        self.forced = ids is not None
+        self.ids = list(ids) if self.forced else []
+        self.flips = []
+        self.calls = 0
+
+    def route(self, router_w, xt, k: int):
+        import torch.nn.functional as F
+
+        if not self.forced:
+            out = self._inner(router_w, xt, k)
+            self.ids.append(out[1].detach().cpu())
+            self.calls += 1
+            return out
+        ids = self.ids[self.calls].to(xt.device)
+        self.calls += 1
+        logits = (xt @ router_w).to(torch.float32)
+        probs = torch.softmax(logits, dim=-1)
+        own = torch.sort(probs.detach(), dim=-1, descending=True,
+                         stable=True)[1][:, :k]
+        self.flips.append(int((torch.sort(own, -1)[0]
+                               != torch.sort(ids, -1)[0]).any(-1).sum()))
+        gates = torch.gather(probs, 1, ids)
+        gates = gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9)
+        E = logits.shape[-1]
+        me = probs.mean(0)
+        ce = F.one_hot(ids, E).to(torch.float32).sum(1).mean(0)
+        return gates, ids, E * torch.sum(me * ce)
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self._inner = moe._route
+        moe._route = self.route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe._route = self._inner
+        return False
+
+
+def _flips_by_layer(flips, n_moe: int):
+    """Per MoE layer, the tokens flipped over the run's calls (a forward
+    calls the MoE layers in order)."""
+    return [sum(flips[i::n_moe]) for i in range(n_moe)]
+
+
+def _moe_layers(cfg) -> int:
+    return cfg.n_layers - cfg.first_dense_layers if cfg.family == "moe" \
+        else 0
+
+
+def _host_reads(cfg, n_tokens: int) -> int:
+    """A forward's host reads of the per-expert counts at ``n_tokens``
+    tokens: one a MoE layer where ``moe._dispatch`` takes the gathered
+    rows (the training batches' 1024 tokens), none where every expert
+    runs at once."""
+    from repro_torch.models import moe
+
+    return _moe_layers(cfg) if moe._dispatch(n_tokens) is moe._gathered \
+        else 0
 
 
 def _train_launches():
@@ -2910,67 +3118,105 @@ def _eval_loss(model, params, streams) -> float:
             for i, s in enumerate(streams)]))
 
 
-def phase_train_path():
-    """``repro_torch.launch.train.train`` on Qwen2-0.5B at full size from
-    the port's own seed-0 weights, every attention's wq and wk scaled by
-    TRAIN_COOL: the loss on the plain attention under autograd,
-    ``asofed_transform``, the Eq. (4) fold and the feature pass, one
-    per-row K1 launch over the (151936, 896) embedding a fold, no
-    feature_fold, no K2, no K3.  Then one further step (one client, fresh
-    slots) profiled.  Gated: client 0's first local step lowers its
-    batch's loss, and over TRAIN_FO_FRAC of it the central difference is
-    the gradient's prediction within TRAIN_FO_TOL;
-    finite losses and weights, the mean of the last 10 losses below the
-    first, the launches.  Returns the K1 launches of the run."""
+class _CountCalls:
+    """Counts the calls of ``module.name`` while it is entered (the
+    function is wrapped, not changed)."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.n = module, name, 0
+
+    def __enter__(self):
+        inner = self.inner = getattr(self.module, self.name)
+
+        def counted(*args, **kw):
+            self.n += 1
+            return inner(*args, **kw)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.inner)
+        return False
+
+
+def _train_loop_phase(phase: str, profile_phase: str, arch: str, cut,
+                      cool: bool, frac: float, profile_kernels,
+                      loss_falls: bool = False):
+    """``repro_torch.launch.train.train`` on ``arch`` (its depth cut by
+    ``cut``; None: full size) from the port's own seed-0 weights (every
+    attention's query and key projections scaled by TRAIN_COOL where
+    ``cool``), at the training CLI's settings; then one further step (one
+    client, fresh slots) profiled as ``profile_phase``, with each of
+    ``profile_kernels`` ({tag: kernel name}) timed and shared.  Gated,
+    after the records: client 0's first local step
+    (``_first_step_check`` over ``frac`` of it), finite losses and
+    weights, the launches (one per-row K1 a fold over the token
+    embedding, ``_scan_launches`` a gradient, no feature_fold, no K3),
+    a MoE layer's host read of its per-expert counts once a forward, and
+    where ``loss_falls`` the mean of the last 10 losses below the first.
+    Returns (K1, K2, K2 backward) launches of the run."""
     from repro_torch.common.pytree import tree_leaves
     from repro_torch.configs import get_arch
     from repro_torch.launch.train import train
-    from repro_torch.models import build_model
+    from repro_torch.models import build_model, moe
 
-    cfg = get_arch(TRAIN_ARCH)
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, **cut) if cut else full
     model = build_model(cfg)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    params = _cool_attention(model.init(
-        torch.Generator(device=DEV).manual_seed(0), device=DEV))
+    params = model.init(torch.Generator(device=DEV).manual_seed(0),
+                        device=DEV)
+    if cool:
+        params = _cool_attention(params)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
     t0 = time.perf_counter()
     streams = _train_streams(TRAIN_CLIENTS, cfg.vocab_size, TRAIN_TOKENS)
     streams_s = time.perf_counter() - t0
-    first = _first_step_check(model, params, streams)
-    if not _first_step_ok(first):
-        raise AssertionError(
-            f"train_path: client 0's first step {first}: the loss change "
-            f"must be negative and the central difference within "
-            f"{TRAIN_FO_TOL} of its prediction per unit")
+    first = _first_step_check(model, params, streams, frac)
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
-    res = train(model, params, streams, steps=TRAIN_STEPS, batch=TRAIN_B,
-                seq=TRAIN_S, seed=0, device=DEV, log=None, **TRAIN_HYPER)
+    with _CountCalls(moe, "_gathered") as host_reads:
+        res = train(model, params, streams, steps=TRAIN_STEPS,
+                    batch=TRAIN_B, seq=TRAIN_S, seed=0, device=DEV,
+                    log=None, **TRAIN_HYPER)
     torch.cuda.synchronize()
-    launches = _train_launches()
+    launches = _train_launches() + (_scan_backward_launches(),)
     peak = torch.cuda.max_memory_allocated()
+    fwd, bwd = _scan_launches(cfg)
+    want = (TRAIN_STEPS, 0, TRAIN_STEPS * fwd, 0, TRAIN_STEPS * bwd)
+    reads_want = TRAIN_STEPS * _host_reads(cfg, TRAIN_B * TRAIN_S)
     losses = res["losses"]
-    eval_loss = (_eval_loss(model, params, streams),
-                 _eval_loss(model, res["params"], streams))
     last10 = float(np.mean(losses[-10:]))
-    launches += (_scan_backward_launches(),)
-    if launches != (TRAIN_STEPS, 0, 0, 0, 0):
-        raise AssertionError(
-            f"train_path: (K1, feature_fold, K2, K3, K2 backward) launches "
-            f"{launches}; expected ({TRAIN_STEPS}, 0, 0, 0, 0): one per-row "
-            f"K1 a fold")
     finite = all(math.isfinite(v) for v in losses) and all(
         bool(torch.isfinite(t).all()) for t in tree_leaves(res["params"]))
-    if not (finite and last10 < losses[0]):
-        raise AssertionError(
-            f"train_path: losses {losses} (finite, the mean of the last 10 "
-            f"below the first) or the final server weights not finite")
+    # the gates, raised after the records: one failed gate shows the rest
+    failed = [msg for ok, msg in (
+        (_first_step_ok(first),
+         f"client 0's first step {first}: the loss change must be negative "
+         f"and the central difference within {TRAIN_FO_TOL} of its "
+         f"prediction per unit"),
+        (launches == want,
+         f"(K1, feature_fold, K2, K3, K2 backward) launches {launches}; "
+         f"expected {want}: one per-row K1 a fold, {_scan_launches(cfg)} "
+         f"K2 and K2 backward launches a gradient"),
+        (host_reads.n == reads_want,
+         f"{host_reads.n} host reads of the per-expert counts; expected "
+         f"{reads_want}, one a MoE layer a forward"),
+        (finite and (last10 < losses[0] or not loss_falls),
+         f"losses {losses} (finite{', the mean of the last 10 below the '
+         'first' if loss_falls else ''}) or the final server weights not "
+         f"finite")) if not ok]
+    eval_loss = (_eval_loss(model, params, streams),
+                 _eval_loss(model, res["params"], streams))
     steady = res["step_s"][TRAIN_WARMUP:]
     med = statistics.median(steady)
-    emit({"phase": "train_path", "arch": cfg.name,
+    emit({"phase": phase, "arch": cfg.name,
+          **({"reduced": {"n_layers": [full.n_layers, cfg.n_layers]}}
+             if cut else {}),
           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
           "vocab": cfg.vocab_size, "params": n_params,
           "weight_bytes": 4 * n_params, "dtype": "float32",
@@ -2982,17 +3228,21 @@ def phase_train_path():
           "step_s_median": med,
           "step_s_p90": float(np.percentile(steady, 90)),
           "tokens_per_s": TRAIN_B * TRAIN_S / med,
-          "attention_wq_wk_scale": TRAIN_COOL,
+          "attention_scaled_leaves": (list(TRAIN_COOL_LEAVES) if cool
+                                      else []),
+          "attention_scale": TRAIN_COOL if cool else 1.0,
           "first_loss": losses[0], "last10_loss_mean": last10,
           "losses": losses, "clients_order": res["clients"],
           "first_step": first, "first_step_tolerance": TRAIN_FO_TOL,
           "eval_loss_initial": eval_loss[0], "eval_loss_final": eval_loss[1],
           "eval_seeds": [TRAIN_EVAL_SEED + i for i in range(TRAIN_CLIENTS)],
           "peak_device_bytes": peak,
+          "moe_host_reads": host_reads.n,
           "feature_attention_launches": launches[0],
           "feature_fold_launches": launches[1],
           "linear_scan_launches": launches[2],
-          "flash_attention_launches": launches[3]})
+          "flash_attention_launches": launches[3],
+          "linear_scan_backward_launches": launches[4]})
     final = res["params"]
     del res, params
     torch.cuda.empty_cache()
@@ -3001,16 +3251,39 @@ def phase_train_path():
         seed=0, device=DEV, log=None, **TRAIN_HYPER))
     rec = _profile_record(per, wall, ("feature_attention_rows",
                                       "feature_fold_tick", "fa_fwd",
-                                      "linear_scan_channels"))
-    k1_ms = sum(ms for k, ms, _ in per if "feature_attention_rows" in k)
+                                      "linear_scan_channels",
+                                      "linear_scan_backward_channels"))
     busy = sum(ms for _, ms, _ in per)
-    emit({"phase": "train_profile", "arch": cfg.name, "steps": 1,
-          "clients": 1, "wall_s": wall, **rec, "k1_ms": k1_ms,
-          "k1_share_of_busy": k1_ms / busy if busy else "not measured",
-          "k1_share_of_wall": k1_ms / 1e3 / wall})
+    shares = {}
+    for tag, name in profile_kernels.items():
+        ms = sum(m for k, m, _ in per if name in k)
+        shares[f"{tag}_ms"] = ms
+        shares[f"{tag}_share_of_busy"] = ms / busy if busy else \
+            "not measured"
+        shares[f"{tag}_share_of_wall"] = ms / 1e3 / wall
+    emit({"phase": profile_phase, "arch": cfg.name, "steps": 1,
+          "clients": 1, "wall_s": wall, **rec, **shares})
     del final
     torch.cuda.empty_cache()
-    return launches[0]
+    if failed:
+        raise AssertionError(f"{phase}: " + "; ".join(failed))
+    return launches[0], launches[2], launches[4]
+
+
+K1_PROFILE = {"k1": "feature_attention_rows"}
+
+
+def phase_train_path():
+    """Qwen2-0.5B at full size (``_train_loop_phase``), every attention's
+    wq and wk scaled by TRAIN_COOL: the loss on the plain attention under
+    autograd, ``asofed_transform``, the Eq. (4) fold and the feature
+    pass, one per-row K1 launch over the (151936, 896) embedding a fold,
+    no feature_fold, no K2, no K3; the first step gated over
+    TRAIN_FO_FRAC, and the loss must fall.  Returns the K1 launches of
+    the run."""
+    return _train_loop_phase("train_path", "train_profile", TRAIN_ARCH,
+                             None, True, TRAIN_FO_FRAC, K1_PROFILE,
+                             loss_falls=True)[0]
 
 
 def _first_asofed_step_eps(n_clients: int) -> float:
@@ -3032,110 +3305,30 @@ def _grad(model, params, batch):
 
 
 def phase_train_path_mamba():
-    """``repro_torch.launch.train.train`` on Falcon-Mamba-7B at full width,
-    depth cut to MAMBA_TRAIN_CUT, from the port's own seed-0 weights as
-    drawn, at train_path's settings: a gradient runs K2 forward and K2's
-    backward once a layer, a fold one per-row K1 launch over the
-    (65024, 4096) tied embedding, no K3, no feature_fold.  Then one
-    further step (one client, fresh slots) profiled.  Gated: client 0's
-    first local step (``_first_step_check`` over TRAIN_FO_FRAC_SSM of
-    it), finite losses and weights, the launches; the gates raise after
-    the records.  Returns (K1, K2, K2 backward) launches of the run."""
-    from repro_torch.common.pytree import tree_leaves
-    from repro_torch.configs import get_arch
-    from repro_torch.launch.train import train
-    from repro_torch.models import build_model
+    """Falcon-Mamba-7B at full width, depth cut to MAMBA_TRAIN_CUT
+    (``_train_loop_phase``), from the seed-0 weights as drawn: a gradient
+    runs K2 twice a layer (the forward and the checkpointed scan's
+    recompute) and K2's backward once, a fold one per-row K1 launch over
+    the (65024, 4096) tied embedding; the first step gated over
+    TRAIN_FO_FRAC_SSM.  Returns (K1, K2, K2 backward) launches."""
+    return _train_loop_phase(
+        "train_path_mamba", "train_profile_mamba", MAMBA_ARCH,
+        MAMBA_TRAIN_CUT, False, TRAIN_FO_FRAC_SSM,
+        {**K1_PROFILE, "k2": "linear_scan_channels",
+         "k2_backward": "linear_scan_backward_channels"})
 
-    full = get_arch(MAMBA_ARCH)
-    cfg = dataclasses.replace(full, **MAMBA_TRAIN_CUT)
-    model = build_model(cfg)
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    params = model.init(torch.Generator(device=DEV).manual_seed(0),
-                        device=DEV)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for t in tree_leaves(params))
-    t0 = time.perf_counter()
-    streams = _train_streams(TRAIN_CLIENTS, cfg.vocab_size, TRAIN_TOKENS)
-    streams_s = time.perf_counter() - t0
-    first = _first_step_check(model, params, streams, TRAIN_FO_FRAC_SSM)
-    torch.cuda.reset_peak_memory_stats()
-    _reset_launches()
-    res = train(model, params, streams, steps=TRAIN_STEPS, batch=TRAIN_B,
-                seq=TRAIN_S, seed=0, device=DEV, log=None, **TRAIN_HYPER)
-    torch.cuda.synchronize()
-    launches = _train_launches() + (_scan_backward_launches(),)
-    peak = torch.cuda.max_memory_allocated()
-    layers = _recurrent_layers(cfg)
-    want = (TRAIN_STEPS, 0, TRAIN_STEPS * layers, 0, TRAIN_STEPS * layers)
-    losses = res["losses"]
-    finite = all(math.isfinite(v) for v in losses) and all(
-        bool(torch.isfinite(t).all()) for t in tree_leaves(res["params"]))
-    # the gates, raised after the records: one failed gate shows the rest
-    failed = [msg for ok, msg in (
-        (_first_step_ok(first),
-         f"client 0's first step {first}: the loss change must be negative "
-         f"and the central difference within {TRAIN_FO_TOL} of its "
-         f"prediction per unit"),
-        (launches == want,
-         f"(K1, feature_fold, K2, K3, K2 backward) launches {launches}; "
-         f"expected {want}: one per-row K1 a fold, K2 and its backward "
-         f"once a layer a gradient"),
-        (finite, f"losses {losses} or the final server weights not "
-                 f"finite")) if not ok]
-    eval_loss = (_eval_loss(model, params, streams),
-                 _eval_loss(model, res["params"], streams))
-    steady = res["step_s"][TRAIN_WARMUP:]
-    med = statistics.median(steady)
-    emit({"phase": "train_path_mamba", "arch": cfg.name,
-          "reduced": {"n_layers": [full.n_layers, cfg.n_layers]},
-          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-          "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
-          "vocab": cfg.vocab_size, "params": n_params,
-          "weight_bytes": 4 * n_params, "dtype": "float32",
-          "clients": TRAIN_CLIENTS, "batch": TRAIN_B, "seq": TRAIN_S,
-          "steps": TRAIN_STEPS, **TRAIN_HYPER, "feature_learning": True,
-          "tokens_per_client": TRAIN_TOKENS, "init_s": init_s,
-          "streams_s": streams_s, "wall_s": res["wall_s"],
-          "step_s": res["step_s"], "warmup_steps": TRAIN_WARMUP,
-          "step_s_median": med,
-          "step_s_p90": float(np.percentile(steady, 90)),
-          "tokens_per_s": TRAIN_B * TRAIN_S / med,
-          "first_loss": losses[0],
-          "last10_loss_mean": float(np.mean(losses[-10:])),
-          "losses": losses, "clients_order": res["clients"],
-          "first_step": first, "first_step_tolerance": TRAIN_FO_TOL,
-          "eval_loss_initial": eval_loss[0], "eval_loss_final": eval_loss[1],
-          "peak_device_bytes": peak,
-          "feature_attention_launches": launches[0],
-          "feature_fold_launches": launches[1],
-          "linear_scan_launches": launches[2],
-          "flash_attention_launches": launches[3],
-          "linear_scan_backward_launches": launches[4]})
-    final = res["params"]
-    del res, params
-    torch.cuda.empty_cache()
-    _, wall, per = _device_profile(lambda: train(
-        model, final, streams[:1], steps=1, batch=TRAIN_B, seq=TRAIN_S,
-        seed=0, device=DEV, log=None, **TRAIN_HYPER))
-    names = {"k1": "feature_attention_rows", "k2": "linear_scan_channels",
-             "k2_backward": "linear_scan_backward_channels"}
-    rec = _profile_record(per, wall, tuple(names.values()))
-    busy = sum(ms for _, ms, _ in per)
-    shares = {}
-    for tag, name in names.items():
-        ms = sum(m for k, m, _ in per if name in k)
-        shares[f"{tag}_ms"] = ms
-        shares[f"{tag}_share_of_busy"] = ms / busy if busy else \
-            "not measured"
-    emit({"phase": "train_profile_mamba", "arch": cfg.name, "steps": 1,
-          "clients": 1, "wall_s": wall, **rec, **shares})
-    del final
-    torch.cuda.empty_cache()
-    if failed:
-        raise AssertionError("train_path_mamba: " + "; ".join(failed))
-    return launches[0], launches[2], launches[4]
+
+def phase_train_path_deepseek():
+    """DeepSeek-V2-Lite-16B at full width, depth cut to DEEPSEEK_TRAIN_CUT
+    (``_train_loop_phase``: the dense layer and one 64-expert MoE layer),
+    its attention cooled (TRAIN_COOL_LEAVES): MLA and the gathered expert
+    products on plain PyTorch under autograd, one host read of the
+    per-expert counts a forward, one per-row K1 launch over the (102400,
+    2048) embedding a fold, no K2, no K3; the first step gated over
+    TRAIN_FO_FRAC.  Returns the K1 launches of the run."""
+    return _train_loop_phase(
+        "train_path_deepseek", "train_profile_deepseek", DEEPSEEK_ARCH,
+        DEEPSEEK_TRAIN_CUT, True, TRAIN_FO_FRAC, K1_PROFILE)[0]
 
 
 def _central_along_gradient(model, params, g, batch, frac: float,
@@ -3163,84 +3356,132 @@ def _central_along_gradient(model, params, g, batch, frac: float,
     return side[0] - side[1], predicted
 
 
-def phase_train_step_rgemma():
-    """One loss and gradient of RecurrentGemma-9B at full width, depth cut
-    to RGEMMA_TRAIN_CUT (both RG-LRU layers and the hd-256 local
-    attention, on the plain ``blocked_attention``), batch 8 x 128, from
-    the port's seed-0 weights with every wq and wk scaled by TRAIN_COOL:
-    K2 forward and backward once an RG-LRU layer, no K3, after one
-    warm-up gradient.  Gated: along client 0's first ASO-Fed step from
-    these weights, ``-r eta g`` (fresh slots), over TRAIN_FO_FRAC_SSM of
-    it, the central difference within TRAIN_FO_TOL of its prediction
-    (``_central_along_gradient``; weights, gradient and a copy: ~33 GB).
-    Returns (K2, K2 backward) launches of the counted gradient."""
+def _train_step_case(phase: str, arch: str, cut, B: int, S: int,
+                     frac: float, case=None):
+    """One loss and gradient of ``arch`` (its config's fields cut by
+    ``cut``) at batch B x S of ``make_batch`` (tokens and the family's
+    stub), from the port's seed-0 weights with the attention cooled
+    (TRAIN_COOL_LEAVES), after one warm-up gradient: the step's time, its
+    peak and its launches (``_scan_launches``; no K1, no K3, no
+    feature_fold), a MoE layer's host read of its per-expert counts once.
+    Gated: along client 0's first ASO-Fed step from these weights, ``-r
+    eta g`` (fresh slots), over ``frac`` of it, the central difference
+    within TRAIN_FO_TOL of its prediction (``_central_along_gradient``:
+    weights, gradient and one perturbed copy).  Emits the record; raises
+    after it if a gate fails.  Returns (K2, K2 backward) launches of the
+    counted gradient."""
     from repro_torch.common.pytree import tree_leaves
     from repro_torch.configs import get_arch
-    from repro_torch.models import build_model, make_batch
+    from repro_torch.models import build_model, make_batch, moe
 
-    full = get_arch(RGEMMA_ARCH)
-    cfg = dataclasses.replace(full, **RGEMMA_TRAIN_CUT)
+    full = get_arch(arch)
+    cfg = dataclasses.replace(full, **cut)
     model = build_model(cfg)
     torch.cuda.empty_cache()
     params = _cool_attention(model.init(
         torch.Generator(device=DEV).manual_seed(0), device=DEV))
     n_params = sum(t.numel() for t in tree_leaves(params))
-    batch = make_batch(cfg, TRAIN_B, TRAIN_S, seed=0, device=DEV)
+    batch = make_batch(cfg, B, S, seed=0, device=DEV)
     _grad(model, params, batch)  # warm-up: cuBLAS, the allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
-    t0 = time.perf_counter()
-    loss, g = _grad(model, params, batch)
-    loss0 = float(loss)
-    step_s = time.perf_counter() - t0
+    with _CountCalls(moe, "_gathered") as host_reads:
+        t0 = time.perf_counter()
+        loss, g = _grad(model, params, batch)
+        loss0 = float(loss)
+        step_s = time.perf_counter() - t0
     launches = _train_launches() + (_scan_backward_launches(),)
     peak = torch.cuda.max_memory_allocated()
-    layers = _recurrent_layers(cfg)
     gsq = sum(float(torch.sum(gi * gi, dtype=torch.float64)) for gi in g)
     gmax = max(float(gi.abs().max()) for gi in g)
     step_eps = _first_asofed_step_eps(TRAIN_CLIENTS)
     central, predicted = _central_along_gradient(
-        model, params, g, batch, TRAIN_FO_FRAC_SSM, step_eps)
+        model, params, g, batch, frac, step_eps)
     ratio = central / predicted if predicted else math.nan
     finite = math.isfinite(loss0) and math.isfinite(gsq)
-    rec = {"phase": "train_step_rgemma", "arch": cfg.name,
-           "reduced": {"n_layers": [full.n_layers, cfg.n_layers],
-                       "loop": "one gradient: the ASO-Fed loop at full "
-                               "width does not fit one card"},
-           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-           "lru_width": cfg.lru_width, "vocab": cfg.vocab_size,
-           "params": n_params, "weight_bytes": 4 * n_params,
-           "dtype": "float32", "batch": TRAIN_B, "seq": TRAIN_S,
-           "loss": loss0, "step_s": step_s,
-           "tokens_per_s": TRAIN_B * TRAIN_S / step_s,
-           "grad_max_abs": gmax, "grad_sq_norm": gsq,
-           "step_eps": step_eps, "fraction": TRAIN_FO_FRAC_SSM,
-           "central": central, "central_predicted": predicted,
-           "ratio": ratio, "attention_wq_wk_scale": TRAIN_COOL,
-           "tolerance": TRAIN_FO_TOL, "peak_device_bytes": peak,
-           "linear_scan_launches": launches[2],
-           "linear_scan_backward_launches": launches[4],
-           "flash_attention_launches": launches[3]}
-    emit(rec)
+    reduced = {k: [getattr(full, k), v] for k, v in cut.items()}
+    if cfg.family == "vlm":
+        reduced["seq"] = [TRAIN_S, S]
+    emit({"phase": phase, **({"case": case} if case else {}),
+          "arch": cfg.name,
+          "reduced": {**reduced,
+                      "loop": "one gradient: the ASO-Fed loop at full "
+                              "width does not fit one card"},
+          "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab_size, "params": n_params,
+          "weight_bytes": 4 * n_params, "dtype": "float32", "batch": B,
+          "seq": S, "stub": {"audio": "frames", "vlm": "patches"}.get(
+              cfg.family), "loss": loss0, "step_s": step_s,
+          "tokens_per_s": B * S / step_s,
+          "grad_max_abs": gmax, "grad_sq_norm": gsq,
+          "step_eps": step_eps, "fraction": frac,
+          "central": central, "central_predicted": predicted,
+          "ratio": ratio, "attention_scaled_leaves": list(TRAIN_COOL_LEAVES),
+          "attention_scale": TRAIN_COOL,
+          "tolerance": TRAIN_FO_TOL, "peak_device_bytes": peak,
+          "moe_host_reads": host_reads.n,
+          "feature_attention_launches": launches[0],
+          "linear_scan_launches": launches[2],
+          "linear_scan_backward_launches": launches[4],
+          "flash_attention_launches": launches[3]})
     del g, params, batch
     torch.cuda.empty_cache()
-    want = (0, 0, layers, 0, layers)
+    fwd, bwd = _scan_launches(cfg)
+    want = (0, 0, fwd, 0, bwd)
+    reads = _host_reads(cfg, B * S)
     if not (finite and predicted < 0 and launches == want
-            and abs(ratio - 1.0) <= TRAIN_FO_TOL):
+            and host_reads.n == reads and abs(ratio - 1.0) <= TRAIN_FO_TOL):
         raise AssertionError(
-            f"train_step_rgemma: loss {loss0}, central difference {central} "
-            f"against {predicted} (ratio {ratio}, tolerance "
+            f"{phase} {cfg.name}: loss {loss0}, central difference "
+            f"{central} against {predicted} (ratio {ratio}, tolerance "
             f"{TRAIN_FO_TOL}); (K1, feature_fold, K2, K3, K2 backward) "
-            f"launches {launches}, expected {want}")
+            f"launches {launches}, expected {want}; host reads "
+            f"{host_reads.n}, expected {reads}")
     return launches[2], launches[4]
+
+
+def phase_train_step_rgemma():
+    """One loss and gradient of RecurrentGemma-9B at full width, depth cut
+    to RGEMMA_TRAIN_CUT (both RG-LRU layers and the hd-256 local
+    attention, on the plain ``blocked_attention``), batch 8 x 128
+    (``_train_step_case``, gated over TRAIN_FO_FRAC_SSM): K2 and its
+    backward once an RG-LRU layer, no K3.  Returns (K2, K2 backward)
+    launches of the counted gradient."""
+    return _train_step_case("train_step_rgemma", RGEMMA_ARCH,
+                            RGEMMA_TRAIN_CUT, TRAIN_B, TRAIN_S,
+                            TRAIN_FO_FRAC_SSM)
+
+
+def phase_train_step_families():
+    """One loss and gradient of each family not trained in a loop
+    (TRAIN_FAMILIES: Kimi-K2's GQA MoE, Whisper-small's encoder-decoder
+    on stub frames, Qwen2-VL-72B's M-RoPE layers on a patch prefix), each
+    ``_train_step_case`` gated over TRAIN_FO_FRAC: no kernel
+    launched (no fold, and training attends on the plain
+    ``blocked_attention``)."""
+    for case, arch, cut, B, S in TRAIN_FAMILIES:
+        _train_step_case("train_step_families", arch, cut, B, S,
+                         TRAIN_FO_FRAC, case)
+
+
+def _max_abs(t: torch.Tensor) -> float:
+    """max |t| with no temporary of t's size."""
+    return float(torch.linalg.vector_norm(t, float("inf")))
+
+
+def _max_abs_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want|, ``got`` (on any device) copied once to ``want``'s
+    device and dtype and the difference taken in place: at a 15 GB
+    model a temporary a term would page-fault tens of GB on the host."""
+    d = got.to(want.device, want.dtype, copy=True)
+    return _max_abs(d.sub_(want))
 
 
 def _per_unit(got, want) -> float:
     """max |got - want| per unit of want's largest magnitude (at least 1);
     got may be on the card."""
-    return float((got.cpu() - want).abs().max()) / max(
-        float(want.abs().max()), 1.0)
+    return _max_abs_gap(got, want) / max(_max_abs(want), 1.0)
 
 
 def _loop_card_vs_cpu(cfg, params, n_clients: int, tokens: int, loop):
@@ -3256,11 +3497,13 @@ def _loop_card_vs_cpu(cfg, params, n_clients: int, tokens: int, loop):
     kw = {**loop, **TRAIN_HYPER, "seed": 0, "log": None}
     card_params = tree_map(lambda t: t.to(DEV), params)
     _reset_launches()
-    card = train(model, card_params, streams, device=DEV, **kw)
+    with Routing() as card_routes:
+        card = train(model, card_params, streams, device=DEV, **kw)
     torch.cuda.synchronize()
     launches = _train_launches() + (_scan_backward_launches(),)
     t0 = time.perf_counter()
-    cpu = train(model, params, streams, device="cpu", **kw)
+    with Routing(card_routes.ids) as forced:
+        cpu = train(model, params, streams, device="cpu", **kw)
     cpu_s = time.perf_counter() - t0
     want = np.array(cpu["losses"])
     loss_err = float(np.max(np.abs(np.array(card["losses"]) - want))) / max(
@@ -3276,27 +3519,42 @@ def _loop_card_vs_cpu(cfg, params, n_clients: int, tokens: int, loop):
            "weight_err_per_unit": max(leaf_err.values()),
            "weight_err_by_leaf": leaf_err, "tolerance": TRAIN_TOL,
            "card_wall_s": card["wall_s"], "cpu_wall_s": cpu_s,
+           **_routing_record(cfg, forced),
            "feature_attention_launches": launches[0],
            "linear_scan_launches": launches[2],
            "linear_scan_backward_launches": launches[4]}
     return rec, launches
 
 
+def _routing_record(cfg, forced) -> dict:
+    """A MoE comparison's routing fields: the CPU took the card's expert
+    ids (``Routing``); the tokens whose own top-k set differed, per MoE
+    layer over the run's forwards, and per call."""
+    if cfg.family != "moe":
+        return {}
+    return {"routing": "forced: the CPU takes the card's expert ids",
+            "route_calls": forced.calls,
+            "route_flips_by_layer": _flips_by_layer(forced.flips,
+                                                    _moe_layers(cfg)),
+            "route_flips_by_call": forced.flips}
+
+
 def _grad_gaps(paths, got, want):
     """{leaf path: max |got - want| per unit of want's largest magnitude,
     floored at GRAD_FLOOR of the largest over all leaves}; ``got`` may be
     on the card, ``want`` on the CPU."""
-    floor = GRAD_FLOOR * max(float(w.abs().max()) for w in want)
-    return {path: float((x.to(w.device, w.dtype) - w).abs().max())
-            / max(float(w.abs().max()), floor)
-            for path, x, w in zip(paths, got, want)}
+    scale = [_max_abs(w) for w in want]
+    floor = GRAD_FLOOR * max(scale)
+    return {path: _max_abs_gap(x, w) / max(m, floor)
+            for path, x, w, m in zip(paths, got, want, scale)}
 
 
 def _grad_card_vs_cpu(cfg, params, B: int, S: int):
     """``cfg``'s loss and gradient on batch B x S (``make_batch``, seed
     0) from ``params`` on the card and from a copy on the CPU, every leaf
-    within ``_grad_gaps``.  Returns (record, (K2, K2 backward) launches of
-    the card's gradient)."""
+    within ``_grad_gaps``; a MoE model's CPU side takes the card's expert
+    ids (``Routing``).  Returns (record, (K2, K2 backward, K1, K3)
+    launches of the card's gradient)."""
     from repro_torch.common.pytree import tree_flatten_with_path, tree_map
     from repro_torch.models import build_model, make_batch
 
@@ -3305,13 +3563,16 @@ def _grad_card_vs_cpu(cfg, params, B: int, S: int):
     params = tree_map(lambda t: t.cpu(), params)
     batch = make_batch(cfg, B, S, seed=0, device="cpu")
     _reset_launches()
-    card_loss, card_g = _grad(model, card_params,
-                              {k: v.to(DEV) for k, v in batch.items()})
+    with Routing() as card_routes:
+        card_loss, card_g = _grad(model, card_params,
+                                  {k: v.to(DEV) for k, v in batch.items()})
     torch.cuda.synchronize()
-    launches = (_launches()[1], _scan_backward_launches())
+    launches = (_launches()[1], _scan_backward_launches(),
+                _launches()[0], _flash_launches())
     del card_params
     t0 = time.perf_counter()
-    cpu_loss, cpu_g = _grad(model, params, batch)
+    with Routing(card_routes.ids) as forced:
+        cpu_loss, cpu_g = _grad(model, params, batch)
     cpu_s = time.perf_counter() - t0
     paths = ["/".join(p) for p, _ in tree_flatten_with_path(params)]
     grad_err = _grad_gaps(paths, card_g, cpu_g)
@@ -3325,8 +3586,11 @@ def _grad_card_vs_cpu(cfg, params, B: int, S: int):
            "grad_err_per_unit": max(grad_err.values()),
            "grad_err_by_leaf": grad_err, "grad_floor_share": GRAD_FLOOR,
            "tolerance": TRAIN_TOL, "cpu_s": cpu_s,
+           **_routing_record(cfg, forced),
            "linear_scan_launches": launches[0],
-           "linear_scan_backward_launches": launches[1]}
+           "linear_scan_backward_launches": launches[1],
+           "feature_attention_launches": launches[2],
+           "flash_attention_launches": launches[3]}
     del card_g, cpu_g, params
     torch.cuda.empty_cache()
     return rec, launches
@@ -3335,57 +3599,77 @@ def _grad_card_vs_cpu(cfg, params, B: int, S: int):
 def phase_train_card_vs_cpu():
     """The training slice on the card against the CPU, each within
     TRAIN_TOL per unit: ``train`` on Qwen2-0.5B at full width, 2 layers
-    (wq and wk cooled by TRAIN_COOL on both sides; each step's loss and
-    each final server leaf), and on Falcon-Mamba-7B at full width, 2
-    layers (as drawn; the same, and first every gradient leaf at the
-    initial weights: a fault in the scan's ``da`` moves the loss along a
-    step by ~1e-5 of its change, past what a loss difference or the
-    weights per unit can show, and the A_log gradient by its own size);
-    RecurrentGemma-9B's loss and every gradient leaf at full width, 3
-    layers (cooled, the same weights on both sides).  Returns
-    {architecture: (K1, K2, K2 backward) launches of its card runs}."""
+    (attention cooled on both sides; each step's loss and each final
+    server leaf), on Falcon-Mamba-7B at full width, 2 layers (as drawn;
+    the same, and first every gradient leaf at the initial weights: a
+    fault in the scan's ``da`` moves the loss along a step by ~1e-5 of
+    its change, past what a loss difference or the weights per unit can
+    show, and the A_log gradient by its own size) and on DeepSeek-V2-Lite
+    at full width, 2 layers (its gradient first); the loss and every
+    gradient leaf of RecurrentGemma-9B at full width, 3 layers, and of
+    FAMILY_CMP's Kimi-K2, Whisper and Qwen2-VL cuts (cooled, the same
+    weights on both sides).  The MoE cases' CPU side takes the card's
+    expert ids (``Routing``), and their records count the tokens whose
+    own top-k set differed.  Returns {architecture: (K1, K2, K2 backward)
+    launches of its card runs}."""
+    from repro_torch.common.pytree import tree_map
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
 
     out = {}
 
-    def grad_case(cfg, params, B, S, cool):
+    def grad_case(cfg, params, B, S, cool, case=None):
+        t0 = time.perf_counter()
         rec, launches = _grad_card_vs_cpu(cfg, params, B, S)
         emit({"phase": "train_card_vs_cpu", **rec,
-              "attention_wq_wk_scale": TRAIN_COOL if cool else 1.0})
-        layers = _recurrent_layers(cfg)
-        if launches != (layers, layers) or not (
+              **({"reduced": case} if case else {}),
+              "case_wall_s": time.perf_counter() - t0,
+              "attention_scaled_leaves": (list(TRAIN_COOL_LEAVES) if cool
+                                          else [])})
+        want = _scan_launches(cfg) + (0, 0)
+        if launches != want or not (
                 rec["loss_err_per_unit"] <= TRAIN_TOL
                 and rec["grad_err_per_unit"] <= TRAIN_TOL):
             raise AssertionError(
-                f"train_card_vs_cpu {cfg.name} gradient: (K2, K2 backward) "
-                f"launches {launches}, expected {(layers, layers)}; loss "
+                f"train_card_vs_cpu {cfg.name} gradient: (K2, K2 backward, "
+                f"K1, K3) launches {launches}, expected {want}; loss "
                 f"{rec['loss_err_per_unit']}, gradient "
                 f"{rec['grad_err_per_unit']} per unit (tolerance "
                 f"{TRAIN_TOL})")
-        return launches
+        return launches[:2]
 
-    for arch, cut, cool, n, tokens, loop in (
+    # the loops' clients and steps before the MoE, audio and VLM cases
+    # came (cut for the script's 1000 s)
+    for arch, cut, cool, n, tokens, loop, grad_shape, was in (
             (TRAIN_ARCH, TRAIN_CUT, True, TRAIN_CMP_CLIENTS,
-             TRAIN_CMP_TOKENS, TRAIN_CMP),
+             TRAIN_CMP_TOKENS, TRAIN_CMP, None, (3, 6)),
             (MAMBA_ARCH, MAMBA_CMP_CUT, False, MAMBA_CMP_CLIENTS,
-             MAMBA_CMP_TOKENS, MAMBA_CMP)):
+             MAMBA_CMP_TOKENS, MAMBA_CMP, (MAMBA_CMP["batch"],
+                                           MAMBA_CMP["seq"]), (2, 4)),
+            (DEEPSEEK_ARCH, DEEPSEEK_TRAIN_CUT, True, DEEPSEEK_CMP_CLIENTS,
+             DEEPSEEK_CMP_TOKENS, DEEPSEEK_CMP, FAMILY_CMP[0][3:], None)):
+        t0 = time.perf_counter()
         cfg = dataclasses.replace(get_arch(arch), **cut)
-        params = build_model(cfg).init(torch.Generator().manual_seed(0),
-                                       device="cpu")
+        params = build_model(cfg).init(
+            torch.Generator(device=DEV).manual_seed(0), device=DEV)
         if cool:
             params = _cool_attention(params)
+        params = tree_map(lambda t: t.cpu(), params)
         grad = (0, 0)
-        if cfg.family == "ssm":
-            grad = grad_case(cfg, params, loop["batch"], loop["seq"],
-                             cool)
+        if grad_shape:
+            grad = grad_case(cfg, params, *grad_shape, cool)
         rec, launches = _loop_card_vs_cpu(cfg, params, n, tokens, loop)
         del params
-        layers = _recurrent_layers(cfg)
-        want = (loop["steps"], 0, loop["steps"] * layers, 0,
-                loop["steps"] * layers)
+        fwd, bwd = _scan_launches(cfg)
+        want = (loop["steps"], 0, loop["steps"] * fwd, 0,
+                loop["steps"] * bwd)
         emit({"phase": "train_card_vs_cpu", **rec,
-              "attention_wq_wk_scale": TRAIN_COOL if cool else 1.0})
+              **({"reduced": {"clients": [was[0], n],
+                              "steps": [was[1], loop["steps"]]}}
+                 if was else {}),
+              "case_wall_s": time.perf_counter() - t0,
+              "attention_scaled_leaves": (list(TRAIN_COOL_LEAVES) if cool
+                                          else [])})
         if launches != want:
             raise AssertionError(
                 f"train_card_vs_cpu {arch}: (K1, feature_fold, K2, K3, K2 "
@@ -3407,6 +3691,16 @@ def phase_train_card_vs_cpu():
                                         RGEMMA_CMP_S, True)
     del params
     torch.cuda.empty_cache()
+    for case, arch, cut, B, S in FAMILY_CMP[1:]:
+        full = get_arch(arch)
+        cfg = dataclasses.replace(full, **cut)
+        params = _cool_attention(build_model(cfg).init(
+            torch.Generator(device=DEV).manual_seed(0), device=DEV))
+        out[arch] = (0,) + grad_case(
+            cfg, params, B, S, True,
+            {k: [getattr(full, k), v] for k, v in cut.items()})
+        del params
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3450,8 +3744,9 @@ SERVE_PHASES = ("flash_vs_plain", "serve_path", "serve_path_bf16",
 ONLY_PHASES = ("main_path", "assoc_path", "oracle_path", "sweep_path",
                "paper_rows", "residency_path", "chaos_path",
                "resume_path") + SERVE_PHASES + ("serve_card_vs_cpu",) \
-    + ("train_path", "train_path_mamba", "train_step_rgemma",
-       "train_card_vs_cpu", "quickstart_path")
+    + ("train_path", "train_path_mamba", "train_path_deepseek",
+       "train_step_rgemma", "train_step_families", "train_card_vs_cpu",
+       "quickstart_path")
 # the serve paths after serve_path: (phase, architecture, weights' dtype,
 # the config's fields cut)
 SERVE_MODEL_PATHS = (
@@ -3533,7 +3828,8 @@ def serve_phases(names):
 LAUNCH_PATHS = ("main_path", "assoc_path", "oracle_path", "sweep_path",
                 "residency_path", "chaos_path", "resume_path") \
     + SERVE_PHASES[1:] + ("train_path", "train_path_mamba",
-                          "train_step_rgemma", "train_card_vs_cpu",
+                          "train_path_deepseek", "train_step_rgemma",
+                          "train_step_families", "train_card_vs_cpu",
                           "quickstart_path")
 
 
@@ -3560,6 +3856,23 @@ def _flash_entry(name, rec, launches, by_path, design):
         "design_source": "src/repro_torch/kernels/flash_attention/csrc/"
                          + design,
         "launches_by_path": _by_path(**by_path)}
+
+
+def _embed_entry(name, rec, path, launches, cmp_launches):
+    """The kernels line's entry for K1 at a training loop's embedding:
+    ``launches`` on ``path``, ``cmp_launches`` on train_card_vs_cpu."""
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/feature_attention/csrc/"
+                  "feature_attention.cu",
+        "replaces": "src/repro/kernels/feature_attention/kernel.py:38",
+        "launches": launches, "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+        "library_ms": None, "call_ms": rec["call_ms"],
+        "shape": rec["shape"],
+        "launches_by_path": _by_path(**{
+            path: launches, "train_card_vs_cpu": cmp_launches})}
 
 
 def _scan_train_entry(name, rec, by_path):
@@ -3640,8 +3953,12 @@ def main(argv=None) -> int:
             phase_train_path()
         if "train_path_mamba" in only:
             phase_train_path_mamba()
+        if "train_path_deepseek" in only:
+            phase_train_path_deepseek()
         if "train_step_rgemma" in only:
             phase_train_step_rgemma()
+        if "train_step_families" in only:
+            phase_train_step_families()
         if "train_card_vs_cpu" in only:
             phase_train_card_vs_cpu()
         if "quickstart_path" in only:
@@ -3696,8 +4013,10 @@ def main(argv=None) -> int:
     train_k1 = timed("train_path", phase_train_path)
     mamba_k1, mamba_k2, mamba_k2b = timed("train_path_mamba",
                                           phase_train_path_mamba)
+    deepseek_k1 = timed("train_path_deepseek", phase_train_path_deepseek)
     rgemma_k2, rgemma_k2b = timed("train_step_rgemma",
                                   phase_train_step_rgemma)
+    timed("train_step_families", phase_train_step_families)
     train_cmp = timed("train_card_vs_cpu", phase_train_card_vs_cpu)
     train_cmp_k1 = sum(k1 for k1, _, _ in train_cmp.values())
     quick_k1, quick_k3 = timed("quickstart_path", phase_quickstart_path)
@@ -3715,7 +4034,6 @@ def main(argv=None) -> int:
         raise AssertionError(f"serve_path_deepseek launched K3 "
                              f"{flash_launches_deepseek} times (MLA: 0)")
     main_rec = kv[((8, 256), torch.float32, True)]
-    embed_rec, embed_mamba_rec = kv["embed_table"], kv["embed_table_mamba"]
     fold_rec = fv_fold["main_tick"]
     reps_rec = fv_fold["main_tick_reps"]
     # K2 at the main path's largest leaf (w_h), a = 1: the case with a
@@ -3724,8 +4042,10 @@ def main(argv=None) -> int:
     scan_rec = sv[((1, 64, 16384), torch.float32, "ones")]
     mamba_rec, rglru_rec = sv["mamba"], sv["rglru"]
     # K2 forward and backward on the training paths: the gradients of
-    # train_path_mamba (4 layers a gradient), train_step_rgemma (2) and
-    # train_card_vs_cpu (Falcon-Mamba 2 a gradient, RecurrentGemma 2)
+    # train_path_mamba (4 layers: K2 8 a gradient, the forward and the
+    # checkpointed scan's recompute, its backward 4), train_step_rgemma
+    # (2 and 2) and train_card_vs_cpu (Falcon-Mamba 4 and 2 a gradient,
+    # RecurrentGemma 2 and 2)
     cmp_mamba, cmp_rgemma = train_cmp[MAMBA_ARCH], train_cmp[RGEMMA_ARCH]
     scan_train_by_path = {
         "mamba_train": dict(train_path_mamba=mamba_k2,
@@ -3785,37 +4105,21 @@ def main(argv=None) -> int:
         "launches_by_path": _by_path(
             oracle_path=k1_oracle, residency_path=res_k1,
             chaos_path=chaos_k1, train_path=train_k1,
-            train_path_mamba=mamba_k1, train_card_vs_cpu=train_cmp_k1,
-            quickstart_path=quick_k1)}, {
-        # the same kernel at train_path's first layer, Qwen2-0.5B's
-        # (151936, 896) fp32 token embedding, once a server fold
-        "name": "feature_attention_embed_table", "route": "cuda",
-        "source": "src/repro_torch/kernels/feature_attention/csrc/"
-                  "feature_attention.cu",
-        "replaces": "src/repro/kernels/feature_attention/kernel.py:38",
-        "launches": train_k1, "max_abs_err": embed_rec["max_abs_err"],
-        "ms": embed_rec["ms"], "plain_ms": embed_rec["plain_ms"],
-        "bound_ms": embed_rec["bound_ms"],
-        "bound_by": embed_rec["bound_by"], "library_ms": None,
-        "call_ms": embed_rec["call_ms"], "shape": embed_rec["shape"],
-        "launches_by_path": _by_path(
-            train_path=train_k1,
-            train_card_vs_cpu=train_cmp[TRAIN_ARCH][0])}, {
-        # the same kernel at train_path_mamba's first layer, Falcon-Mamba's
-        # (65024, 4096) fp32 tied embedding (16 KB rows), once a fold
-        "name": "feature_attention_embed_table_mamba", "route": "cuda",
-        "source": "src/repro_torch/kernels/feature_attention/csrc/"
-                  "feature_attention.cu",
-        "replaces": "src/repro/kernels/feature_attention/kernel.py:38",
-        "launches": mamba_k1, "max_abs_err": embed_mamba_rec["max_abs_err"],
-        "ms": embed_mamba_rec["ms"], "plain_ms": embed_mamba_rec["plain_ms"],
-        "bound_ms": embed_mamba_rec["bound_ms"],
-        "bound_by": embed_mamba_rec["bound_by"], "library_ms": None,
-        "call_ms": embed_mamba_rec["call_ms"],
-        "shape": embed_mamba_rec["shape"],
-        "launches_by_path": _by_path(
-            train_path_mamba=mamba_k1,
-            train_card_vs_cpu=train_cmp[MAMBA_ARCH][0])}, {
+            train_path_mamba=mamba_k1, train_path_deepseek=deepseek_k1,
+            train_card_vs_cpu=train_cmp_k1, quickstart_path=quick_k1)},
+        # the same kernel at each training loop's first layer, its fp32
+        # token embedding, once a server fold: train_path's Qwen2-0.5B
+        # (151936, 896), train_path_mamba's Falcon-Mamba tied (65024, 4096)
+        # and train_path_deepseek's DeepSeek-V2-Lite (102400, 2048)
+        *(_embed_entry(name, kv[case], path, launches_, train_cmp[arch][0])
+          for name, case, path, launches_, arch in (
+              ("feature_attention_embed_table", "embed_table", "train_path",
+               train_k1, TRAIN_ARCH),
+              ("feature_attention_embed_table_mamba", "embed_table_mamba",
+               "train_path_mamba", mamba_k1, MAMBA_ARCH),
+              ("feature_attention_embed_table_deepseek",
+               "embed_table_deepseek", "train_path_deepseek", deepseek_k1,
+               DEEPSEEK_ARCH))), {
         "name": "linear_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
         "replaces": "src/repro/kernels/linear_scan/kernel.py:56",

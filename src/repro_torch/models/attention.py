@@ -21,10 +21,12 @@ rotates q and k when the config has sections and ``mrope_pos`` is given.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -54,6 +56,28 @@ def _pick_block(s_kv: int, target: int = 1024) -> int:
     return s_kv
 
 
+def _attend_block(acc, m, l, q32, qp, ki, vi, kp, *, causal: bool,
+                  window: int, scale: float):
+    """One KV block of ``blocked_attention``'s online softmax: the carry
+    (acc, m, l) and the block's keys, values and key positions -> the
+    new carry."""
+    ki, vi = ki.to(torch.float32), vi.to(torch.float32)
+    kp = kp.to(torch.int64)[:, None, None, None, :]
+    s = torch.einsum("bqkgd,btkd->bqkgt", q32, ki) * scale
+    mask = torch.ones((1, 1, 1, 1, 1), dtype=torch.bool, device=q32.device)
+    if causal:
+        mask = mask & (kp <= qp)
+    if window > 0:
+        mask = mask & ((qp - kp) < window)
+    s = s.masked_fill(~mask, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(-1)
+    pv = torch.einsum("bqkgt,btkd->bqkgd", p, vi)
+    return acc * corr[..., None] + pv, m_new, l
+
+
 def blocked_attention(q, k, v, *, q_positions, k_positions,
                       causal: bool = True, window: int = 0,
                       scale: Optional[float] = None,
@@ -63,7 +87,13 @@ def blocked_attention(q, k, v, *, q_positions, k_positions,
     from the key dim), positions (B, Sq) / (B, Skv) int -> (B, Sq, KV, G,
     vd) in q's dtype.  The JAX function's block choice and arithmetic,
     block by block, out of place (differentiable: the training loss runs
-    it under autograd)."""
+    it under autograd).
+
+    Under autograd each block's body is checkpointed, as the JAX body is
+    ``jax.checkpoint``-ed: the backward recomputes the block's scores
+    from the carry and the block's keys, values and positions, so no
+    (B, Sq, KV, G, block) tensor outlives its block.  The forward runs
+    the same operations either way."""
     B, Sq, KV, G, hd = q.shape
     S_kv = k.shape[1]
     vd = v.shape[-1]
@@ -77,27 +107,19 @@ def blocked_attention(q, k, v, *, q_positions, k_positions,
                    device=q.device)
     l = torch.zeros((B, Sq, KV, G), dtype=torch.float32, device=q.device)
     qp = q_positions.to(torch.int64)[:, :, None, None, None]
+    body = functools.partial(_attend_block, causal=causal, window=window,
+                             scale=scale)
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
     for t0 in range(0, S_kv, blk):
-        ki = k[:, t0:t0 + blk].to(torch.float32)
-        vi = v[:, t0:t0 + blk].to(torch.float32)
-        kp = k_positions[:, t0:t0 + blk].to(torch.int64)[:, None, None,
-                                                          None, :]
-        s = torch.einsum("bqkgd,btkd->bqkgt", q32, ki) * scale
-        mask = torch.ones((1, 1, 1, 1, 1), dtype=torch.bool,
-                          device=q.device)
-        if causal:
-            mask = mask & (kp <= qp)
-        if window > 0:
-            mask = mask & ((qp - kp) < window)
-        s = s.masked_fill(~mask, NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1))
-        p = torch.exp(s - m_new[..., None])
-        corr = torch.exp(m - m_new)
-        l = l * corr + p.sum(-1)
-        pv = torch.einsum("bqkgt,btkd->bqkgd", p, vi)
-        acc = acc * corr[..., None] + pv
-        m = m_new
-        del s, p, pv  # before the next block's scores are formed
+        block = (acc, m, l, q32, qp, k[:, t0:t0 + blk], v[:, t0:t0 + blk],
+                 k_positions[:, t0:t0 + blk])
+        if remat:
+            acc, m, l = checkpoint(body, *block, use_reentrant=False,
+                                   preserve_rng_state=False)
+        else:
+            acc, m, l = body(*block)
+        del block  # the previous carry
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.to(q.dtype)
 

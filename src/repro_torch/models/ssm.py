@@ -17,14 +17,21 @@ and launches no kernel.
 At Falcon-Mamba-7B's width a batch of 8 x 2016 tokens makes each of
 ``dA``, ``dBx`` and the scan's states 8.46 GB: the products are formed in
 place where that leaves their values unchanged, and ``dA`` / ``dBx`` are
-freed before the C-projection.  Under grad a layer keeps three
-``(B, S, d_inner, N)`` fp32 tensors for its backward: ``dA``, ``dt * B``
-and the states ``h`` (537 MB each at 8 x 128 tokens).
+freed before the C-projection.  Under grad the coefficients, the scan
+and the C-projection of a layer are checkpointed, as the JAX chunk body
+is: the forward keeps no ``(B, S, d_inner, N)`` tensor, and the backward
+recomputes them from ``xh`` and the weights (K2 runs twice a layer a
+gradient, its backward kernel once) and holds the layer's three, ``dA``,
+``dt * B`` and the states ``h`` (537 MB each at 8 x 128 tokens), while
+it runs.  JAX recomputes per 256-step chunk from the chunk's carried
+state; the port recomputes the whole sequence from a zero state, which
+is the same at S <= 256.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.linear_scan.ops import linear_scan
@@ -96,6 +103,16 @@ def _ssm_coeffs(params, xh: torch.Tensor):
     return dA, dBx, Cc
 
 
+def _selective_scan(params, xh: torch.Tensor):
+    """xh (B, S, di) -> (y = h . C (B, S, di) fp32, h_last (B, di, N)):
+    the coefficients, the recurrence from a zero state (K2 on a CUDA
+    tensor) and the C-projection."""
+    dA, dBx, Cc = _ssm_coeffs(params, xh)
+    h, h_last = linear_scan(dA, dBx)  # K2 on a CUDA tensor
+    del dA, dBx
+    return torch.einsum("bsdn,bsn->bsd", h, Cc.to(torch.float32)), h_last
+
+
 def _gate_out(params, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
               dtype) -> torch.Tensor:
     """y + D * xh, gated by silu(z) in fp32, cast, then the out-projection."""
@@ -113,11 +130,15 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
     xc = _causal_conv(xa, params["conv_w"], params["conv_b"])
     xh = F.silu(xc.to(torch.float32)).to(x.dtype)
     del xc
-    dA, dBx, Cc = _ssm_coeffs(params, xh)
-    h, h_last = linear_scan(dA, dBx)  # K2 on a CUDA tensor
-    del dA, dBx
-    y = torch.einsum("bsdn,bsn->bsd", h, Cc.to(torch.float32))
-    del h
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xh, *params.values())):
+        # the JAX chunk body's jax.checkpoint, one chunk a layer: the
+        # backward recomputes the coefficients, the scan and the
+        # C-projection from xh and the weights
+        y, h_last = checkpoint(_selective_scan, params, xh,
+                               use_reentrant=False, preserve_rng_state=False)
+    else:
+        y, h_last = _selective_scan(params, xh)
     out = _gate_out(params, y, xh, z, x.dtype)
     if return_state:
         K = cfg.ssm_conv

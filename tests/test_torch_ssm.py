@@ -235,26 +235,31 @@ def test_ssm_coeffs_matches_jax():
 
 
 def test_mamba_layer_keeps_three_scan_tensors_for_backward():
-    """Under grad a Mamba layer keeps three (B, S, d_inner, N) fp32
-    tensors for its backward: dA, dt * B and the states h (what sizes
-    the training path's activations); ``_ssm_coeffs`` gives the same
-    values bit for bit with and without grad (its second product runs in
-    place only where autograd does not track it)."""
+    """Under grad a Mamba layer's forward keeps no (B, S, d_inner, N)
+    fp32 tensor for its backward (it kept three, dA, dt * B and the
+    states h, before the scan was checkpointed as the JAX chunk body is):
+    the backward recomputes those three from xh, which the forward keeps.
+    ``_ssm_coeffs`` gives the same values bit for bit with and without
+    grad (its second product runs in place only where autograd does not
+    track it)."""
     _, _, tm, p = _pair()
     tp = tree_map(lambda t: t.detach().requires_grad_(),
                   layer(p["blocks"], 0)["mamba"])
     x = torch.tensor(_normal((B, 9, tm.cfg.d_model), 4))
     numel = B * 9 * tm.cfg.d_inner * tm.cfg.ssm_state
-    storages = set()
+    storages, xh_saved = set(), []
 
     def pack(t):
         if t.numel() == numel:
             storages.add(t.untyped_storage().data_ptr())
+        if tuple(t.shape) == (B, 9, tm.cfg.d_inner):
+            xh_saved.append(t)
         return t
 
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
         ssm.mamba_forward(tp, x, tm.cfg)
-    assert len(storages) == 3
+    assert len(storages) == 0
+    assert xh_saved
     xh = torch.tensor(_normal((B, 9, tm.cfg.d_inner), 3))
     with torch.no_grad():
         want = ssm._ssm_coeffs(tp, xh)

@@ -21,16 +21,19 @@ Checked, with the tolerance stated at each:
 * (d) each optimizer of ``optim/optimizers.py`` step by step;
 * (e) the port's training loop against the JAX training script's loop,
   written here from the JAX package's functions (reduced Qwen2-0.5B,
-  Falcon-Mamba-7B and RecurrentGemma-9B, 3 clients, 8 steps: every
-  client holds a server snapshot that later folds must leave as it was;
-  the recurrent layers' gradients go through ``LinearScan``);
+  Falcon-Mamba-7B, RecurrentGemma-9B, DeepSeek-V2-Lite and Kimi-K2, 3
+  clients, 8 steps: every client holds a server snapshot that later
+  folds must leave as it was; the recurrent layers' gradients go through
+  ``LinearScan``);
 * (f) the quickstart path's per-round losses and final prefill logits
   against the JAX example's loop;
 * (g) ``--checkpoint`` written by the port, read by
   ``repro.checkpoint.load_checkpoint``;
 * (h) the refusals: K3's and K2's wrappers under grad, then the SSM and
   hybrid gradients through ``LinearScan``, ``first_layer_path`` of every
-  family and the feature pass on a tied embedding.
+  family and the feature pass on a tied embedding;
+* ``chip_smoke.py``'s first-step gate, gradient gap, forced routing
+  (``Routing``) and ``train_witness.py``'s fp64 gradient.
 
 The card's cases (K1 once a fold, the SSM and hybrid gradients and the
 dense loop on the card against the CPU) are in
@@ -496,13 +499,15 @@ def _count_scan_backwards(monkeypatch):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "falcon-mamba-7b",
-                                  "recurrentgemma-9b"])
+                                  "recurrentgemma-9b",
+                                  "deepseek-v2-lite-16b", "kimi-k2-1t-a32b"])
 @pytest.mark.parametrize("feature_learning", [True, False])
 def test_train_loop_matches_the_jax_loop(feature_learning, arch,
                                          monkeypatch):
     """Reduced Qwen2-0.5B (tied embeddings: the feature pass reweights
-    the head too), Falcon-Mamba-7B (tied) and RecurrentGemma-9B, 3
-    clients, 8 steps.  Each client's prox term reads the server as of its
+    the head too), Falcon-Mamba-7B (tied), RecurrentGemma-9B and
+    DeepSeek-V2-Lite (MLA and a MoE layer, untied), 3 clients, 8
+    steps.  Each client's prox term reads the server as of its
     last pull; a fold or feature pass written in place would rewrite
     those snapshots and part the trajectories.  The Mamba and RG-LRU
     layers' gradients go through LinearScan, one backward a layer a
@@ -672,6 +677,52 @@ def test_chip_smoke_gradient_gap_sees_the_scan_da(arch, monkeypatch):
     worst = max(gaps, key=gaps.get)
     assert gaps[worst] > 3 * cs.TRAIN_TOL, gaps
     assert worst.split("/")[-1] in ("A_log", "lam", "w_a"), worst
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "kimi-k2-1t-a32b"])
+@pytest.mark.parametrize("gathered", [False, True],
+                         ids=["all_experts", "gathered"])
+def test_chip_smoke_forced_routing(arch, gathered, monkeypatch):
+    """``chip_smoke.Routing`` at reduced width, 2 x 32 tokens (every
+    expert at once, or the gathered rows with their host read of the
+    counts): forcing a run's own expert ids gives its loss and every
+    gradient leaf bit for bit, with no flip counted; one token's id
+    moved to an expert outside its set counts one flip, at its layer's
+    call, and changes the loss."""
+    monkeypatch.syspath_prepend(ROOT)
+    import chip_smoke as cs
+
+    if gathered:
+        monkeypatch.setattr(moe_lib, "ALL_EXPERTS_MAX_TOKENS", 0)
+    cfg = get_arch(arch).reduced()
+    model = build_model(cfg)
+    params = cs._cool_attention(model.init(torch.Generator().manual_seed(0),
+                                           device="cpu"))
+    batch = make_batch(cfg, 2, 32, seed=0, device="cpu")
+    want_loss, want = cs._grad(model, params, batch)
+    with cs.Routing() as rec:
+        loss, g = cs._grad(model, params, batch)
+    n_moe = cs._moe_layers(cfg)
+    assert rec.calls == len(rec.ids) == n_moe and not rec.flips
+    assert torch.equal(loss, want_loss)
+    assert all(torch.equal(a, b) for a, b in zip(g, want))
+    with cs.Routing(rec.ids) as forced:
+        loss, g = cs._grad(model, params, batch)
+    assert forced.calls == n_moe and forced.flips == [0] * n_moe
+    assert torch.equal(loss, want_loss)
+    assert all(torch.equal(a, b) for a, b in zip(g, want))
+    assert moe_lib._route is not forced.route  # restored
+    ids = [t.clone() for t in rec.ids]
+    E = cfg.n_experts
+    outside = next(e for e in range(E) if e not in ids[-1][5].tolist())
+    ids[-1][5, 0] = outside
+    with cs.Routing(ids) as moved:
+        loss, _ = cs._grad(model, params, batch)
+    assert moved.flips == [0] * (n_moe - 1) + [1]
+    assert cs._flips_by_layer(moved.flips * 2, n_moe) == \
+        [0] * (n_moe - 1) + [2]
+    assert not torch.equal(loss, want_loss)
 
 
 def test_train_witness_fp64_leaves_no_float32(monkeypatch):

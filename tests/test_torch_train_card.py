@@ -8,10 +8,12 @@ where the port runs).
   multiple of its unroll or not, alone and under ``ops.linear_scan``'s
   autograd Function;
 * reduced Falcon-Mamba-7B's and RecurrentGemma-9B's loss and gradient on
-  the card, through K2 and its backward kernel (one launch each a
-  recurrent layer), track the CPU's from the same weights and batch
-  within ``RUN_TOL`` per unit (the test keeps the name it had when SSM
-  and hybrid training raised on the card);
+  the card, through K2 and its backward kernel (the backward once a
+  recurrent layer, K2 once an RG-LRU layer and twice a Mamba layer,
+  whose scan is checkpointed), track the CPU's from the same weights and
+  batch within ``RUN_TOL`` per unit (the test keeps the name it had when
+  SSM and hybrid training raised on the card); a Mamba layer's gradient
+  on the card, K2 twice and its backward once, tracks the CPU's;
 * reduced Qwen2-0.5B trains through ``repro_torch.launch.train.train``
   on the card with one per-row K1 launch a fold and no K3 (the loss
   takes the plain attention), and tracks the CPU run from the same
@@ -38,7 +40,7 @@ from repro_torch.kernels.linear_scan.ops import linear_scan  # noqa: E402
 from repro_torch.kernels.linear_scan.ref import (  # noqa: E402
     linear_scan_backward_ref)
 from repro_torch.launch import train as tr  # noqa: E402
-from repro_torch.models import build_model, make_batch  # noqa: E402
+from repro_torch.models import build_model, make_batch, ssm  # noqa: E402
 
 COOL = 0.125
 RUN_TOL = 1e-4
@@ -99,13 +101,47 @@ def test_ssm_and_hybrid_loss_on_the_card_raises(arch):
     torch.cuda.synchronize()
     layers = (tm.cfg.n_layers if tm.cfg.family == "ssm"
               else 2 * (tm.cfg.n_layers // 3) + tm.cfg.n_layers % 3)
-    assert linear_scan_kernel.launches - k2 == layers
+    # a Mamba layer's checkpointed scan runs K2 again in the backward
+    forward = 2 * layers if tm.cfg.family == "ssm" else layers
+    assert linear_scan_kernel.launches - k2 == forward
     assert linear_scan_backward_kernel.launches - k2b == layers
     cpu_loss, cpu = _loss_and_grads(tm, p, batch)
     assert abs(card_loss - cpu_loss) <= RUN_TOL * max(abs(cpu_loss), 1.0)
     for (path, _), g, w in zip(tree_flatten_with_path(p), card, cpu):
         err = float((g.cpu() - w).abs().max())
         assert err <= RUN_TOL * max(float(w.abs().max()), 1.0), path
+
+
+@pytest.mark.cuda
+def test_mamba_layer_recompute_on_the_card():
+    """A reduced Falcon-Mamba layer's gradient on the card, its scan
+    checkpointed: K2 forward twice (the forward, the recompute in the
+    backward) and its backward kernel once, and every gradient within
+    ``RUN_TOL`` per unit of the plain version's on the CPU from the same
+    weights and input."""
+    _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tm = build_model(get_arch("falcon-mamba-7b").reduced())
+    p = tm.init(torch.Generator().manual_seed(0), device="cpu")
+    mamba = {k: v[0] for k, v in p["blocks"]["mamba"].items()}
+    x = torch.randn((2, 40, tm.cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+
+    def grads(device):
+        leaves = {k: v.to(device).requires_grad_() for k, v in mamba.items()}
+        xd = x.to(device).requires_grad_()
+        out = ssm.mamba_forward(leaves, xd, tm.cfg)
+        g = torch.autograd.grad(out.square().sum(), [*leaves.values(), xd])
+        return [t.cpu() for t in g]
+
+    k2, k2b = linear_scan_kernel.launches, linear_scan_backward_kernel.launches
+    card = grads("cuda")
+    torch.cuda.synchronize()
+    assert linear_scan_kernel.launches - k2 == 2
+    assert linear_scan_backward_kernel.launches - k2b == 1
+    for g, w in zip(card, grads("cpu")):
+        err = float((g - w).abs().max())
+        assert err <= RUN_TOL * max(float(w.abs().max()), 1.0)
 
 
 @pytest.mark.cuda

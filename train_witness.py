@@ -21,7 +21,21 @@ minutes on an H100).  Prints one JSON object a reading:
   ``_grad_gaps`` measures it, for card vs CPU, card vs fp64 and CPU vs
   fp64.  Why its phases cool the attention.
 
-Imports ``chip_smoke`` from this checkout for the phases' own helpers.
+* ``mla``: DeepSeek-V2-Lite-16B at ``train_path_deepseek``'s cut with
+  its attention as drawn, with ``wq`` scaled by ``TRAIN_COOL`` (what
+  scaling every attention's wq and wk does to MLA, which has no wk) and
+  with its key up-projection ``w_uk`` scaled too: the layer-0 attention
+  scores' spread, the first step's fractions as above, and the card's
+  gradient against the CPU's under forced routing at
+  ``train_card_vs_cpu``'s shape.  Which leaves its phases cool.
+* ``families``: the fractions along the first ASO-Fed step of
+  ``train_step_families``' Kimi-K2, Whisper-small and Qwen2-VL-72B cuts
+  (cooled).  Which fraction each gates at.
+
+    python3 train_witness.py --readings mla,families
+
+runs only the readings named.  Imports ``chip_smoke`` from this
+checkout for the phases' own helpers.
 """
 from __future__ import annotations
 
@@ -63,19 +77,31 @@ def grad_fp64(model, params, batch):
     """(loss, [gradient of each leaf], float32 tensors seen) of the
     model on the CPU in fp64: ``params`` (CPU tensors) widened, the
     forward and backward under :class:`Promote64` with float64 as the
-    default type."""
+    default type.  The model's checkpointed bodies (attention blocks, the
+    Mamba scan) run without the checkpoint: autograd recomputes a body
+    outside the mode, and the checkpoint changes no value."""
     from repro_torch.common.pytree import tree_map
+    from repro_torch.models import attention, ssm
 
     wide = tree_map(lambda t: t.to(torch.float64), params)
     mode = Promote64()
     default = torch.get_default_dtype()
+    kept = attention.checkpoint, ssm.checkpoint
     torch.set_default_dtype(torch.float64)
+    attention.checkpoint = ssm.checkpoint = _no_checkpoint
     try:
         with mode:
             loss, g = cs._grad(model, wide, batch)
     finally:
         torch.set_default_dtype(default)
+        attention.checkpoint, ssm.checkpoint = kept
     return loss, g, mode.fp32_outputs
+
+
+def _no_checkpoint(fn, *args, **kwargs):
+    """``torch.utils.checkpoint.checkpoint``'s call without the
+    recompute."""
+    return fn(*args)
 
 
 def fractions():
@@ -181,7 +207,112 @@ def precision():
         torch.cuda.empty_cache()
 
 
-def main() -> int:
+# the MLA coolings compared: the query and key leaves scaled by TRAIN_COOL
+MLA_COOLINGS = ((), ("wq", "wk"), ("wq", "wk", "w_uk"))
+
+
+def _score_spread(model, params, batch):
+    """(std, max |score|) of the first attention's scores on ``batch``:
+    ``blocked_attention``'s q . k times its scale, over every pair."""
+    from repro_torch.models import attention
+
+    inner, seen = attention.blocked_attention, []
+
+    def spy(q, k, v, **kw):
+        if not seen:
+            scale = kw.get("scale") or 1.0 / math.sqrt(q.shape[-1])
+            s = torch.einsum("bqkgd,btkd->bqkgt", q.float(), k.float()) * scale
+            seen.append((float(s.std()), float(s.abs().max())))
+        return inner(q, k, v, **kw)
+
+    attention.blocked_attention = spy
+    try:
+        with torch.no_grad():
+            model.loss(params, batch)
+    finally:
+        attention.blocked_attention = inner
+    return seen[0]
+
+
+def mla():
+    """DeepSeek's coolings (see the module docstring)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, make_batch
+
+    cfg = dataclasses.replace(get_arch(cs.DEEPSEEK_ARCH),
+                              **cs.DEEPSEEK_TRAIN_CUT)
+    model = build_model(cfg)
+    streams = cs._train_streams(cs.TRAIN_CLIENTS, cfg.vocab_size,
+                                cs.TRAIN_TOKENS)
+    _, _, _, B, S = cs.FAMILY_CMP[0]
+    for leaves in MLA_COOLINGS:
+        params = cs._cool_attention(model.init(
+            torch.Generator(device=cs.DEV).manual_seed(0), device=cs.DEV),
+            leaves)
+        spread = _score_spread(model, params, make_batch(
+            cfg, cs.TRAIN_B, cs.TRAIN_S, seed=0, device=cs.DEV))
+        ratios = {str(t): cs._first_step_check(model, params, streams,
+                                               t)["ratio"]
+                  for t in FRACTIONS}
+        rec, _ = cs._grad_card_vs_cpu(cfg, params, B, S)
+        del params
+        torch.cuda.empty_cache()
+        cs.emit({"reading": "mla", "arch": cfg.name,
+                 "n_layers": cfg.n_layers, "scaled_leaves": list(leaves),
+                 "scale": cs.TRAIN_COOL, "score_std": spread[0],
+                 "score_max_abs": spread[1],
+                 "ratio_by_fraction": ratios,
+                 "card_vs_cpu": {k: rec[k] for k in (
+                     "batch", "seq", "loss_err_per_unit",
+                     "grad_err_per_unit", "route_flips_by_layer",
+                     "cpu_s")},
+                 "card_vs_cpu_worst_leaf": max(
+                     rec["grad_err_by_leaf"],
+                     key=rec["grad_err_by_leaf"].get)})
+
+
+def families():
+    """The fractions of train_step_families' cuts (see the module
+    docstring)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model, make_batch
+
+    step_eps = cs._first_asofed_step_eps(cs.TRAIN_CLIENTS)
+    for case, arch, cut, B, S in cs.TRAIN_FAMILIES:
+        cfg = dataclasses.replace(get_arch(arch), **cut)
+        model = build_model(cfg)
+        params = cs._cool_attention(model.init(
+            torch.Generator(device=cs.DEV).manual_seed(0), device=cs.DEV))
+        batch = make_batch(cfg, B, S, seed=0, device=cs.DEV)
+        _, g = cs._grad(model, params, batch)
+        ratios = {}
+        for t in FRACTIONS:
+            central, predicted = cs._central_along_gradient(
+                model, params, g, batch, t, step_eps)
+            ratios[str(t)] = central / predicted if predicted else math.nan
+        cs.emit({"reading": "families", "case": case, "arch": cfg.name,
+                 "n_layers": cfg.n_layers, "batch": B, "seq": S,
+                 "scaled_leaves": list(cs.TRAIN_COOL_LEAVES),
+                 "scale": cs.TRAIN_COOL, "step_eps": step_eps,
+                 "ratio_by_fraction": ratios})
+        del params, g, batch
+        torch.cuda.empty_cache()
+
+
+READINGS = {"fractions": fractions, "precision": precision, "mla": mla,
+            "families": families}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--readings", default="fractions,precision",
+                    help="comma-separated readings of " + ", ".join(READINGS))
+    names = [r for r in ap.parse_args(argv).readings.split(",") if r]
+    bad = sorted(set(names) - set(READINGS))
+    if bad:
+        ap.error(f"--readings takes {', '.join(READINGS)}; got {bad}")
     if not torch.cuda.is_available():
         print("train_witness: needs a CUDA card", file=sys.stderr)
         return 2
@@ -190,8 +321,8 @@ def main() -> int:
     torch.set_float32_matmul_precision("highest")
     print(cs.card_line(), flush=True)
     cs.phase_build()
-    fractions()
-    precision()
+    for name in names:
+        READINGS[name]()
     print(cs.card_line(), flush=True)
     return 0
 
