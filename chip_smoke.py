@@ -47,9 +47,10 @@ drives the port's paths through its entry points:
   K3's bf16 hd-128 instance once per layer of the prefill;
 * ``serve_path_mamba``: ``serve`` on Falcon-Mamba-7B (Mamba-1 SSM) at
   full width and depth in bf16, batch 8, prompt 2016, 32 greedy tokens,
-  which runs the linear-recurrence kernel (K2) once per layer of the
-  prefill as the selective scan over (8, 2016, 8192 x 16) fp32
-  coefficients, and never in decode;
+  which runs the fused selective-scan kernel (K2 redesigned for the
+  Mamba layer: JAX's ``_fused_chunk_scan``, the coefficients, the
+  recurrence and y = h . C in one pass) once per layer of the prefill at
+  (8, 2016, 8192, 16), K2 itself not at all, and neither in decode;
 * ``serve_path_rgemma``: ``serve`` on RecurrentGemma-9B (RG-LRU + local
   MQA hybrid, 38 layers) at full width and depth in bf16, batch 8,
   prompt 2016, 32 greedy tokens, which runs K2 once per RG-LRU layer (26
@@ -139,11 +140,18 @@ against the CPU's (TinyLlama, Falcon-Mamba, RecurrentGemma, whose
 reduced config wraps its local-attention ring on the card,
 DeepSeek-V2-Lite, whose full-width case also counts its routing flips
 and measures the gap again with the card's expert ids forced on the
-CPU, Kimi-K2, Whisper and Qwen2-VL).
+CPU, Kimi-K2, Whisper and Qwen2-VL); ``serve_gap_bisect`` splits the
+DeepSeek-V2-Lite and RecurrentGemma full-width gaps op by op (each op's
+own gap on the CPU's input and the carried gap), as drawn and with the
+attention's query and key projections cooled.
 ``scan_vs_plain`` also holds K2 at the Mamba and RG-LRU prefills' and
-training paths' shapes bit for bit against its plain version, and K2's
-backward kernel at the training shapes against its plain reverse loop,
-before any model's weights are on the card.  Prints one JSON
+training paths' shapes bit for bit against its plain version (the Mamba
+prefill's as the earlier design's time), K2's backward kernel at the
+training shapes against its plain reverse loop, and the fused selective
+scan at the Mamba prefill's (``mamba_fused``, bf16 as served, bounded by
+its own SASS instruction count) and at its edges bit for bit against
+its plain version (JAX's chunk loop in PyTorch), before any model's
+weights are on the card.  Prints one JSON
 line per phase, then a ``{"kernels": [...]}`` line, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line; without a CUDA card it
@@ -495,8 +503,12 @@ def phase_scan_vs_plain():
                    library_ms=device_ms(lib), library_max_abs_err=lib_err)
         emit(rec)
         rows_out[(shape, torch.float32, "ones")] = rec
+    # K2's design at the Mamba prefill's scan, kept as the yardstick of
+    # the fused kernel that replaced it on that path
     rows_out["mamba"] = _model_scan_case("mamba_prefill", MAMBA_SCAN_SHAPE,
                                          MAMBA_SCAN_REPS)
+    for name, shape, dtype in SELECTIVE_CASES:
+        rows_out[name] = _selective_case(name, shape, dtype)
     rows_out["rglru"] = _model_scan_case("rglru_prefill", RGEMMA_SCAN_SHAPE,
                                          RGEMMA_SCAN_REPS)
     for key, case, shape in (("mamba_train", "mamba_train",
@@ -506,6 +518,179 @@ def phase_scan_vs_plain():
         rows_out[key], rows_out[key + "_backward"] = _train_scan_case(
             case, shape)
     return rows_out
+
+
+def selective_bound(B: int, S: int, di: int, N: int, itemsize: int,
+                    per_elem: dict):
+    """(bound_ms, bound_by, detail) of the fused selective scan on these
+    shapes: xh and dt read once (xh in ``itemsize`` bytes), bc (B, S, 2N)
+    and A once, y and h_last written once, over HBM bandwidth; against
+    the B S di N elements times the kernel's own instructions an element
+    (``per_elem``, read from its SASS by ``_sass_loop_counts``): the
+    FP32-pipe ones at 128 a clock an SM and the MUFU.EX2 (inside expf)
+    at 16 a clock an SM, at the clock FP32_OPS_PER_S implies (1.98 GHz on
+    132 SMs).  ``detail`` also gives the issue limit (every instruction,
+    one warp instruction a clock per scheduler), which the bound does not
+    take."""
+    elems = B * S * di * N
+    nbytes = (B * S * di * (itemsize + 4 + 4) + B * S * 2 * N * itemsize
+              + di * N * 4 + B * di * N * 4)
+    fp32_rate = FP32_OPS_PER_S / 2  # FP32-pipe instructions a second
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "fp32_pipe": elems * per_elem["fp32"] / fp32_rate * 1e3,
+             "sfu": elems * per_elem["ex2"] / (fp32_rate / 8) * 1e3}
+    limit = max(times, key=times.get)
+    detail = {**{f"{k}_ms": v for k, v in times.items()},
+              "issue_ms": elems * per_elem["all"] / fp32_rate * 1e3,
+              "bytes": nbytes, "elements": elems, "binds": limit,
+              "per_element": per_elem}
+    return times[limit], ("bytes" if limit == "bytes" else "operations"), \
+        detail
+
+
+# FP32-pipe opcodes of Hopper's SASS (FFMA, FMUL, FADD and their forms,
+# FMNMX, FSEL, FSETP, FCHK) and the SFU's exponential
+_SASS_FP32 = ("FFMA", "FMUL", "FADD", "FMNMX", "FSEL", "FSETP", "FCHK")
+
+
+def _sass_loop_counts(lib: str, kernel: str) -> dict:
+    """The instructions an element of the innermost loop of ``kernel``
+    that holds a MUFU.EX2, from ``cuobjdump -sass`` of the built library:
+    the loop is the smallest backward branch's range around MUFU.EX2s,
+    and an element is one MUFU.EX2 (one exp a state element).  Returns
+    {"fp32", "ex2", "all", and a count for each opcode} an element, and
+    the loop's length and its MUFU.EX2 count."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    out = subprocess.run([tool, "-sass", lib], capture_output=True,
+                         text=True, check=True, timeout=120).stdout
+    funcs, cur = {}, None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            cur = ln.split("Function :")[1].strip()
+            funcs[cur] = []
+            continue
+        if cur is None or "/*" not in ln or ";" not in ln:
+            continue
+        head = ln.split("*/", 1)[0].strip().lstrip("/*").strip()
+        body = ln.split("*/", 1)[1].split(";")[0].strip()
+        if not body:
+            continue
+        try:
+            addr = int(head, 16)
+        except ValueError:
+            continue
+        toks = body.split()
+        if toks[0].startswith("@"):
+            toks = toks[1:]
+        funcs[cur].append((addr, toks[0], toks[1:]))
+    insts = next(v for k, v in funcs.items() if kernel in k)
+    loops = []
+    for i, (addr, op, args) in enumerate(insts):
+        if op.startswith("BRA") and args:
+            try:
+                target = int(args[-1].strip("`()"), 16)
+            except ValueError:
+                continue
+            if target <= addr:
+                body = [o for a, o, _ in insts if target <= a <= addr]
+                n_ex2 = sum(o.startswith("MUFU.EX2") for o in body)
+                if n_ex2:
+                    loops.append((len(body), n_ex2, body))
+    size, n_ex2, body = min(loops)
+    ops = {}
+    for o in body:
+        ops[o.split(".")[0]] = ops.get(o.split(".")[0], 0) + 1
+    per = {k: v / n_ex2 for k, v in sorted(ops.items())}
+    return {"fp32": sum(v for k, v in per.items() if k in _SASS_FP32),
+            "ex2": 1.0, "all": size / n_ex2, "loop_instructions": size,
+            "loop_ex2": n_ex2, "opcodes": per}
+
+
+def _selective_inputs(shape, dtype, seed: int = 0):
+    """A Mamba layer's scan inputs drawn on the card as the served model
+    forms them: xh = silu(N(0, 1)) and bc N(0, 1) in ``dtype``, dt =
+    softplus(N(0, 1) / 2 + b_dt) with b_dt ~ U(-4, 4) a channel (the
+    init's range), A = -exp(U(-1, 1)) (A_log's init) in fp32."""
+    B, S, di, N = shape
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    u = lambda *sh: torch.rand(sh, generator=gen, device=DEV)  # noqa: E731
+    xh = torch.nn.functional.silu(torch.randn(
+        (B, S, di), generator=gen, device=DEV)).to(dtype)
+    b_dt = u(di).mul_(8.0).sub_(4.0)
+    dt = torch.nn.functional.softplus(torch.randn(
+        (B, S, di), generator=gen, device=DEV).mul_(0.5).add_(b_dt))
+    A = -torch.exp(u(di, N).mul_(2.0).sub_(1.0))
+    bc = torch.randn((B, S, 2 * N), generator=gen, device=DEV).to(dtype)
+    return xh, dt, A, bc
+
+
+def _selective_case(name: str, shape, dtype):
+    """The fused selective scan against its plain version
+    (``selective_scan_ref``, JAX's chunk loop in PyTorch) on the card:
+    h_last bit for bit (both round each product and sum alone, exp
+    included), y within SELECTIVE_Y_TOL of its largest magnitude overall
+    and in every (b, s) row (the sums over n differ in order).  The
+    served shape is timed (kernel, plain version) and bounded by its own
+    SASS instruction count; no single PyTorch call computes the
+    function, so ``library_ms`` is None."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.linear_scan.kernel import selective_scan_kernel
+    from repro_torch.kernels.linear_scan.ref import selective_scan_ref
+
+    B, S, di, N = shape
+    xh, dt, A, bc = _selective_inputs(shape, dtype)
+    y, h_last = selective_scan_kernel(xh, dt, A, bc)
+    want, want_last = selective_scan_ref(xh, dt, A, bc)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(h_last, want_last)
+    h_err = _max_abs_diff(h_last, want_last)
+    diff = (y - want).abs()
+    y_err = float(diff.max())
+    y_scale = float(want.abs().max())
+    row_err = float((diff.amax(-1) / want.abs().amax(-1).clamp_min(
+        1e-30)).max())
+    finite = bool(torch.isfinite(y).all() and torch.isfinite(h_last).all())
+    del diff
+    if not (bitwise and finite and y.dtype == torch.float32
+            and y_err <= SELECTIVE_Y_TOL * y_scale
+            and row_err <= SELECTIVE_Y_TOL):
+        raise AssertionError(
+            f"selective_scan kernel at {name} {tuple(shape)} {dtype}: h_last "
+            f"bit for bit {bitwise} (max abs err {h_err}), y max abs err "
+            f"{y_err} against {SELECTIVE_Y_TOL} x {y_scale}, worst row "
+            f"{row_err} per unit, finite {finite}")
+    rec = {"phase": "kernel_vs_plain", "kernel": "selective_scan",
+           "case": name, "shape": list(shape), "dtype": str(dtype),
+           "h_last_bitwise": bitwise, "h_last_max_abs_err": h_err,
+           "max_abs_err": y_err, "y_scale": y_scale,
+           "y_err_per_unit": y_err / y_scale, "row_err_per_unit": row_err,
+           "tolerance_per_unit": SELECTIVE_Y_TOL}
+    if name == "mamba_fused":
+        lib = build.library_path("selective_scan")
+        kname = ("selective_scan_fwdI13__nv_bfloat16" if dtype ==
+                 torch.bfloat16 else "selective_scan_fwdIf")
+        per = _sass_loop_counts(lib, kname)
+        bound_ms, bound_by, detail = selective_bound(
+            B, S, di, N, xh.element_size(), per)
+        kern = lambda: selective_scan_kernel(xh, dt, A, bc)  # noqa: E731
+        ms = device_ms(kern, reps=SELECTIVE_REPS)
+        rec.update(
+            ms=ms, call_ms=call_ms(kern, reps=SELECTIVE_REPS),
+            # the plain loop issues ~3 ops a step: one call a graph
+            plain_ms=device_ms(lambda: selective_scan_ref(xh, dt, A, bc),
+                               reps=1),
+            bound_ms=bound_ms, bound_by=bound_by, bound_detail=detail,
+            bound_share=bound_ms / ms, library_ms=None,
+            library="none: no single PyTorch call computes the function",
+            ptxas=[ln.strip() for ln in build.BUILD_LOG.get(
+                "selective_scan", (0.0, ""))[1].splitlines()
+                if "registers" in ln or "spill" in ln or "smem" in ln])
+    emit(rec)
+    del xh, dt, A, bc, y, h_last, want, want_last
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _train_scan_case(case: str, shape):
@@ -886,7 +1071,7 @@ def _reset_launches():
     feature_attention_kernel.launches = 0
     linear_scan_kernel.launches = 0
     flash_attention_kernel.launches = 0
-    for k in (_fold_kernel(), _scan_backward_kernel()):
+    for k in (_fold_kernel(), _scan_backward_kernel(), _selective_kernel()):
         if k is not None:
             k.launches = 0
 
@@ -918,6 +1103,21 @@ def _scan_backward_launches() -> int:
     """K2 backward launches since the last reset (0 in a package without
     the backward kernel)."""
     k = _scan_backward_kernel()
+    return 0 if k is None else k.launches
+
+
+def _selective_kernel():
+    """The fused selective scan's wrapper, or None in an older checkout's
+    package."""
+    from repro_torch.kernels.linear_scan import kernel
+
+    return getattr(kernel, "selective_scan_kernel", None)
+
+
+def _selective_launches() -> int:
+    """Fused selective-scan launches since the last reset (0 in a package
+    without it)."""
+    k = _selective_kernel()
     return 0 if k is None else k.launches
 
 
@@ -2021,12 +2221,34 @@ SERVE_REPEATS = 1
 SERVE_WARMUP_GEN = 2
 # serve_path_phi4's architecture (head dim 128) and its flash_vs_plain case
 PHI4_ARCH, PHI4_CASE = "phi4-mini-3.8b", "phi4_layer0"
-# serve_path_mamba's architecture, and K2 at its prefill's scan: (B, S,
+# serve_path_mamba's architecture, and K2's design at its prefill's scan
+# (the yardstick of the fused kernel that replaced it there): (B, S,
 # d_inner x N) = (8, 2016, 8192 x 16), timed with a few launches a graph
 # (~10 ms each)
 MAMBA_ARCH = "falcon-mamba-7b"
 MAMBA_SCAN_SHAPE = (SERVE_B, SERVE_PROMPT, 8192 * 16)
 MAMBA_SCAN_REPS = 5
+# the fused selective scan (K2's redesign on the Mamba prefill, JAX's
+# _fused_chunk_scan) against its plain version: (case, (B, S, d_inner,
+# N), xh and bc dtype).  mamba_fused is serve_path_mamba's prefill scan
+# (bf16 as served), timed with SELECTIVE_REPS launches a graph (~1 ms
+# each); then the edges: fp32 (serve_card_vs_cpu's full-width case), S
+# not a multiple of the kernel's 8-step stage, one step, d_inner not a
+# multiple of its 128-channel block
+SELECTIVE_CASES = [
+    ("mamba_fused", (SERVE_B, SERVE_PROMPT, 8192, 16), torch.bfloat16),
+    ("fp32", (2, 64, 8192, 16), torch.float32),
+    ("ragged_s", (2, 13, 256, 16), torch.bfloat16),
+    ("ragged_s_fp32", (3, 37, 136, 16), torch.float32),
+    ("one_step", (2, 1, 128, 16), torch.bfloat16),
+    ("ragged_di", (1, 40, 200, 16), torch.bfloat16)]
+SELECTIVE_REPS = 20
+# y of the fused kernel against its plain version: max abs error per unit
+# of the largest |y|, overall and in every (b, s) row over d_inner.  The
+# states are bit for bit the same; the 16-term sum over n is a chain of
+# fused multiply-adds in the kernel and cuBLAS's order in the plain
+# version, a few fp32 ulps (1.2e-7 each) of the row's largest term
+SELECTIVE_Y_TOL = 1e-6
 # tokens of every serve path's profiled run (the prefill and one decode
 # step; 4 before PR 25): the profiler's cost grows with the eager ops of
 # each decode step (~3,000 a step over Falcon-Mamba's 64 layers: ~85 s
@@ -2406,31 +2628,35 @@ def _serve_once(model, params, batch, gen: int = SERVE_GEN):
 
 
 def _expected_launches(cfg):
-    """(K3, K2) launches of one prefill: a layer's attention runs K3 and
-    its recurrence K2; the hybrid's 3 n_super + rem layers are n_super
-    attention layers and 2 n_super + rem RG-LRU ones; Whisper runs K3 in
-    each encoder and each decoder layer; MLA runs neither."""
+    """(K3, K2, fused selective scan) launches of one prefill: a layer's
+    attention runs K3, an RG-LRU layer's recurrence K2 and a Mamba
+    layer's the fused selective scan (JAX's _fused_chunk_scan, K2's
+    redesign on that path); the hybrid's 3 n_super + rem layers are
+    n_super attention layers and 2 n_super + rem RG-LRU ones; Whisper
+    runs K3 in each encoder and each decoder layer; MLA runs none."""
     if cfg.use_mla:
-        return 0, 0
+        return 0, 0, 0
     if cfg.family == "audio":
-        return cfg.encoder_layers + cfg.n_layers, 0
+        return cfg.encoder_layers + cfg.n_layers, 0, 0
     if cfg.family == "hybrid":
         n_super, rem = divmod(cfg.n_layers, 3)
-        return n_super, 2 * n_super + rem
-    return (0, cfg.n_layers) if cfg.family == "ssm" else (cfg.n_layers, 0)
+        return n_super, 2 * n_super + rem, 0
+    return (0, 0, cfg.n_layers) if cfg.family == "ssm" else (cfg.n_layers,
+                                                            0, 0)
 
 
 def phase_serve_path(cfg, model, params, batch, init_s: float,
                      dtype=torch.float32, sfx=None, cut=None):
     """serve() at full width and depth in the weights' ``dtype`` on
     ``batch`` (tokens and stubs) of the architecture's serve shape: the
-    family's kernels (K3 for a dense model, K2 for the SSM, both for the
-    hybrid) once per layer of the prefill, no kernel in decode; the rates
+    family's kernels (K3 for a dense model, the fused selective scan for
+    the SSM, K2 and K3 for the hybrid) once per layer of the prefill, no
+    kernel in decode; the rates
     of SERVE_REPEATS runs after a warm-up of SERVE_WARMUP_GEN tokens;
     then one profiled run of SERVE_PROFILE_GEN tokens.  Phases ``serve_path``,
     ``serve_path_spread``, ``serve_profile`` (fp32) or the same names
     with the suffix ``sfx`` (default ``_bf16`` for bf16 weights).
-    Returns the (K3, K2) launches of one run."""
+    Returns the (K3, K2, fused selective scan) launches of one run."""
     from repro_torch.common.pytree import tree_leaves
 
     from repro_torch.configs import get_arch
@@ -2449,17 +2675,21 @@ def phase_serve_path(cfg, model, params, batch, init_s: float,
         gen, stats = _serve_once(model, params, batch, n_gen)
         k1, k2 = _launches()
         k1 += _fold_launches() + _scan_backward_launches()
-        k3 = _flash_launches()
-        # an older checkout's serve() counts no K2 (--only A/B)
-        got = (stats["k3_launches"], stats.get("k2_launches", 0))
+        k3, ss = _flash_launches(), _selective_launches()
+        # an older checkout's serve() counts no K2 and no fused scan
+        # (--only A/B)
+        got = (stats["k3_launches"], stats.get("k2_launches", 0),
+               stats.get("selective_scan_launches", 0))
         decode = (stats["k3_decode_launches"],
-                  stats.get("k2_decode_launches", 0))
-        if not ((k3, k2) == want == got and decode == (0, 0) and k1 == 0):
+                  stats.get("k2_decode_launches", 0),
+                  stats.get("selective_scan_decode_launches", 0))
+        if not ((k3, k2, ss) == want == got and decode == (0, 0, 0)
+                and k1 == 0):
             raise AssertionError(
-                f"serve path{sfx}: (K3, K2) launches {(k3, k2)}, "
-                f"{got} in the prefill and {decode} in decode; expected "
-                f"{want} and (0, 0); K1, feature_fold and K2 backward "
-                f"{k1}")
+                f"serve path{sfx}: (K3, K2, fused selective scan) launches "
+                f"{(k3, k2, ss)}, {got} in the prefill and {decode} in "
+                f"decode; expected {want} and (0, 0, 0); K1, feature_fold "
+                f"and K2 backward {k1}")
         if not stats["finite_logits"] or tuple(gen.shape) != (B, n_gen + 1):
             raise AssertionError(f"serve path{sfx}: non-finite logits or "
                                  f"tokens of shape {tuple(gen.shape)}")
@@ -2508,6 +2738,7 @@ def phase_serve_path(cfg, model, params, batch, init_s: float,
                "weight_bytes": sum(t.numel() * t.element_size()
                                    for t in tree_leaves(params)),
                "flash_attention_launches": k3, "linear_scan_launches": k2,
+               "selective_scan_launches": ss,
                "linear_scan_backward_launches": _scan_backward_launches(),
                "init_s": init_s,
                "first_request_tokens": gen[0, :8].tolist()}
@@ -2531,17 +2762,20 @@ def phase_serve_path(cfg, model, params, batch, init_s: float,
            "wall_s": wall, "prefill_s": stats["prefill_s"],
            "decode_s": stats["decode_s"],
            **_profile_record(per, wall, ("fa_fwd_f32", "fa_fwd_bf16",
-                                         "linear_scan_channels"))}
-    # K2 and K3 run only in the prefill: their shares of the prefill's time
+                                         "linear_scan_channels",
+                                         "selective_scan_fwd"))}
+    # the kernels run only in the prefill: their shares of its time
     for name, kern, n in (("k2", "linear_scan_channels", want[1]),
-                          ("k3", "fa_fwd", want[0])):
+                          ("k3", "fa_fwd", want[0]),
+                          ("selective_scan", "selective_scan_fwd", want[2])):
         if n and fam != "dense":
             ms = sum(t for k, t, _ in per if kern in k)
             rec.update({f"{name}_ms": ms, f"{name}_share_of_prefill":
                         ms / 1e3 / stats["prefill_s"]})
     emit(rec)
-    return runs[-1]["flash_attention_launches"], \
-        runs[-1]["linear_scan_launches"]
+    return (runs[-1]["flash_attention_launches"],
+            runs[-1]["linear_scan_launches"],
+            runs[-1]["selective_scan_launches"])
 
 
 def _moe_decode_products(cfg, model, params, tokens, sfx: str):
@@ -2647,7 +2881,7 @@ def phase_serve_card_vs_cpu(archs=None):
     the CPU; the stub frames and patches are drawn with the tokens, and
     Whisper's attention wq and wk are scaled by WHISPER_COOL.  The
     card's prefill launches the family's kernels once a layer.  Returns
-    {(arch, case): (K3, K2) launches}."""
+    {(arch, case): (K3, K2, fused selective scan) launches}."""
     from repro_torch.common.pytree import tree_map
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model, make_batch, moe
@@ -2705,15 +2939,16 @@ def phase_serve_card_vs_cpu(archs=None):
         with Routing() as card_routes:
             got, cache_gpu = _teacher_forced(model, params, inputs, DEV,
                                              prompt)
-        k3, k2 = _flash_launches(), _launches()[1]
+        k3, k2, ss = _flash_launches(), _launches()[1], _selective_launches()
         want, cache_cpu = _teacher_forced(model, params_cpu, inputs, "cpu",
                                           prompt)
         expect = _expected_launches(cfg)
-        if (k3, k2) != expect:
+        if (k3, k2, ss) != expect:
             raise AssertionError(
-                f"{cfg.name} {tag}: (K3, K2) launches {(k3, k2)} in the "
-                f"card's prefill and decode, expected {expect}")
-        launches[(cfg.name, tag)] = (k3, k2)
+                f"{cfg.name} {tag}: (K3, K2, fused selective scan) launches "
+                f"{(k3, k2, ss)} in the card's prefill and decode, expected "
+                f"{expect}")
+        launches[(cfg.name, tag)] = (k3, k2, ss)
         errs, cache_errs, pos_equal = _serve_gaps(got, cache_gpu, want,
                                                   cache_cpu)
         for step, (g, rel) in enumerate(zip(got, errs)):
@@ -2741,6 +2976,20 @@ def phase_serve_card_vs_cpu(archs=None):
                 "tokens_a_call": [batch * prompt] + [batch] * FORCED_STEPS,
                 "logits_rel_err_per_step": f_errs,
                 "cache_rel_err": f_cache}}
+        if (cfg.name, tag) == (DEEPSEEK_ARCH, DEEPSEEK_FULL_CASE):
+            # as drawn, and with MLA's wq and w_uk cooled as the
+            # training phases cool them (the same weights on both sides)
+            for cool in (False, True):
+                _bisect_moe_prefill(
+                    cfg, *(_cool_attention(p) if cool else p
+                           for p in (params, params_cpu)),
+                    inputs["tokens"][:, :prompt], cool)
+        if (cfg.name, tag) == (RGEMMA_ARCH, "full_width_4_layers"):
+            for cool in (False, True):  # as drawn, and attention cooled
+                _bisect_hybrid_decode(
+                    model, cfg, *(_cool_attention(p) if cool else p
+                                  for p in (params, params_cpu)),
+                    inputs, prompt, cool)
         emit({"phase": "serve_card_vs_cpu", "case": tag, "arch": cfg.name,
               "n_layers": cfg.n_layers, "d_model": cfg.d_model,
               "head_dim": cfg.head_dim, "batch": batch,
@@ -2750,10 +2999,240 @@ def phase_serve_card_vs_cpu(archs=None):
               "tolerance": SERVE_TOL, "flash_attention_launches": k3,
               "attention_wq_wk_scale": (WHISPER_COOL if cfg.family == "audio"
                                         else 1.0),
-              "linear_scan_launches": k2, **forced})
+              "linear_scan_launches": k2, "selective_scan_launches": ss,
+              **forced})
         del params, params_cpu
         torch.cuda.empty_cache()
     return launches
+
+
+def _gap(card, cpu) -> float:
+    """max |card - cpu| per unit of the CPU's largest magnitude."""
+    cpu = cpu.to(torch.float32)
+    return float((card.cpu().to(torch.float32) - cpu).abs().max()) \
+        / max(float(cpu.abs().max()), 1e-30)
+
+
+def _op_gaps(ops, x_card, x_cpu):
+    """Card against CPU, op by op: ``ops`` is [(name, fn(device, x) ->
+    y)], a chain, where x and y are a tensor or a tuple (the residual
+    stream, the op's output) whose last tensor is compared.  For each op,
+    its own gap (the card's op on the CPU's input against the CPU's op)
+    and the carried gap (the card's chain against the CPU's chain).
+    Returns ({name: {"own": .., "carried": ..}}, the card's chain's
+    output, {name: the CPU's output})."""
+    def last(y):
+        return y[-1] if isinstance(y, tuple) else y
+
+    gaps, cpu_out = {}, {}
+    for name, fn in ops:
+        y_cpu = fn("cpu", x_cpu)
+        mine = fn(DEV, tuple(t.to(DEV) for t in x_cpu)
+                  if isinstance(x_cpu, tuple) else x_cpu.to(DEV))
+        x_card = fn(DEV, x_card)
+        gaps[name] = {"own": _gap(last(mine), last(y_cpu)),
+                      "carried": _gap(last(x_card), last(y_cpu))}
+        x_cpu = cpu_out[name] = y_cpu
+    return gaps, x_card, cpu_out
+
+
+def _bisect_moe_prefill(cfg, params, params_cpu, tokens, cooled: bool):
+    """ROADMAP.md §3's bisection of DeepSeek-V2-Lite's card-vs-CPU gap at
+    full width: its prefill layer by layer and op by op (the norms, MLA,
+    the router's logits, the top-k routing, the gathered expert products
+    on the CPU's expert ids, the ordered fp32 combine, the shared experts,
+    the residual adds), each op's own gap (the card's op on the CPU's
+    input) and the carried gap (the card's run against the CPU's), per
+    unit of the CPU's largest value; the routing's flips counted.
+    ``cooled``: the weights' MLA wq and w_uk are scaled by TRAIN_COOL
+    (recorded).  Recorded, not gated (the case's 5e-3 gate stays on the
+    logits)."""
+    from repro_torch.models import layers as L, moe
+    from repro_torch.models.transformer import attend, moe_ffn, moe_layers
+
+    pc = {DEV: params, "cpu": params_cpu}
+    layers = {d: moe_layers(p, cfg) for d, p in pc.items()}
+    x_cpu = L.embed(params_cpu["embed"], tokens)
+    x_card = x_cpu.to(DEV)
+    k = cfg.top_k
+    rows = []
+    with torch.no_grad():
+        for i, (kind, _) in enumerate(layers["cpu"]):
+            lp = {d: layers[d][i][1] for d in pc}
+
+            def norm(name, lp=lp):
+                return lambda dev, x: (x, L.apply_norm(
+                    cfg.norm, lp[dev][name], x))
+
+            ops = [("ln1", norm("ln1")),
+                   ("attn", lambda dev, xh, lp=lp: (xh[0], attend(
+                       lp[dev]["attn"], xh[1], cfg))),
+                   ("residual1", lambda dev, xa: xa[0] + xa[1]),
+                   ("ln2", norm("ln2"))]
+            if kind == "dense":
+                ops += [("mlp", lambda dev, xh, lp=lp: (xh[0], L.mlp(
+                    lp[dev]["mlp"], xh[1], cfg.act)))]
+            else:
+                ops += [("moe_ffn", lambda dev, xh, lp=lp: (xh[0], moe_ffn(
+                    lp[dev], xh[1], cfg)[0]))]
+            ops += [("residual2", lambda dev, xy: xy[0] + xy[1])]
+            gaps, x_card, cpu_out = _op_gaps(ops, x_card, x_cpu)
+            rec = {"layer": i, "kind": kind, "ops": gaps}
+            if kind == "moe":
+                # the MoE layer's parts on the CPU's normed input
+                xt_cpu = cpu_out["ln2"][1].reshape(-1, cfg.d_model)
+                xt_card = xt_cpu.to(DEV)
+                part = {}
+                m_cpu, m_card = lp["cpu"]["moe"], lp[DEV]["moe"]
+                lg_cpu = (xt_cpu @ m_cpu["router"]).to(torch.float32)
+                part["router_logits"] = _gap(
+                    (xt_card @ m_card["router"]).to(torch.float32), lg_cpu)
+                g_cpu, ids_cpu, _ = moe._route(m_cpu["router"], xt_cpu, k)
+                g_card, ids_card, _ = moe._route(m_card["router"], xt_card, k)
+                flips = int((torch.sort(ids_card.cpu(), -1)[0] != torch.sort(
+                    ids_cpu, -1)[0]).any(-1).sum())
+                part["gates"] = _gap(g_card, g_cpu)
+                ids_s, perm = torch.sort(ids_cpu, dim=-1)
+                gs = torch.gather(g_cpu, 1, perm)
+                ye_cpu = moe._gathered(m_cpu, xt_cpu, ids_s)
+                ye_card = moe._gathered(m_card, xt_card, ids_s.to(DEV))
+                part["experts_gathered"] = _gap(ye_card, ye_cpu)
+
+                def combine(gates, ye):
+                    y = gates[:, 0, None] * ye[:, 0].to(torch.float32)
+                    for j in range(1, k):
+                        y = y + gates[:, j, None] * ye[:, j].to(torch.float32)
+                    return y
+
+                part["combine"] = _gap(combine(gs.to(DEV), ye_cpu.to(DEV)),
+                                       combine(gs, ye_cpu))
+                part["shared"] = _gap(
+                    L.mlp(lp[DEV]["shared"], xt_card, cfg.act),
+                    L.mlp(lp["cpu"]["shared"], xt_cpu, cfg.act))
+                rec.update(parts_own=part, route_flips=flips,
+                           tokens=xt_cpu.shape[0])
+            rows.append(rec)
+            x_cpu = cpu_out["residual2"]
+    emit({"phase": "serve_gap_bisect", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "tokens": list(tokens.shape),
+          "attention_wq_w_uk_scale": TRAIN_COOL if cooled else 1.0,
+          "per_unit_of": "the CPU's largest value of each op's output",
+          "layers": rows})
+
+
+def _bisect_hybrid_decode(model, cfg, params, params_cpu, inputs, prompt,
+                          cooled: bool):
+    """ROADMAP.md §3's check of RecurrentGemma's card-vs-CPU gap at full
+    width, 4 layers: the prefill and forced decode steps 0 and 1 on each
+    device, every mixer call recorded (the three RG-LRU layers'
+    ``rglru_decode`` and the local attention's ``gqa_decode``, their
+    inputs and outputs); for each, the carried gap of its input and its
+    output (card run against CPU run) and its own gap (the card's mixer on
+    the CPU's input, state and cache); then the tail's RG-LRU op by op at
+    each step (the x projection, the gelu gate, the conv with the carried
+    window, the recurrence gate ``a`` and input ``b``, the new state).
+    ``cooled``: the weights' attention wq and wk are scaled by TRAIN_COOL
+    (recorded).  Per unit of the CPU's largest value; recorded, not
+    gated."""
+    from repro_torch.models import attention as attn, rglru as R
+    from repro_torch.models.scan_utils import linear_scan_step
+    from repro_torch.models.ssm import _causal_conv
+
+    seen = {"card": [], "cpu": []}
+    run = ["card"]  # which device's run the spies record
+    inner = {"rglru": R.rglru_decode, "attn": attn.gqa_decode}
+
+    def clone(t):
+        return ({k: clone(v) for k, v in t.items()} if isinstance(t, dict)
+                else t.clone())
+
+    def spy(kind):
+        def call(p, x, state, *args, **kw):
+            seen[run[0]].append((kind, p, x.clone(), clone(state), args,
+                                 kw))
+            out = inner[kind](p, x, state, *args, **kw)
+            seen[run[0]][-1] += (out[0].clone(),)
+            return out
+        return call
+
+    tokens = inputs["tokens"]
+    B = tokens.shape[0]
+    R.rglru_decode, attn.gqa_decode = spy("rglru"), spy("attn")
+    try:
+        with torch.no_grad():
+            for run[0], dev, p in (("card", DEV, params),
+                                   ("cpu", "cpu", params_cpu)):
+                t = tokens.to(dev)
+                _, cache = model.prefill(p, {"tokens": t[:, :prompt]},
+                                         max_len=prompt + FORCED_STEPS)
+                for i in range(2):
+                    idx = torch.full((B,), prompt + i, dtype=torch.int32,
+                                     device=dev)
+                    _, cache = model.decode_step(
+                        p, cache, t[:, prompt + i:prompt + i + 1], idx)
+    finally:
+        R.rglru_decode, attn.gqa_decode = inner["rglru"], inner["attn"]
+    calls = len(seen["cpu"]) // 2  # mixer calls a step
+    steps_rec = []
+    with torch.no_grad():
+        for step in range(2):
+            mixers = []
+            for j in range(calls):
+                kind, p_card, x_card, st_card, args, kw, y_card = \
+                    seen["card"][step * calls + j]
+                _, _, x_cpu, st_cpu, args_cpu, _, y_cpu = \
+                    seen["cpu"][step * calls + j]
+                mine = inner[kind](p_card, x_cpu.to(DEV), _to_card(st_cpu),
+                                   *_to_card(args_cpu), **kw)[0]
+                mixers.append({"layer": j, "kind": kind,
+                               "input_carried": _gap(x_card, x_cpu),
+                               "output_carried": _gap(y_card, y_cpu),
+                               "output_own": _gap(mine, y_cpu)})
+            # the tail: the step's last RG-LRU call
+            _, p_card, x_card, st_card, _, _, _ = seen["card"][
+                step * calls + calls - 1]
+            _, p_cpu, x_cpu, st_cpu, _, _, _ = seen["cpu"][
+                step * calls + calls - 1]
+
+            def ops(p, x, state):
+                xr = x @ p["w_x"]
+                g = torch.nn.functional.gelu(
+                    (x @ p["w_gate"]).to(torch.float32), approximate="tanh")
+                xc = _causal_conv(xr, p["conv_w"], p["conv_b"],
+                                  prev=state["conv"])
+                a, b = R._gates(p, xc)
+                h = linear_scan_step(a[:, 0], b[:, 0], state["h"])
+                return {"x_proj": xr, "gelu_gate": g, "conv": xc, "a": a,
+                        "b": b, "h_new": h}
+
+            want = ops(p_cpu, x_cpu, st_cpu)
+            own = ops(p_card, x_cpu.to(DEV), _to_card(st_cpu))
+            carried = ops(p_card, x_card, st_card)
+            steps_rec.append({
+                "decode_step": step, "mixers": mixers,
+                "tail_state_in_carried": {k: _gap(st_card[k], v)
+                                          for k, v in st_cpu.items()},
+                "tail_ops": {k: {"own": _gap(own[k], v),
+                                 "carried": _gap(carried[k], v)}
+                             for k, v in want.items()},
+                "tail_a_range": [float(want["a"].min()),
+                                 float(want["a"].max())]})
+    emit({"phase": "serve_gap_bisect", "arch": cfg.name,
+          "n_layers": cfg.n_layers, "mixer_calls_a_step": calls,
+          "attention_wq_wk_scale": TRAIN_COOL if cooled else 1.0,
+          "steps": steps_rec,
+          "per_unit_of": "the CPU's largest value of each op's output"})
+
+
+def _to_card(x):
+    """Tensors (in dicts, tuples or lists) moved to the card."""
+    if isinstance(x, torch.Tensor):
+        return x.to(DEV)
+    if isinstance(x, dict):
+        return {k: _to_card(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_card(v) for v in x)
+    return x
 
 
 def _serve_gaps(got, cache_gpu, want, cache_cpu):
@@ -3753,8 +4232,9 @@ SERVE_MODEL_PATHS = (
     ("serve_path_bf16", SERVE_ARCH, torch.bfloat16, None),
     # phi4-mini-3.8B in bf16 (~7.7 GB of weights): K3's hd-128 build
     ("serve_path_phi4", PHI4_ARCH, torch.bfloat16, None),
-    # Falcon-Mamba-7B in bf16 (~14 GB of weights); each layer's scan
-    # holds three 8.46 GB fp32 tensors
+    # Falcon-Mamba-7B in bf16 (~14 GB of weights); each layer's fused
+    # scan holds dt and y, 528 MB each in fp32 (K2's route held three
+    # 8.46 GB fp32 tensors)
     ("serve_path_mamba", MAMBA_ARCH, torch.bfloat16, None),
     # RecurrentGemma-9B in bf16 (~20.9 GB of weights): K2 at (8, 2016,
     # 4096) and K3's hd-256 build
@@ -3780,9 +4260,9 @@ LAYER0_CASES = {WHISPER_ARCH: (WHISPER_CASE, False),
 
 def serve_phases(names):
     """Run the named phases of SERVE_PHASES: (flash_vs_plain's records,
-    {serve path: its (K3, K2) launches in one run}, (0, 0) for a path not
-    run)."""
-    fv, launches = {}, {p: (0, 0) for p in SERVE_PHASES[1:]}
+    {serve path: its (K3, K2, fused selective scan) launches in one run},
+    (0, 0, 0) for a path not run)."""
+    fv, launches = {}, {p: (0, 0, 0) for p in SERVE_PHASES[1:]}
     if "flash_vs_plain" in names or "serve_path" in names:
         cfg, model, params, batch, init_s = _serve_setup()
         if "flash_vs_plain" in names:
@@ -3999,8 +4479,9 @@ def main(argv=None) -> int:
     flash_launches = served["serve_path"][0]
     flash_launches_bf16 = served["serve_path_bf16"][0]
     flash_launches_phi4 = served["serve_path_phi4"][0]
-    scan_launches_mamba = served["serve_path_mamba"][1]
-    flash_launches_rgemma, scan_launches_rgemma = served["serve_path_rgemma"]
+    fused_launches_mamba = served["serve_path_mamba"][2]
+    flash_launches_rgemma, scan_launches_rgemma, _ = served[
+        "serve_path_rgemma"]
     flash_launches_deepseek = served["serve_path_deepseek"][0]
     flash_launches_kimi = served["serve_path_kimi"][0]
     flash_launches_whisper = served["serve_path_whisper"][0]
@@ -4041,6 +4522,7 @@ def main(argv=None) -> int:
     # on the values of a
     scan_rec = sv[((1, 64, 16384), torch.float32, "ones")]
     mamba_rec, rglru_rec = sv["mamba"], sv["rglru"]
+    fused_rec = sv["mamba_fused"]
     # K2 forward and backward on the training paths: the gradients of
     # train_path_mamba (4 layers: K2 8 a gradient, the forward and the
     # checkpointed scan's recompute, its backward 4), train_step_rgemma
@@ -4149,20 +4631,39 @@ def main(argv=None) -> int:
                      fv[(PHI4_CASE, torch.bfloat16)], flash_launches_phi4,
                      {"serve_path_phi4": flash_launches_phi4},
                      "fa_bf16.cuh"), {
-        # K2 at Falcon-Mamba-7B's prefill scan, (8, 2016, 8192 x 16) fp32:
-        # serve_path_mamba launches it once a layer of the prefill
-        "name": "linear_scan_mamba", "route": "cuda",
-        "source": "src/repro_torch/kernels/linear_scan/csrc/linear_scan.cu",
-        "replaces": "src/repro/kernels/linear_scan/kernel.py:56",
-        "launches": scan_launches_mamba,
-        "max_abs_err": mamba_rec["max_abs_err"],
-        "ms": mamba_rec["ms"], "plain_ms": mamba_rec["plain_ms"],
-        "bound_ms": mamba_rec["bound_ms"],
-        "bound_by": mamba_rec["bound_by"],
-        "library_ms": mamba_rec["library_ms"],
-        "library": mamba_rec["library"], "shape": mamba_rec["shape"],
+        # K2 redesigned for the Mamba prefill: the fused selective scan
+        # (JAX's _fused_chunk_scan) at Falcon-Mamba-7B's (8, 2016, 8192,
+        # 16) with bf16 xh / bc, which serve_path_mamba launches once a
+        # layer of the prefill (and serve_card_vs_cpu's fp32 full-width
+        # case once a layer); K2's design at that scan, which it
+        # replaced, beside it
+        "name": "selective_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/linear_scan/csrc/"
+                  "selective_scan.cu",
+        "replaces": "src/repro/kernels/linear_scan/kernel.py:56 on the "
+                    "Mamba prefill, as src/repro/models/ssm.py:81 "
+                    "(_fused_chunk_scan, XLA: no Pallas kernel)",
+        "launches": fused_launches_mamba,
+        "max_abs_err": fused_rec["max_abs_err"],
+        "h_last_bitwise": fused_rec["h_last_bitwise"],
+        "ms": fused_rec["ms"], "call_ms": fused_rec["call_ms"],
+        "plain_ms": fused_rec["plain_ms"],
+        "bound_ms": fused_rec["bound_ms"],
+        "bound_by": fused_rec["bound_by"],
+        "bound_detail": fused_rec["bound_detail"],
+        "library_ms": None, "library": fused_rec["library"],
+        "shape": fused_rec["shape"], "dtype": "bfloat16",
+        "earlier_design": {
+            "kernel": "linear_scan", "case": mamba_rec["case"],
+            "ms": mamba_rec["ms"], "bound_ms": mamba_rec["bound_ms"],
+            "library_ms": mamba_rec["library_ms"],
+            "note": "K2 at (8, 2016, 131072) fp32 coefficients, without "
+                    "the coefficient passes and the C-projection the "
+                    "fused kernel also does"},
         "launches_by_path": _by_path(
-            serve_path_mamba=scan_launches_mamba)}, {
+            serve_path_mamba=fused_launches_mamba,
+            serve_card_vs_cpu=card_cpu[(MAMBA_ARCH,
+                                        "full_width_2_layers")][2])}, {
         # K2 at RecurrentGemma-9B's RG-LRU scan, (8, 2016, 4096) fp32:
         # serve_path_rgemma launches it once an RG-LRU layer of the prefill
         "name": "linear_scan_rglru", "route": "cuda",

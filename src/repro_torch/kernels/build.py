@@ -35,6 +35,8 @@ SOURCES: Dict[str, str] = {
         "kernels", "feature_attention", "csrc", "feature_attention.cu"),
     "linear_scan": os.path.join(
         "kernels", "linear_scan", "csrc", "linear_scan.cu"),
+    "selective_scan": os.path.join(
+        "kernels", "linear_scan", "csrc", "selective_scan.cu"),
     "flash_attention": os.path.join(
         "kernels", "flash_attention", "csrc", "flash_attention.cu"),
 }

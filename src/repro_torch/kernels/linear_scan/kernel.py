@@ -1,9 +1,15 @@
-"""Wrapper for the hand-written CUDA linear-recurrence kernel.
+"""Wrappers for the hand-written CUDA linear-recurrence kernels.
 
 The kernel (``csrc/linear_scan.cu``) replaces the Pallas TPU kernel
 ``repro.kernels.linear_scan.kernel.linear_scan_kernel``.  It is built
 with ``nvcc`` at first use (``repro_torch.kernels.build``) and called
 through ``ctypes`` on PyTorch's current stream.
+
+``selective_scan_kernel`` (``csrc/selective_scan.cu``) is the recurrence
+redesigned for the Mamba prefill: the port of the JAX package's default
+``_fused_chunk_scan``, which forms ``exp(dt A)`` and ``dt B x`` in
+registers, runs the recurrence and writes ``y = h . C`` and the last
+state, so no ``(B, S, d_inner, N)`` tensor exists.
 
 ``linear_scan_kernel`` launches the forward recurrence and
 ``linear_scan_backward_kernel`` its reverse (fp32, the gradients of a
@@ -25,19 +31,21 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.linear_scan.ref import check_selective_args
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-# C entry -> (pointer arguments, int arguments), then the stream
-_ENTRIES = {"linear_scan_launch": (4, 5),
-            "linear_scan_backward_launch": (6, 3)}
+# C entry -> (library, pointer arguments, int arguments), then the stream
+_ENTRIES = {"linear_scan_launch": ("linear_scan", 4, 5),
+            "linear_scan_backward_launch": ("linear_scan", 6, 3),
+            "selective_scan_launch": ("selective_scan", 6, 5)}
 
 
 def _entry(name: str = "linear_scan_launch"):
-    fn = getattr(build.load("linear_scan"), name)
+    lib, ptrs, ints = _ENTRIES[name]
+    fn = getattr(build.load(lib), name)
     if fn.argtypes is None:
-        ptrs, ints = _ENTRIES[name]
         fn.argtypes = ([ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -154,3 +162,61 @@ def linear_scan_backward_kernel(a: torch.Tensor, h: torch.Tensor,
 
 
 linear_scan_backward_kernel.launches = 0
+
+
+# the selective scan's state size: the kernel keeps N states a thread in
+# registers, compiled for Mamba-1's 16
+SELECTIVE_N = 16
+
+
+def selective_scan_kernel(xh: torch.Tensor, dt: torch.Tensor,
+                          A: torch.Tensor, bc: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused selective scan from a zero state: ``xh`` (B, S, di) and
+    ``bc`` (B, S, 2N) of one dtype (fp32 or bf16; B is bc's first N
+    columns, C its last N), ``dt`` (B, S, di) and ``A`` (di, N) fp32, all
+    contiguous CUDA tensors on one device, N = 16, di a multiple of 8 ->
+    (y (B, S, di), h_last (B, di, N)), both fp32.  Raises on anything
+    else, and where grad mode is on and an input requires grad."""
+    ts = (xh, dt, A, bc)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise RuntimeError(
+            "selective_scan_kernel returns outputs with no autograd "
+            "history; the SSM trains through ops.linear_scan (K2 and its "
+            "backward kernel)")
+    if not all(t.is_cuda for t in ts):
+        raise ValueError(
+            "selective_scan_kernel needs CUDA tensors, got "
+            f"{[str(t.device) for t in ts]}")
+    if any(t.device != xh.device for t in ts):
+        raise ValueError(f"tensors on {[str(t.device) for t in ts]}")
+    B, S, di, N = check_selective_args(xh, dt, A, bc)
+    if xh.dtype not in _DTYPES:
+        raise ValueError("selective_scan_kernel takes xh and bc in float32 "
+                         f"or bfloat16; got {xh.dtype}")
+    if N != SELECTIVE_N or di % 8:
+        raise ValueError(
+            f"selective_scan_kernel is compiled for N = {SELECTIVE_N} and "
+            f"d_inner a multiple of 8; got N = {N}, d_inner = {di}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("selective_scan_kernel takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("selective_scan_kernel takes 16-byte aligned "
+                         "tensors (its copies move 16 bytes)")
+    if B > 65535 or xh.numel() * N >= 2 ** 62:
+        raise ValueError(f"shape {tuple(xh.shape)} exceeds the kernel's grid")
+    y = torch.empty((B, S, di), dtype=torch.float32, device=xh.device)
+    h_last = (torch.empty if S else torch.zeros)(
+        (B, di, N), dtype=torch.float32, device=xh.device)
+    err = _launch(_entry("selective_scan_launch"), (
+        xh.data_ptr(), dt.data_ptr(), A.data_ptr(), bc.data_ptr(),
+        y.data_ptr(), h_last.data_ptr(), B, S, di, N, _DTYPES[xh.dtype]), xh)
+    if err != 0:
+        raise RuntimeError(
+            f"selective_scan kernel launch failed: CUDA error {err} at shape "
+            f"{(B, S, di, N)} {xh.dtype}")
+    selective_scan_kernel.launches += 1
+    return y, h_last
+
+
+selective_scan_kernel.launches = 0

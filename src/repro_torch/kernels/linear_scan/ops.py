@@ -13,6 +13,10 @@ tensor, the plain reverse loop on a CPU tensor.  Everything else
 (serving, the fold) takes the forward alone, launch for launch as
 before.
 
+:func:`selective_scan` is the Mamba layer's fused scan (the JAX
+package's default ``_fused_chunk_scan``): the fused kernel on a CUDA
+tensor, its plain version on a CPU tensor, forward only.
+
 :func:`fold_prefix` maps one tick's affine server-fold stream onto the
 recurrence: B=1, S = the tick's bucket, C = one carrier leaf's size, the
 (S,) coefficients broadcast over C — one launch per carrier leaf.
@@ -25,16 +29,18 @@ import torch
 
 from repro_torch.common.pytree import Tree, tree_flatten, tree_unflatten
 from repro_torch.kernels.linear_scan.kernel import (
-    linear_scan_backward_kernel, linear_scan_kernel)
+    linear_scan_backward_kernel, linear_scan_kernel, selective_scan_kernel)
 from repro_torch.kernels.linear_scan.ref import (linear_scan_backward_ref,
-                                                 linear_scan_ref)
+                                                 linear_scan_ref,
+                                                 selective_scan_ref)
 
 
-def _on_card(x: torch.Tensor, use_kernel: Optional[bool]) -> bool:
+def _on_card(x: torch.Tensor, use_kernel: Optional[bool],
+             flag: str = "fold_kernel") -> bool:
     on_card = x.is_cuda
     if use_kernel is not None and bool(use_kernel) != on_card:
         raise ValueError(
-            f"fold_kernel={use_kernel!r} contradicts the tensor's device "
+            f"{flag}={use_kernel!r} contradicts the tensor's device "
             f"({x.device}): the CUDA kernel runs exactly on CUDA tensors, "
             "the plain version exactly on CPU tensors (use None)")
     return on_card
@@ -116,6 +122,19 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, *,
     else:
         h, h_last = _scan(a3, b3, on_card)
     return h.reshape(shape), h_last.reshape((B,) + tuple(shape[2:]))
+
+
+def selective_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   bc: torch.Tensor, *, use_kernel: Optional[bool] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A Mamba layer's selective scan from a zero state, forward only:
+    ``xh`` (B, S, di) and ``bc`` (B, S, 2N) in the model's dtype, ``dt``
+    (B, S, di) after the softplus and ``A = -exp(A_log)`` (di, N) in fp32
+    -> (``y = h . C`` (B, S, di), ``h_last`` (B, di, N)), both fp32."""
+    if _on_card(xh, use_kernel, "use_kernel"):
+        return selective_scan_kernel(xh.contiguous(), dt.contiguous(),
+                                     A.contiguous(), bc.contiguous())
+    return selective_scan_ref(xh, dt, A, bc)
 
 
 def fold_prefix(a: torch.Tensor, b: Tree, h0: Optional[Tree] = None, *,

@@ -10,8 +10,9 @@ then ``gen`` one-token decode steps, each sampled greedily (temperature
 ``torch.Generator``.  Runs on the CUDA card unless given
 ``device="cpu"`` / ``--device cpu``; without a card it raises.  On the
 card every prefill launches one kernel per layer, the flash-attention
-kernel (K3) for a dense model, the linear-recurrence kernel (K2, the
-selective scan) for Falcon-Mamba (``--arch falcon-mamba-7b``), K2
+kernel (K3) for a dense model, the fused selective-scan kernel (K2's
+redesign for the Mamba layer, JAX's ``_fused_chunk_scan``) for
+Falcon-Mamba (``--arch falcon-mamba-7b``), K2
 for each RG-LRU layer and K3 for each local-attention layer of
 RecurrentGemma (``--arch recurrentgemma-9b``), K3 for each layer of
 a GQA MoE model (``--arch kimi-k2-1t-a32b``) or of Qwen2-VL (``--arch
@@ -20,8 +21,8 @@ K3 for each encoder layer (non-causal) and each decoder layer of Whisper
 (``--arch whisper-small``, over the stub frame embeddings; its
 cross-attention is plain PyTorch); an MLA model (``--arch
 deepseek-v2-lite-16b``) launches none, its prefill attention is plain
-PyTorch as in the JAX package.  Decode launches neither kernel, and the
-stats count both.  Computes in
+PyTorch as in the JAX package.  Decode launches no kernel, and the
+stats count all three.  Computes in
 the weights' dtype (``Model.init(..., dtype=torch.bfloat16)`` serves in
 bf16, K3's tensor-core design); ``main`` serves fp32 with full-fp32
 matrix products (TF32 off).
@@ -39,13 +40,14 @@ from repro_torch.common.device import resolve_device
 from repro_torch.configs import get_arch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.kernel import flash_attention_kernel
-from repro_torch.kernels.linear_scan.kernel import linear_scan_kernel
+from repro_torch.kernels.linear_scan.kernel import (linear_scan_kernel,
+                                                    selective_scan_kernel)
 from repro_torch.models import Model, build_model, make_batch
 
 
 # the kernels each family's prefill launches on the card (an MLA model's
 # none)
-_FAMILY_KERNELS = {"dense": ("flash_attention",), "ssm": ("linear_scan",),
+_FAMILY_KERNELS = {"dense": ("flash_attention",), "ssm": ("selective_scan",),
                    "hybrid": ("linear_scan", "flash_attention"),
                    "moe": ("flash_attention",), "vlm": ("flash_attention",),
                    "audio": ("flash_attention",)}
@@ -106,6 +108,7 @@ def serve(model: Model, params, tokens, gen: int, *,
     sync()
     k3_0 = flash_attention_kernel.launches
     k2_0 = linear_scan_kernel.launches
+    ss_0 = selective_scan_kernel.launches
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, batch, max_len=S + gen)
     sync()
@@ -116,6 +119,7 @@ def serve(model: Model, params, tokens, gen: int, *,
     ttft = time.perf_counter() - t0
     k3_prefill = flash_attention_kernel.launches - k3_0
     k2_prefill = linear_scan_kernel.launches - k2_0
+    ss_prefill = selective_scan_kernel.launches - ss_0
 
     out = [nxt]
     t1 = time.perf_counter()
@@ -136,6 +140,9 @@ def serve(model: Model, params, tokens, gen: int, *,
         "k2_launches": k2_prefill,
         "k2_decode_launches": (linear_scan_kernel.launches - k2_0
                                - k2_prefill),
+        "selective_scan_launches": ss_prefill,
+        "selective_scan_decode_launches": (selective_scan_kernel.launches
+                                           - ss_0 - ss_prefill),
         "finite_logits": bool(finite),
     }
     return torch.cat(out, dim=1).cpu(), stats

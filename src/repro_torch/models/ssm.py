@@ -1,31 +1,35 @@
 """Mamba-1 selective-SSM block (Falcon-Mamba architecture).
 
 Mirrors ``repro.models.ssm`` on one card, in the JAX package's order of
-every fp32 operation.  The prefill's selective scan is that package's
-``scan_impl="pallas"`` branch: ``_ssm_coeffs`` materializes the
-discretized coefficients ``dA`` and ``dBx`` as ``(B, S, d_inner, N)``
-fp32 tensors and ``kernels/linear_scan/ops.py::linear_scan`` solves the
-recurrence over them, which on a CUDA tensor is K2's CUDA kernel (one
-launch a layer) and on a CPU tensor its plain version.  Under grad the
-scan's backward is K2's backward kernel on the card (one launch a layer)
-and its plain reverse loop on the CPU, so the SSM trains on either.  The
-JAX default, ``_fused_chunk_scan``, is XLA's fusion of the same
-recurrence (rematerialized chunk by chunk in training) and is not
-ported.  Decode is one plain fp32 recurrence step (``linear_scan_step``)
-and launches no kernel.
+every fp32 operation.  The prefill's selective scan takes both of that
+package's branches:
 
-At Falcon-Mamba-7B's width a batch of 8 x 2016 tokens makes each of
-``dA``, ``dBx`` and the scan's states 8.46 GB: the products are formed in
-place where that leaves their values unchanged, and ``dA`` / ``dBx`` are
-freed before the C-projection.  Under grad the coefficients, the scan
-and the C-projection of a layer are checkpointed, as the JAX chunk body
-is: the forward keeps no ``(B, S, d_inner, N)`` tensor, and the backward
-recomputes them from ``xh`` and the weights (K2 runs twice a layer a
-gradient, its backward kernel once) and holds the layer's three, ``dA``,
-``dt * B`` and the states ``h`` (537 MB each at 8 x 128 tokens), while
-it runs.  JAX recomputes per 256-step chunk from the chunk's carried
-state; the port recomputes the whole sequence from a zero state, which
-is the same at S <= 256.
+* without grad (serving, the prefill) its default, ``scan_impl="xla"``'s
+  ``_fused_chunk_scan``: ``kernels/linear_scan/ops.py::selective_scan``
+  gets ``xh``, ``dt`` (after the softplus), ``A = -exp(A_log)`` and the
+  B/C projection ``bc`` and returns ``y = h . C`` and the last state.  On
+  a CUDA tensor that is the fused selective-scan kernel (one launch a
+  layer), which forms ``exp(dt A)`` and ``dt B x`` in registers, runs the
+  recurrence and writes ``y``, so no ``(B, S, d_inner, N)`` tensor
+  exists; on a CPU tensor its plain version, JAX's chunk loop in
+  PyTorch.
+* under grad, the ``scan_impl="pallas"`` branch: ``_ssm_coeffs``
+  materializes the discretized coefficients ``dA`` and ``dBx`` as ``(B,
+  S, d_inner, N)`` fp32 tensors and ``ops.py::linear_scan`` solves the
+  recurrence over them through its autograd Function: K2's CUDA kernel
+  and K2's backward kernel on the card (one launch each a layer), their
+  plain versions on the CPU.  The coefficients, the scan and the
+  C-projection of a layer are checkpointed, as the JAX chunk body is:
+  the forward keeps no ``(B, S, d_inner, N)`` tensor, and the backward
+  recomputes them from ``xh`` and the weights (K2 runs twice a layer a
+  gradient, its backward kernel once) and holds the layer's three,
+  ``dA``, ``dt * B`` and the states ``h`` (537 MB each at 8 x 128
+  tokens), while it runs.  JAX recomputes per 256-step chunk from the
+  chunk's carried state; the port recomputes the whole sequence from a
+  zero state, which is the same at S <= 256.
+
+Decode is one plain fp32 recurrence step (``linear_scan_step``) and
+launches no kernel.
 """
 from __future__ import annotations
 
@@ -34,7 +38,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.linear_scan.ops import linear_scan
+from repro_torch.kernels.linear_scan.ops import linear_scan, selective_scan
 from repro_torch.models.scan_utils import linear_scan_step
 from repro_torch.models.spec import ParamDef
 
@@ -82,16 +86,24 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, x.new_zeros(()))
 
 
+def _scan_inputs(params, xh: torch.Tensor):
+    """xh: (B, S, di) post-conv activations -> (dt (B, S, di) fp32 after
+    the softplus, A = -exp(A_log) (di, N) fp32, bc = [B | C] (B, S, 2N)
+    in xh's dtype): what the coefficients are formed from."""
+    dt_r = xh @ params["w_x_dt"]  # (B, S, R)
+    bc = xh @ params["w_x_bc"]  # (B, S, 2N)
+    dt = _softplus((dt_r @ params["w_dt"]).to(torch.float32)
+                   + params["b_dt"].to(torch.float32))  # (B, S, di)
+    A = -torch.exp(params["A_log"].to(torch.float32))  # (di, N)
+    return dt, A, bc
+
+
 def _ssm_coeffs(params, xh: torch.Tensor):
     """xh: (B, S, di) post-conv activations -> (dA, dBx: (B, S, di, N)
     fp32, C: (B, S, N) in xh's dtype)."""
     N = params["A_log"].shape[1]
-    dt_r = xh @ params["w_x_dt"]  # (B, S, R)
-    bc = xh @ params["w_x_bc"]  # (B, S, 2N)
+    dt, A, bc = _scan_inputs(params, xh)
     Bc, Cc = bc[..., :N], bc[..., N:]
-    dt = _softplus((dt_r @ params["w_dt"]).to(torch.float32)
-                   + params["b_dt"].to(torch.float32))  # (B, S, di)
-    A = -torch.exp(params["A_log"].to(torch.float32))  # (di, N)
     dA = (dt[..., None] * A).exp_()
     # (dt * B) * x, the JAX order.  The second product in place where
     # autograd does not track it (serving); out of place under grad, where
@@ -106,7 +118,7 @@ def _ssm_coeffs(params, xh: torch.Tensor):
 def _selective_scan(params, xh: torch.Tensor):
     """xh (B, S, di) -> (y = h . C (B, S, di) fp32, h_last (B, di, N)):
     the coefficients, the recurrence from a zero state (K2 on a CUDA
-    tensor) and the C-projection."""
+    tensor) and the C-projection: the route under grad."""
     dA, dBx, Cc = _ssm_coeffs(params, xh)
     h, h_last = linear_scan(dA, dBx)  # K2 on a CUDA tensor
     del dA, dBx
@@ -137,8 +149,10 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
         # C-projection from xh and the weights
         y, h_last = checkpoint(_selective_scan, params, xh,
                                use_reentrant=False, preserve_rng_state=False)
-    else:
-        y, h_last = _selective_scan(params, xh)
+    else:  # JAX's default _fused_chunk_scan: the fused kernel on the card
+        dt, A, bc = _scan_inputs(params, xh)
+        y, h_last = selective_scan(xh, dt, A, bc)
+        del dt
     out = _gate_out(params, y, xh, z, x.dtype)
     if return_state:
         K = cfg.ssm_conv

@@ -1,0 +1,257 @@
+"""The fused selective scan's plain version against the JAX package.
+
+``repro_torch.kernels.linear_scan.ref.selective_scan_ref`` is the plain
+version of the fused selective-scan kernel (K2's redesign on the Mamba
+prefill): a PyTorch port of ``repro.models.ssm._fused_chunk_scan``, the
+JAX package's default Mamba scan (``scan_impl="xla"``).  On the CPU it
+is held against that function across its chunk boundaries (S = 48, 384
+and 512 cross one, three and two chunks of JAX's rule), against the
+port's own K2 route (``_ssm_coeffs``, ``linear_scan_ref``, the einsum
+with C), and ``mamba_forward`` is checked to take the new dispatcher
+without grad and ``LinearScan`` with it.  The dispatcher's and the
+wrapper's refusals are checked on CPU tensors; the kernel itself is held
+against its plain version on the card in
+``tests/test_torch_selective_scan_card.py``.  Inputs come from numpy
+with a seed; the weights are a Mamba layer's as the JAX spec draws them.
+
+Tolerances, per unit of the reference's largest magnitude: against JAX
+in fp32 ``TOL`` = 1e-5 (measured at most 6.5e-7 on y and 3.1e-7 on
+h_last: XLA's associative scan inside a chunk and its einsum round in
+another order); with bf16 weights and xh ``BF16_TOL`` = 5e-4 (the
+products of xh by the dt and B/C weights round to bf16 in each
+framework; measured at most 2.5e-5 on y, 2.6e-7 on h_last); against the
+K2 route h_last bit for bit and y within ``ROUTE_TOL`` = 1e-6 (the
+einsum's order against the ordered sum over n; measured at most
+1.4e-7); the layer against the JAX layer at ``tests/test_torch_ssm.py``'s
+``TOL``, 5e-4.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_arch as jax_get_arch  # noqa: E402
+from repro.models import LOCAL  # noqa: E402
+from repro.models import build_model as jax_build_model  # noqa: E402
+from repro.models import ssm as jssm  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.kernels.linear_scan import ops as scan_ops  # noqa: E402
+from repro_torch.kernels.linear_scan.kernel import (  # noqa: E402
+    selective_scan_kernel)
+from repro_torch.kernels.linear_scan.ops import selective_scan  # noqa: E402
+from repro_torch.kernels.linear_scan.ref import (  # noqa: E402
+    fused_chunk, linear_scan_ref, selective_scan_ref)
+from repro_torch.models import ssm  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.models.transformer import layer  # noqa: E402
+
+N, R = 16, 16
+TOL = 1e-5
+BF16_TOL = 5e-4
+ROUTE_TOL = 1e-6
+LAYER_TOL = 5e-4
+# (S, d_inner): one, three and two chunks of JAX's rule (48; 384 -> 128;
+# 512 -> 256)
+CASES = [(48, 64), (384, 128), (512, 512)]
+
+
+def _params(di, seed=0):
+    """A Mamba layer's scan weights as the JAX spec draws them: fan_in
+    normals, b_dt ~ U(-4, 4), A_log ~ U(-1, 1)."""
+    rng = np.random.default_rng(seed)
+    return {"w_x_dt": rng.standard_normal((di, R)) / np.sqrt(di),
+            "w_x_bc": rng.standard_normal((di, 2 * N)) / np.sqrt(di),
+            "w_dt": rng.standard_normal((R, di)) / np.sqrt(R),
+            "b_dt": rng.uniform(-4.0, 4.0, di),
+            "A_log": rng.uniform(-1.0, 1.0, (di, N))}
+
+
+def _xh(B, S, di, seed=1):
+    x = np.random.default_rng(seed).standard_normal((B, S, di))
+    return x / (1.0 + np.exp(-x))  # silu, as the layer's conv output
+
+
+def _both(p, xh, dtype):
+    """(JAX params and xh, port params and xh) in ``dtype``."""
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    jp = {k: jnp.asarray(v, jnp.float32).astype(jdt) for k, v in p.items()}
+    tp = {k: torch.tensor(v, dtype=torch.float32).to(tdt)
+          for k, v in p.items()}
+    return (jp, jnp.asarray(xh, jnp.float32).astype(jdt), tp,
+            torch.tensor(xh, dtype=torch.float32).to(tdt))
+
+
+def _rel(got, want) -> float:
+    got = got.to(torch.float32).numpy() if isinstance(got, torch.Tensor) \
+        else np.asarray(jnp.asarray(got, jnp.float32))
+    want = want.to(torch.float32).numpy() if isinstance(
+        want, torch.Tensor) else np.asarray(jnp.asarray(want, jnp.float32))
+    assert got.shape == want.shape
+    return float(np.max(np.abs(got - want))) / max(
+        float(np.max(np.abs(want))), 1e-6)
+
+
+def test_fused_chunk_is_jax_rule():
+    """min(256, S), halved until it divides S: the chunks of the cases
+    and of the served prompt (2016 -> 32)."""
+    for S, c in ((48, 48), (384, 128), (512, 256), (2016, 32), (1, 1),
+                 (7, 7), (300, 4)):
+        assert fused_chunk(S) == c
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,di", CASES)
+def test_ref_matches_jax_fused_chunk_scan(S, di, dtype):
+    B = 2
+    jp, jx, tp, tx = _both(_params(di), _xh(B, S, di), dtype)
+    want_y, want_h = jssm._fused_chunk_scan(jp, jx)
+    dt, A, bc = ssm._scan_inputs(tp, tx)
+    y, h_last = selective_scan_ref(tx, dt, A, bc)
+    assert y.dtype == h_last.dtype == torch.float32
+    assert tuple(y.shape) == (B, S, di) and tuple(h_last.shape) == (B, di, N)
+    tol = TOL if dtype == "float32" else BF16_TOL
+    assert _rel(y, want_y) < tol
+    assert _rel(h_last, want_h) < tol
+    # the dispatcher sends a CPU tensor to the plain version
+    y2, h2 = selective_scan(tx, dt, A, bc)
+    assert torch.equal(y2, y) and torch.equal(h2, h_last)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,di", CASES)
+def test_ref_matches_k2_route(S, di, dtype):
+    """The port's K2 route: the (B, S, di, N) coefficients, the
+    recurrence over them and the einsum with C.  The states are the same
+    products and sums rounded the same way: h_last bit for bit."""
+    B = 2
+    _, _, tp, tx = _both(_params(di, seed=2), _xh(B, S, di, seed=3), dtype)
+    dA, dBx, Cc = ssm._ssm_coeffs(tp, tx)
+    h, h_last = linear_scan_ref(dA.reshape(B, S, -1), dBx.reshape(B, S, -1))
+    want_y = torch.einsum("bsdn,bsn->bsd", h.reshape(B, S, di, N),
+                          Cc.to(torch.float32))
+    dt, A, bc = ssm._scan_inputs(tp, tx)
+    y, got_last = selective_scan_ref(tx, dt, A, bc)
+    assert torch.equal(got_last, h_last.reshape(B, di, N))
+    assert _rel(y, want_y) < ROUTE_TOL
+
+
+def _mamba_layer():
+    jcfg = jax_get_arch("falcon-mamba-7b").reduced()
+    jm = jax_build_model(jcfg, LOCAL)
+    w = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    jp = jax.tree.map(lambda a: jnp.asarray(a[0]), w["blocks"]["mamba"])
+    tp = layer(params_from_numpy(w, device="cpu")["blocks"], 0)["mamba"]
+    return jcfg, jp, tp
+
+
+def test_mamba_forward_without_grad_takes_the_fused_dispatcher(monkeypatch):
+    """Without grad the layer's scan is one ``selective_scan`` call (JAX's
+    default branch) and no K2 route; the output and state match the JAX
+    layer under ``scan_impl="xla"``."""
+    jcfg, jp, tp = _mamba_layer()
+    cfg = get_arch("falcon-mamba-7b").reduced()
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append("selective_scan")
+        return scan_ops.selective_scan(*args, **kw)
+
+    monkeypatch.setattr(ssm, "selective_scan", spy)
+    monkeypatch.setattr(ssm, "linear_scan",
+                        lambda *a, **k: pytest.fail("K2 route without grad"))
+    x = np.random.default_rng(4).standard_normal(
+        (2, 40, cfg.d_model)).astype(np.float32)
+    with torch.no_grad():
+        out, st = ssm.mamba_forward(tp, torch.tensor(x), cfg,
+                                    return_state=True)
+    assert calls == ["selective_scan"]
+    want, jst = jssm.mamba_forward(jp, jnp.asarray(x), jcfg, LOCAL,
+                                   return_state=True)
+    assert _rel(out, want) < LAYER_TOL
+    assert _rel(st["h"], jst["h"]) < LAYER_TOL
+
+
+def test_mamba_forward_with_grad_stays_on_linear_scan(monkeypatch):
+    """Under grad the scan is the checkpointed K2 route through
+    ``LinearScan`` (its plain forward twice, its plain backward once on
+    the CPU) and never the fused dispatcher."""
+    _, _, tp = _mamba_layer()
+    cfg = get_arch("falcon-mamba-7b").reduced()
+    monkeypatch.setattr(ssm, "selective_scan",
+                        lambda *a, **k: pytest.fail("fused scan under grad"))
+    applied = []
+    apply = scan_ops.LinearScan.apply
+
+    def spy(*args):
+        applied.append(1)
+        return apply(*args)
+
+    monkeypatch.setattr(scan_ops.LinearScan, "apply", spy)
+    leaves = {k: v.detach().clone().requires_grad_() for k, v in tp.items()}
+    x = torch.tensor(np.random.default_rng(5).standard_normal(
+        (2, 24, cfg.d_model)).astype(np.float32))
+    out = ssm.mamba_forward(leaves, x, cfg)
+    out.sum().backward()
+    assert len(applied) == 2  # the forward and the recompute
+    assert all(v.grad is not None for v in leaves.values())
+
+
+def _small(dtype=torch.float32, B=2, S=8, di=16):
+    g = torch.Generator().manual_seed(0)
+    return (torch.randn((B, S, di), generator=g).to(dtype),
+            torch.rand((B, S, di), generator=g),
+            -torch.rand((di, N), generator=g),
+            torch.randn((B, S, 2 * N), generator=g).to(dtype))
+
+
+def test_dispatcher_refuses_kernel_on_cpu():
+    xh, dt, A, bc = _small()
+    with pytest.raises(ValueError, match="use_kernel=True"):
+        selective_scan(xh, dt, A, bc, use_kernel=True)
+    y, _ = selective_scan(xh, dt, A, bc, use_kernel=False)
+    assert y.shape == xh.shape
+
+
+def test_wrapper_refuses_cpu_tensors_and_grad():
+    xh, dt, A, bc = _small()
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        selective_scan_kernel(xh, dt, A, bc)
+    with pytest.raises(RuntimeError, match="no autograd history"):
+        selective_scan_kernel(xh, dt.requires_grad_(), A, bc)
+    assert selective_scan_kernel.launches == 0
+
+
+@pytest.mark.parametrize("case", ["bc_dtype", "dt_dtype", "A_dtype"])
+def test_refuses_mixed_dtypes(case):
+    xh, dt, A, bc = _small(torch.bfloat16)
+    if case == "bc_dtype":
+        bc = bc.to(torch.float32)
+    elif case == "dt_dtype":
+        dt = dt.to(torch.bfloat16)
+    else:
+        A = A.to(torch.float64)
+    with pytest.raises(ValueError, match="dtype"):
+        selective_scan(xh, dt, A, bc)
+
+
+@pytest.mark.parametrize("case", ["dt", "A_rows", "bc_width", "bc_rows",
+                                  "xh_2d"])
+def test_refuses_wrong_shapes(case):
+    xh, dt, A, bc = _small()
+    if case == "dt":
+        dt = dt[:, :-1]
+    elif case == "A_rows":
+        A = A[:-1]
+    elif case == "bc_width":
+        bc = bc[..., :-2]
+    elif case == "bc_rows":
+        bc = bc[:, :-1]
+    else:
+        xh = xh[0]
+    with pytest.raises(ValueError, match="shape"):
+        selective_scan(xh, dt, A, bc)

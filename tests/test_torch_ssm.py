@@ -43,7 +43,7 @@ from repro.models import ssm as jssm  # noqa: E402
 from repro_torch.common.pytree import tree_map  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels.linear_scan.kernel import (  # noqa: E402
-    linear_scan_kernel)
+    linear_scan_kernel, selective_scan_kernel)
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import build_model, make_batch  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
@@ -507,16 +507,20 @@ def _card():
 
 @pytest.mark.cuda
 def test_card_prefill_launches_k2_once_per_layer():
+    """K2's redesign on this path, the fused selective scan, once a layer
+    of the prefill; K2 itself no more; neither in decode."""
     _card()
     _, w, tm, _ = _pair()
     p = params_from_numpy(w, device="cuda")
     toks = torch.tensor(_tokens(tm.cfg.vocab_size, S), device="cuda")
     before = linear_scan_kernel.launches
+    fused = selective_scan_kernel.launches
     _, cache = tm.prefill(p, {"tokens": toks})
-    assert linear_scan_kernel.launches - before == tm.cfg.n_layers
+    assert selective_scan_kernel.launches - fused == tm.cfg.n_layers
     tm.decode_step(p, cache, toks[:, :1],
                    torch.full((B,), S, dtype=torch.int32, device="cuda"))
-    assert linear_scan_kernel.launches - before == tm.cfg.n_layers
+    assert selective_scan_kernel.launches - fused == tm.cfg.n_layers
+    assert linear_scan_kernel.launches == before
 
 
 @pytest.mark.cuda
