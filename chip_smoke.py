@@ -100,11 +100,13 @@ drives the port's paths through its entry points:
   step by what its gradient predicts, then one more step profiled;
 * ``train_path_mamba``: the same loop on Falcon-Mamba-7B at full width
   (d_inner 8192, N 16, vocab 65024, tied) with its depth cut to 4 of 64
-  layers, from the seed-0 weights as drawn: a gradient runs K2 twice a
-  layer at (8, 128, 131072) fp32 (the scan is checkpointed, as the JAX
-  chunk body: its forward and the recompute) and its backward kernel
-  once, a fold one per-row K1 launch over the (65024, 4096) embedding;
-  gated on the first local step as train_path, then one step profiled;
+  layers, from the seed-0 weights as drawn: a gradient runs the fused
+  selective scan once a layer at (8, 128, 8192, 16) fp32, saving the
+  state before each chunk (JAX's ``_fused_chunk_scan`` with its
+  checkpointed chunk body), and its backward kernel once, which
+  recomputes a chunk's states at a time from those; K2 not at all; a
+  fold one per-row K1 launch over the (65024, 4096) embedding; gated on
+  the first local step as train_path, then one step profiled;
 * ``train_path_deepseek``: the same loop on DeepSeek-V2-Lite-16B at full
   width with its depth cut to 2 of 27 layers (the dense layer and one
   64-expert MoE layer), attention cooled: MLA and the gathered expert
@@ -116,13 +118,18 @@ drives the port's paths through its entry points:
   128 (K2 and its backward twice at (8, 128, 4096)), gated on the
   central difference along its first ASO-Fed step; its whole loop does
   not fit one card at this width;
+* ``train_step_mamba_long``: train_path_mamba's model, two timed
+  gradients at batch 8 x 2048 (8 chunks of 256 steps: the carry between
+  chunks on the path), the fused scan and its backward once a layer
+  each, gated the same way;
 * ``train_step_families``: one loss and gradient each, gated the same
   way and launching no kernel, of Kimi-K2 (full width, 2 layers, 16
   experts), Whisper-small (full size, 1536 stub frames a clip) and
   Qwen2-VL-72B (full width, 2 layers, 1024 stub patches + 992 tokens);
 * ``train_card_vs_cpu`` holds train_path's full width at 2 layers,
   Falcon-Mamba's and DeepSeek-V2-Lite's at 2 layers (each its gradient,
-  then its loop), RecurrentGemma's gradient at 3 and Kimi-K2's, Whisper's
+  Falcon-Mamba's also at 1 x 512, two chunks, then its loop),
+  RecurrentGemma's gradient at 3 and Kimi-K2's, Whisper's
   and Qwen2-VL's at cut depth against the CPU (the MoE cases with the
   CPU taking the card's expert ids, the flips counted), and
   ``quickstart_path`` runs the quickstart (reduced TinyLlama, 24 rounds,
@@ -145,13 +152,16 @@ DeepSeek-V2-Lite and RecurrentGemma full-width gaps op by op (each op's
 own gap on the CPU's input and the carried gap), as drawn and with the
 attention's query and key projections cooled.
 ``scan_vs_plain`` also holds K2 at the Mamba and RG-LRU prefills' and
-training paths' shapes bit for bit against its plain version (the Mamba
-prefill's as the earlier design's time), K2's backward kernel at the
-training shapes against its plain reverse loop, and the fused selective
-scan at the Mamba prefill's (``mamba_fused``, bf16 as served, bounded by
-its own SASS instruction count) and at its edges bit for bit against
-its plain version (JAX's chunk loop in PyTorch), before any model's
-weights are on the card.  Prints one JSON
+RecurrentGemma's training shape bit for bit against its plain version
+(the Mamba prefill's as the earlier design's time), K2's backward kernel
+at that training shape against its plain reverse loop, the fused
+selective scan at the Mamba prefill's (``mamba_fused``, bf16 as served,
+bounded by its own SASS instruction count) and at its edges bit for bit
+against its plain version (JAX's chunk loop in PyTorch), and its
+backward at the Mamba training paths' scans (``mamba_fused_backward``
+at 8 x 128 and ``_long`` at 8 x 2048, timed and bounded from its SASS)
+and at two edges against its plain version (dxh, ddt and dA bit for
+bit), before any model's weights are on the card.  Prints one JSON
 line per phase, then a ``{"kernels": [...]}`` line, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line; without a CUDA card it
@@ -160,6 +170,7 @@ exits non-zero at once.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
 import math
@@ -511,12 +522,10 @@ def phase_scan_vs_plain():
         rows_out[name] = _selective_case(name, shape, dtype)
     rows_out["rglru"] = _model_scan_case("rglru_prefill", RGEMMA_SCAN_SHAPE,
                                          RGEMMA_SCAN_REPS)
-    for key, case, shape in (("mamba_train", "mamba_train",
-                              MAMBA_TRAIN_SCAN),
-                             ("rglru_train", "rglru_train",
-                              RGEMMA_TRAIN_SCAN)):
-        rows_out[key], rows_out[key + "_backward"] = _train_scan_case(
-            case, shape)
+    rows_out["rglru_train"], rows_out["rglru_train_backward"] = \
+        _train_scan_case("rglru_train", RGEMMA_TRAIN_SCAN)
+    for name, shape, reps in SELECTIVE_BWD_CASES:
+        rows_out[name] = _selective_backward_case(name, shape, reps)
     return rows_out
 
 
@@ -553,18 +562,24 @@ def selective_bound(B: int, S: int, di: int, N: int, itemsize: int,
 _SASS_FP32 = ("FFMA", "FMUL", "FADD", "FMNMX", "FSEL", "FSETP", "FCHK")
 
 
-def _sass_loop_counts(lib: str, kernel: str) -> dict:
-    """The instructions an element of the innermost loop of ``kernel``
-    that holds a MUFU.EX2, from ``cuobjdump -sass`` of the built library:
-    the loop is the smallest backward branch's range around MUFU.EX2s,
-    and an element is one MUFU.EX2 (one exp a state element).  Returns
-    {"fp32", "ex2", "all", and a count for each opcode} an element, and
-    the loop's length and its MUFU.EX2 count."""
+@functools.lru_cache(maxsize=None)
+def _sass(lib: str) -> str:
+    """``cuobjdump -sass`` of a built library (read once a process)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
-    out = subprocess.run([tool, "-sass", lib], capture_output=True,
-                         text=True, check=True, timeout=120).stdout
+    return subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+
+
+def _sass_loop_counts(lib: str, kernel: str) -> list:
+    """The innermost loops of ``kernel`` that hold a MUFU.EX2, from
+    ``cuobjdump -sass`` of the built library, in address order: each
+    loop is a backward branch's range around MUFU.EX2s that holds no
+    other such range, and an element is one MUFU.EX2 (one exp a state
+    element).  Each loop's {"fp32", "ex2", "all", and a count for each
+    opcode} an element, its length and its MUFU.EX2 count."""
+    out = _sass(lib)
     funcs, cur = {}, None
     for ln in out.splitlines():
         if "Function :" in ln:
@@ -586,26 +601,33 @@ def _sass_loop_counts(lib: str, kernel: str) -> dict:
             toks = toks[1:]
         funcs[cur].append((addr, toks[0], toks[1:]))
     insts = next(v for k, v in funcs.items() if kernel in k)
-    loops = []
-    for i, (addr, op, args) in enumerate(insts):
+    ranges = []
+    for addr, op, args in insts:
         if op.startswith("BRA") and args:
             try:
                 target = int(args[-1].strip("`()"), 16)
             except ValueError:
                 continue
-            if target <= addr:
-                body = [o for a, o, _ in insts if target <= a <= addr]
-                n_ex2 = sum(o.startswith("MUFU.EX2") for o in body)
-                if n_ex2:
-                    loops.append((len(body), n_ex2, body))
-    size, n_ex2, body = min(loops)
-    ops = {}
-    for o in body:
-        ops[o.split(".")[0]] = ops.get(o.split(".")[0], 0) + 1
-    per = {k: v / n_ex2 for k, v in sorted(ops.items())}
-    return {"fp32": sum(v for k, v in per.items() if k in _SASS_FP32),
-            "ex2": 1.0, "all": size / n_ex2, "loop_instructions": size,
-            "loop_ex2": n_ex2, "opcodes": per}
+            body = [o for a, o, _ in insts if target <= a <= addr]
+            if target <= addr and any(o.startswith("MUFU.EX2")
+                                      for o in body):
+                ranges.append((target, addr, body))
+    loops = []
+    for lo, hi, body in sorted(ranges):
+        if any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi)
+               for l2, h2, _ in ranges):
+            continue  # holds an inner exp loop
+        n_ex2 = sum(o.startswith("MUFU.EX2") for o in body)
+        ops = {}
+        for o in body:
+            ops[o.split(".")[0]] = ops.get(o.split(".")[0], 0) + 1
+        per = {k: v / n_ex2 for k, v in sorted(ops.items())}
+        loops.append({
+            "fp32": sum(v for k, v in per.items() if k in _SASS_FP32),
+            "ex2": 1.0, "all": len(body) / n_ex2,
+            "loop_instructions": len(body), "loop_ex2": n_ex2,
+            "opcodes": per})
+    return loops
 
 
 def _selective_inputs(shape, dtype, seed: int = 0):
@@ -669,9 +691,12 @@ def _selective_case(name: str, shape, dtype):
            "tolerance_per_unit": SELECTIVE_Y_TOL}
     if name == "mamba_fused":
         lib = build.library_path("selective_scan")
-        kname = ("selective_scan_fwdI13__nv_bfloat16" if dtype ==
-                 torch.bfloat16 else "selective_scan_fwdIf")
-        per = _sass_loop_counts(lib, kname)
+        # the serving instance: no chunk carries stored
+        kname = ("selective_scan_fwdI13__nv_bfloat16Lb0E" if dtype ==
+                 torch.bfloat16 else "selective_scan_fwdIfLb0E")
+        # its step loop: the shortest innermost exp loop
+        per = min(_sass_loop_counts(lib, kname),
+                  key=lambda r: r["loop_instructions"])
         bound_ms, bound_by, detail = selective_bound(
             B, S, di, N, xh.element_size(), per)
         kern = lambda: selective_scan_kernel(xh, dt, A, bc)  # noqa: E731
@@ -689,6 +714,121 @@ def _selective_case(name: str, shape, dtype):
                 if "registers" in ln or "spill" in ln or "smem" in ln])
     emit(rec)
     del xh, dt, A, bc, y, h_last, want, want_last
+    torch.cuda.empty_cache()
+    return rec
+
+
+def selective_backward_bound(B: int, S: int, di: int, N: int, c: int,
+                             loops):
+    """(bound_ms, bound_by, detail) of the fused backward on these
+    shapes: its inputs xh, dt, gy (B, S, di), bc (B, S, 2N), A, the chunk
+    carries (B, S / c, di, N) and gh_last read once, dxh, ddt, dA and dbc
+    written once, over HBM bandwidth; against the B S di N elements times
+    the kernel's own instructions an element over its two exp loops
+    (``loops``: the chunk's recompute and the reverse walk, from
+    ``_sass_loop_counts``), the FP32-pipe ones at 128 a clock an SM and the
+    MUFU.EX2s at 16, as ``selective_bound``.  ``detail`` also gives the
+    issue limit and the bytes of the design's own chunk scratch (the
+    recomputed states written and read once each), which are not the
+    function's and which the bound does not take."""
+    elems = B * S * di * N
+    per = {k: sum(lp[k] for lp in loops) for k in ("fp32", "ex2", "all")}
+    nbytes = 4 * (5 * B * S * di + 2 * B * S * 2 * N + 2 * di * N
+                  + B * (S // c) * di * N + B * di * N)
+    fp32_rate = FP32_OPS_PER_S / 2  # FP32-pipe instructions a second
+    times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "fp32_pipe": elems * per["fp32"] / fp32_rate * 1e3,
+             "sfu": elems * per["ex2"] / (fp32_rate / 8) * 1e3}
+    limit = max(times, key=times.get)
+    scratch = 2 * 4 * elems
+    detail = {**{f"{k}_ms": v for k, v in times.items()},
+              "issue_ms": elems * per["all"] / fp32_rate * 1e3,
+              "bytes": nbytes, "elements": elems, "binds": limit,
+              "scratch_bytes": scratch,
+              "with_scratch_bytes_ms": (nbytes + scratch)
+              / HBM_BYTES_PER_S * 1e3,
+              "per_element": per, "loops": loops}
+    return times[limit], ("bytes" if limit == "bytes" else "operations"), \
+        detail
+
+
+def _selective_backward_case(name: str, shape, reps: int):
+    """The fused selective scan's backward against its plain version
+    (``selective_scan_backward_ref``) on the card, fp32, inputs drawn as
+    ``_selective_inputs`` and the gradients gy of y and gh_last of h_last
+    N(0, 1): first the forward with its chunk carries (y, h_last and
+    h_chunks bit for bit), then the backward with and without gh_last,
+    dxh, ddt and dA bit for bit and dbc within SELECTIVE_BWD_TOL per unit
+    of its largest magnitude.  With ``reps`` the kernel is timed
+    (``reps`` launches a graph, with gh_last), its plain version once a
+    graph, and bounded by its own SASS instruction count; no PyTorch
+    call computes the function, so ``library_ms`` is None."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.linear_scan.kernel import (
+        selective_scan_backward_kernel, selective_scan_kernel)
+    from repro_torch.kernels.linear_scan.ref import (
+        fused_chunk, selective_scan_backward_ref, selective_scan_ref)
+
+    B, S, di, N = shape
+    xh, dt, A, bc = _selective_inputs(shape, torch.float32, seed=2)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    gy = torch.randn((B, S, di), generator=gen, device=DEV)
+    gl = torch.randn((B, di, N), generator=gen, device=DEV)
+    y, h_last, chunks = selective_scan_kernel(xh, dt, A, bc, chunks=True)
+    want = selective_scan_ref(xh, dt, A, bc, chunks=True)
+    fwd_bitwise = all(torch.equal(a, b)
+                      for a, b in zip((y, h_last, chunks), want))
+    del y, h_last, want
+    rec = {"phase": "kernel_vs_plain", "kernel": "selective_scan_backward",
+           "case": name, "shape": list(shape), "dtype": str(torch.float32),
+           "chunk": fused_chunk(S), "n_chunks": S // fused_chunk(S),
+           "forward_bitwise": fwd_bitwise,
+           "tolerance_per_unit": SELECTIVE_BWD_TOL}
+    ok = fwd_bitwise
+    for tag, last in (("", gl), ("no_gh_last_", None)):
+        got = selective_scan_backward_kernel(xh, dt, A, bc, chunks, gy, last)
+        ref = selective_scan_backward_ref(xh, dt, A, bc, chunks, gy, last)
+        torch.cuda.synchronize()
+        bitwise = [torch.equal(a, b) for a, b in zip(got[:3], ref[:3])]
+        errs = [_max_abs_diff(a, b) for a, b in zip(got, ref)]
+        units = [e / max(_max_abs(b), 1e-30)
+                 for e, b in zip(errs[2:], ref[2:])]
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        rec.update({f"{tag}dxh_bitwise": bitwise[0],
+                    f"{tag}ddt_bitwise": bitwise[1],
+                    f"{tag}dA_bitwise": bitwise[2],
+                    f"{tag}max_abs_err": max(errs),
+                    f"{tag}dA_err_per_unit": units[0],
+                    f"{tag}dbc_err_per_unit": units[1],
+                    f"{tag}finite": finite})
+        ok = ok and all(bitwise) and finite and max(units) <= \
+            SELECTIVE_BWD_TOL
+        del got, ref
+    if not ok:
+        emit(rec)
+        raise AssertionError(
+            f"selective_scan backward at {name} {tuple(shape)}: {rec}")
+    if reps:
+        lib = build.library_path("selective_scan")
+        loops = _sass_loop_counts(lib, "selective_scan_bwd")
+        bound_ms, bound_by, detail = selective_backward_bound(
+            B, S, di, N, fused_chunk(S), loops)
+        kern = lambda: selective_scan_backward_kernel(  # noqa: E731
+            xh, dt, A, bc, chunks, gy, gl)
+        ms = device_ms(kern, reps=reps)
+        rec.update(
+            ms=ms, call_ms=call_ms(kern, reps=reps),
+            # the plain loops issue ~5 ops a step: one call a graph
+            plain_ms=device_ms(lambda: selective_scan_backward_ref(
+                xh, dt, A, bc, chunks, gy, gl), reps=1),
+            bound_ms=bound_ms, bound_by=bound_by, bound_detail=detail,
+            bound_share=bound_ms / ms, library_ms=None,
+            library="none: no single PyTorch call computes the function",
+            ptxas=[ln.strip() for ln in build.BUILD_LOG.get(
+                "selective_scan", (0.0, ""))[1].splitlines()
+                if "registers" in ln or "spill" in ln or "smem" in ln])
+    emit(rec)
+    del xh, dt, A, bc, gy, gl, chunks
     torch.cuda.empty_cache()
     return rec
 
@@ -1071,7 +1211,8 @@ def _reset_launches():
     feature_attention_kernel.launches = 0
     linear_scan_kernel.launches = 0
     flash_attention_kernel.launches = 0
-    for k in (_fold_kernel(), _scan_backward_kernel(), _selective_kernel()):
+    for k in (_fold_kernel(), _scan_backward_kernel(), _selective_kernel(),
+              _selective_backward_kernel()):
         if k is not None:
             k.launches = 0
 
@@ -1118,6 +1259,21 @@ def _selective_launches() -> int:
     """Fused selective-scan launches since the last reset (0 in a package
     without it)."""
     k = _selective_kernel()
+    return 0 if k is None else k.launches
+
+
+def _selective_backward_kernel():
+    """The fused selective scan's backward wrapper, or None in an older
+    checkout's package."""
+    from repro_torch.kernels.linear_scan import kernel
+
+    return getattr(kernel, "selective_scan_backward_kernel", None)
+
+
+def _selective_backward_launches() -> int:
+    """Fused backward launches since the last reset (0 in a package
+    without it)."""
+    k = _selective_backward_kernel()
     return 0 if k is None else k.launches
 
 
@@ -3267,10 +3423,9 @@ TRAIN_HYPER = {"eta": 3e-3, "lam": 0.1, "beta": 0.001}
 TRAIN_TOKENS = 20_000
 # steps left out of the step-time median and p90 (cuBLAS, the allocator)
 TRAIN_WARMUP = 2
-# the training paths' scans at batch 8 x 128 (K2 forward and backward):
-# Falcon-Mamba-7B's (B, S, d_inner x N), 537 MB a tensor in fp32, and
-# RecurrentGemma-9B's (B, S, lru_width); launches a graph when timed
-MAMBA_TRAIN_SCAN = (TRAIN_B, TRAIN_S, 8192 * 16)
+# RecurrentGemma-9B's training scan at batch 8 x 128 (K2 forward and
+# backward): (B, S, lru_width); launches a graph when timed.  (Falcon-Mamba
+# trains through the fused selective scan: SELECTIVE_BWD_CASES)
 RGEMMA_TRAIN_SCAN = (TRAIN_B, TRAIN_S, 4096)
 SCAN_TRAIN_REPS = 20
 # train_card_vs_cpu: Qwen2-0.5B at full width (vocab 151936: K1 at the
@@ -3339,9 +3494,30 @@ GRAD_FLOOR = 1e-3
 # train_path_mamba: Falcon-Mamba-7B at full width (d 4096, d_inner 8192,
 # N 16, vocab 65024, tied), depth 64 -> 4 (0.6876e9 parameters, 2.75 GB
 # in fp32): the loop holds ~18.6x its weights (4 clients' fp32 slots,
-# snapshots, gradients) plus three saved 537 MB scan tensors a layer, and
-# 6 layers would leave the card no margin; the training CLI's defaults
+# snapshots, gradients), and 6 layers would leave the card no margin; the
+# training CLI's defaults
 MAMBA_TRAIN_CUT = {"n_layers": 4}
+# train_step_mamba_long: one gradient of Falcon-Mamba-7B at full width,
+# train_path_mamba's 4 layers, at batch 8 x 2048 tokens: 8 of JAX's
+# 256-step chunks, so the fused backward's carry between chunks is on the
+# path; one warm-up gradient, then MAMBA_LONG_REPS timed
+MAMBA_LONG_S = 2048
+MAMBA_LONG_REPS = 2
+# the fused backward against its plain version: (case, (B, S, d_inner, N),
+# launches a graph when timed, 0 untimed).  train_path_mamba's scan (8 x
+# 128: one chunk), train_step_mamba_long's (8 x 2048: 8 chunks of 256, the
+# carry between chunks on the path), then the edges: 65 chunks of 8 at a
+# d_inner that is not a multiple of the kernel's 128-channel block, one
+# step
+SELECTIVE_BWD_CASES = [
+    ("mamba_fused_backward", (TRAIN_B, TRAIN_S, 8192, 16), 20),
+    ("mamba_fused_backward_long", (TRAIN_B, MAMBA_LONG_S, 8192, 16), 3),
+    ("ragged_chunks", (2, 520, 200, 16), 0),
+    ("one_step", (1, 1, 128, 16), 0)]
+# dbc of the backward against its plain version: sums over d in another
+# order, max abs error per unit of the largest magnitude (dA's too,
+# recorded; dxh, ddt and dA are bit for bit)
+SELECTIVE_BWD_TOL = 1e-6
 # train_step_rgemma: RecurrentGemma-9B at full width, depth 38 -> 3 (one
 # (rglru, rglru, attn) period: 2.754e9 parameters, 11.0 GB in fp32), one
 # loss and gradient at batch 8 x 128: the whole loop (~15-19x its
@@ -3360,6 +3536,9 @@ RGEMMA_TRAIN_CUT = {"n_layers": 3}
 # same weights on both sides)
 MAMBA_CMP_CUT = {"n_layers": 2}
 MAMBA_CMP = {"batch": 2, "seq": 32, "steps": 1}
+# and a second gradient at batch 1 x 512: two of the scan's 256-step
+# chunks, the fused backward's carry between them against the CPU's
+MAMBA_CMP_LONG = (1, 512)
 MAMBA_CMP_CLIENTS, MAMBA_CMP_TOKENS = 1, 5_000
 RGEMMA_CMP_B, RGEMMA_CMP_S = 1, 32
 # train_path_deepseek: DeepSeek-V2-Lite-16B at full width, depth 27 -> 2
@@ -3395,11 +3574,14 @@ TRAIN_FAMILIES = (
 # self-attention over 3 blocks of 512) and Qwen2-VL at full width with 1
 # layer, a 64-patch prefix and its vocabulary cut to 16384, so the CPU's
 # gradient takes seconds (at full depth, or past 1024 patches, minutes;
-# the 152064 x 8192 embedding and head alone 18 s); Kimi at batch 1 x 32 (its
-# CPU gradient is bound by the 1.17e9-parameter head and embedding)
+# the 152064 x 8192 embedding and head alone 18 s); Kimi at batch 1 x 32
+# with its vocabulary cut to 16384 too (its CPU gradient was bound by the
+# 1.17e9-parameter head and embedding: 36 s of the case on an H100 host;
+# train_step_families takes its full vocabulary on the card)
 FAMILY_CMP = (
     ("deepseek", DEEPSEEK_ARCH, DEEPSEEK_TRAIN_CUT, 2, 64),
-    ("kimi", KIMI_ARCH, {"n_layers": 2, "n_experts": 16}, 1, 32),
+    ("kimi", KIMI_ARCH, {"n_layers": 2, "n_experts": 16,
+                         "vocab_size": 16384}, 1, 32),
     ("whisper", WHISPER_ARCH, {"n_layers": 2, "encoder_layers": 2}, 1, 64),
     ("qwen2vl", QWEN2VL_ARCH, {"n_layers": 1, "n_patches": 64,
                                "vocab_size": 16384}, 1, 96))
@@ -3430,12 +3612,13 @@ def _cool_attention(params, leaves=None):
 
 
 def _scan_launches(cfg):
-    """(K2, K2 backward) launches a gradient of ``cfg``: a Mamba layer's
-    checkpointed scan runs K2 twice (its forward and the recompute in the
-    backward), an RG-LRU layer's once; the backward kernel once a
-    recurrent layer."""
+    """(K2, K2 backward, fused selective scan, its backward) launches a
+    gradient of ``cfg``: an RG-LRU layer runs K2 and K2's backward once
+    each, a Mamba layer the fused scan (saving its chunk carries) and
+    the fused backward once each."""
     layers = _recurrent_layers(cfg)
-    return (2 * layers if cfg.family == "ssm" else layers), layers
+    return ((0, 0, layers, layers) if cfg.family == "ssm"
+            else (layers, layers, 0, 0))
 
 
 class Routing:
@@ -3519,6 +3702,29 @@ def _train_launches():
     reset."""
     k1, k2 = _launches()
     return k1, _fold_launches(), k2, _flash_launches()
+
+
+# the training phases' launch tuple
+GRAD_LAUNCHES = ("K1", "feature_fold", "K2", "K3", "K2 backward",
+                 "fused scan", "fused backward")
+
+
+def _grad_launches():
+    """GRAD_LAUNCHES' counts since the last reset."""
+    return _train_launches() + (_scan_backward_launches(),
+                                _selective_launches(),
+                                _selective_backward_launches())
+
+
+def _launch_fields(launches) -> dict:
+    """The record's fields of a GRAD_LAUNCHES tuple."""
+    return {"feature_attention_launches": launches[0],
+            "feature_fold_launches": launches[1],
+            "linear_scan_launches": launches[2],
+            "flash_attention_launches": launches[3],
+            "linear_scan_backward_launches": launches[4],
+            "selective_scan_launches": launches[5],
+            "selective_scan_backward_launches": launches[6]}
 
 
 def _recurrent_layers(cfg) -> int:
@@ -3634,7 +3840,8 @@ def _train_loop_phase(phase: str, profile_phase: str, arch: str, cut,
     embedding, ``_scan_launches`` a gradient, no feature_fold, no K3),
     a MoE layer's host read of its per-expert counts once a forward, and
     where ``loss_falls`` the mean of the last 10 losses below the first.
-    Returns (K1, K2, K2 backward) launches of the run."""
+    Returns (K1, K2, K2 backward, fused scan, fused backward) launches of
+    the run."""
     from repro_torch.common.pytree import tree_leaves
     from repro_torch.configs import get_arch
     from repro_torch.launch.train import train
@@ -3663,10 +3870,11 @@ def _train_loop_phase(phase: str, profile_phase: str, arch: str, cut,
                     batch=TRAIN_B, seq=TRAIN_S, seed=0, device=DEV,
                     log=None, **TRAIN_HYPER)
     torch.cuda.synchronize()
-    launches = _train_launches() + (_scan_backward_launches(),)
+    launches = _grad_launches()
     peak = torch.cuda.max_memory_allocated()
-    fwd, bwd = _scan_launches(cfg)
-    want = (TRAIN_STEPS, 0, TRAIN_STEPS * fwd, 0, TRAIN_STEPS * bwd)
+    k2, k2b, ss, ssb = _scan_launches(cfg)
+    want = (TRAIN_STEPS, 0, TRAIN_STEPS * k2, 0, TRAIN_STEPS * k2b,
+            TRAIN_STEPS * ss, TRAIN_STEPS * ssb)
     reads_want = TRAIN_STEPS * _host_reads(cfg, TRAIN_B * TRAIN_S)
     losses = res["losses"]
     last10 = float(np.mean(losses[-10:]))
@@ -3679,9 +3887,9 @@ def _train_loop_phase(phase: str, profile_phase: str, arch: str, cut,
          f"and the central difference within {TRAIN_FO_TOL} of its "
          f"prediction per unit"),
         (launches == want,
-         f"(K1, feature_fold, K2, K3, K2 backward) launches {launches}; "
-         f"expected {want}: one per-row K1 a fold, {_scan_launches(cfg)} "
-         f"K2 and K2 backward launches a gradient"),
+         f"{GRAD_LAUNCHES} launches {launches}; expected {want}: one "
+         f"per-row K1 a fold, {_scan_launches(cfg)} K2, K2 backward, fused "
+         f"scan and fused backward launches a gradient"),
         (host_reads.n == reads_want,
          f"{host_reads.n} host reads of the per-expert counts; expected "
          f"{reads_want}, one a MoE layer a forward"),
@@ -3716,12 +3924,7 @@ def _train_loop_phase(phase: str, profile_phase: str, arch: str, cut,
           "eval_loss_initial": eval_loss[0], "eval_loss_final": eval_loss[1],
           "eval_seeds": [TRAIN_EVAL_SEED + i for i in range(TRAIN_CLIENTS)],
           "peak_device_bytes": peak,
-          "moe_host_reads": host_reads.n,
-          "feature_attention_launches": launches[0],
-          "feature_fold_launches": launches[1],
-          "linear_scan_launches": launches[2],
-          "flash_attention_launches": launches[3],
-          "linear_scan_backward_launches": launches[4]})
+          "moe_host_reads": host_reads.n, **_launch_fields(launches)})
     final = res["params"]
     del res, params
     torch.cuda.empty_cache()
@@ -3731,7 +3934,9 @@ def _train_loop_phase(phase: str, profile_phase: str, arch: str, cut,
     rec = _profile_record(per, wall, ("feature_attention_rows",
                                       "feature_fold_tick", "fa_fwd",
                                       "linear_scan_channels",
-                                      "linear_scan_backward_channels"))
+                                      "linear_scan_backward_channels",
+                                      "selective_scan_fwd",
+                                      "selective_scan_bwd"))
     busy = sum(ms for _, ms, _ in per)
     shares = {}
     for tag, name in profile_kernels.items():
@@ -3746,7 +3951,7 @@ def _train_loop_phase(phase: str, profile_phase: str, arch: str, cut,
     torch.cuda.empty_cache()
     if failed:
         raise AssertionError(f"{phase}: " + "; ".join(failed))
-    return launches[0], launches[2], launches[4]
+    return launches[0], launches[2], launches[4], launches[5], launches[6]
 
 
 K1_PROFILE = {"k1": "feature_attention_rows"}
@@ -3786,15 +3991,16 @@ def _grad(model, params, batch):
 def phase_train_path_mamba():
     """Falcon-Mamba-7B at full width, depth cut to MAMBA_TRAIN_CUT
     (``_train_loop_phase``), from the seed-0 weights as drawn: a gradient
-    runs K2 twice a layer (the forward and the checkpointed scan's
-    recompute) and K2's backward once, a fold one per-row K1 launch over
-    the (65024, 4096) tied embedding; the first step gated over
-    TRAIN_FO_FRAC_SSM.  Returns (K1, K2, K2 backward) launches."""
+    runs the fused selective scan once a layer (saving its chunk carries)
+    and its backward kernel once, K2 not at all, a fold one per-row K1
+    launch over the (65024, 4096) tied embedding; the first step gated
+    over TRAIN_FO_FRAC_SSM.  Returns (K1, K2, K2 backward, fused scan,
+    fused backward) launches."""
     return _train_loop_phase(
         "train_path_mamba", "train_profile_mamba", MAMBA_ARCH,
         MAMBA_TRAIN_CUT, False, TRAIN_FO_FRAC_SSM,
-        {**K1_PROFILE, "k2": "linear_scan_channels",
-         "k2_backward": "linear_scan_backward_channels"})
+        {**K1_PROFILE, "fused": "selective_scan_fwd",
+         "fused_backward": "selective_scan_bwd"})
 
 
 def phase_train_path_deepseek():
@@ -3835,20 +4041,27 @@ def _central_along_gradient(model, params, g, batch, frac: float,
     return side[0] - side[1], predicted
 
 
+LOOP_DOES_NOT_FIT = ("one gradient: the ASO-Fed loop at full width does "
+                     "not fit one card")
+
+
 def _train_step_case(phase: str, arch: str, cut, B: int, S: int,
-                     frac: float, case=None):
-    """One loss and gradient of ``arch`` (its config's fields cut by
+                     frac: float, case=None, reps: int = 1,
+                     why: str = LOOP_DOES_NOT_FIT):
+    """The loss and gradient of ``arch`` (its config's fields cut by
     ``cut``) at batch B x S of ``make_batch`` (tokens and the family's
     stub), from the port's seed-0 weights with the attention cooled
-    (TRAIN_COOL_LEAVES), after one warm-up gradient: the step's time, its
-    peak and its launches (``_scan_launches``; no K1, no K3, no
-    feature_fold), a MoE layer's host read of its per-expert counts once.
-    Gated: along client 0's first ASO-Fed step from these weights, ``-r
-    eta g`` (fresh slots), over ``frac`` of it, the central difference
-    within TRAIN_FO_TOL of its prediction (``_central_along_gradient``:
-    weights, gradient and one perturbed copy).  Emits the record; raises
-    after it if a gate fails.  Returns (K2, K2 backward) launches of the
-    counted gradient."""
+    (TRAIN_COOL_LEAVES), ``reps`` times after one warm-up gradient: each
+    step's time, their peak and their launches (``_scan_launches`` a
+    gradient; no K1, no K3, no feature_fold), a MoE layer's host read of
+    its per-expert counts once.  Gated: along client 0's first ASO-Fed
+    step from these weights, ``-r eta g`` (fresh slots), over ``frac`` of
+    it, the central difference within TRAIN_FO_TOL of its prediction
+    (``_central_along_gradient``: weights, gradient and one perturbed
+    copy).  ``why`` says in the record why one gradient and not the
+    loop.  Emits the record; raises after it if a gate fails.  Returns
+    (K2, K2 backward, fused scan, fused backward) launches of the counted
+    gradients."""
     from repro_torch.common.pytree import tree_leaves
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model, make_batch, moe
@@ -3865,12 +4078,16 @@ def _train_step_case(phase: str, arch: str, cut, B: int, S: int,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_launches()
+    steps, g = [], None
     with _CountCalls(moe, "_gathered") as host_reads:
-        t0 = time.perf_counter()
-        loss, g = _grad(model, params, batch)
-        loss0 = float(loss)
-        step_s = time.perf_counter() - t0
-    launches = _train_launches() + (_scan_backward_launches(),)
+        for _ in range(reps):
+            del g
+            t0 = time.perf_counter()
+            loss, g = _grad(model, params, batch)
+            loss0 = float(loss)
+            steps.append(time.perf_counter() - t0)
+    step_s = statistics.median(steps)
+    launches = _grad_launches()
     peak = torch.cuda.max_memory_allocated()
     gsq = sum(float(torch.sum(gi * gi, dtype=torch.float64)) for gi in g)
     gmax = max(float(gi.abs().max()) for gi in g)
@@ -3883,15 +4100,13 @@ def _train_step_case(phase: str, arch: str, cut, B: int, S: int,
     if cfg.family == "vlm":
         reduced["seq"] = [TRAIN_S, S]
     emit({"phase": phase, **({"case": case} if case else {}),
-          "arch": cfg.name,
-          "reduced": {**reduced,
-                      "loop": "one gradient: the ASO-Fed loop at full "
-                              "width does not fit one card"},
+          "arch": cfg.name, "reduced": {**reduced, "loop": why},
           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
           "vocab": cfg.vocab_size, "params": n_params,
           "weight_bytes": 4 * n_params, "dtype": "float32", "batch": B,
           "seq": S, "stub": {"audio": "frames", "vlm": "patches"}.get(
-              cfg.family), "loss": loss0, "step_s": step_s,
+              cfg.family), "loss": loss0, "gradients": reps,
+          "step_s": step_s, "step_s_each": steps,
           "tokens_per_s": B * S / step_s,
           "grad_max_abs": gmax, "grad_sq_norm": gsq,
           "step_eps": step_eps, "fraction": frac,
@@ -3899,25 +4114,20 @@ def _train_step_case(phase: str, arch: str, cut, B: int, S: int,
           "ratio": ratio, "attention_scaled_leaves": list(TRAIN_COOL_LEAVES),
           "attention_scale": TRAIN_COOL,
           "tolerance": TRAIN_FO_TOL, "peak_device_bytes": peak,
-          "moe_host_reads": host_reads.n,
-          "feature_attention_launches": launches[0],
-          "linear_scan_launches": launches[2],
-          "linear_scan_backward_launches": launches[4],
-          "flash_attention_launches": launches[3]})
+          "moe_host_reads": host_reads.n, **_launch_fields(launches)})
     del g, params, batch
     torch.cuda.empty_cache()
-    fwd, bwd = _scan_launches(cfg)
-    want = (0, 0, fwd, 0, bwd)
-    reads = _host_reads(cfg, B * S)
+    k2, k2b, ss, ssb = _scan_launches(cfg)
+    want = (0, 0, reps * k2, 0, reps * k2b, reps * ss, reps * ssb)
+    reads = reps * _host_reads(cfg, B * S)
     if not (finite and predicted < 0 and launches == want
             and host_reads.n == reads and abs(ratio - 1.0) <= TRAIN_FO_TOL):
         raise AssertionError(
             f"{phase} {cfg.name}: loss {loss0}, central difference "
             f"{central} against {predicted} (ratio {ratio}, tolerance "
-            f"{TRAIN_FO_TOL}); (K1, feature_fold, K2, K3, K2 backward) "
-            f"launches {launches}, expected {want}; host reads "
-            f"{host_reads.n}, expected {reads}")
-    return launches[2], launches[4]
+            f"{TRAIN_FO_TOL}); {GRAD_LAUNCHES} launches {launches}, "
+            f"expected {want}; host reads {host_reads.n}, expected {reads}")
+    return launches[2], launches[4], launches[5], launches[6]
 
 
 def phase_train_step_rgemma():
@@ -3929,7 +4139,21 @@ def phase_train_step_rgemma():
     launches of the counted gradient."""
     return _train_step_case("train_step_rgemma", RGEMMA_ARCH,
                             RGEMMA_TRAIN_CUT, TRAIN_B, TRAIN_S,
-                            TRAIN_FO_FRAC_SSM)
+                            TRAIN_FO_FRAC_SSM)[:2]
+
+
+def phase_train_step_mamba_long():
+    """Falcon-Mamba-7B at full width, depth cut to MAMBA_TRAIN_CUT, its
+    loss and gradient at batch 8 x MAMBA_LONG_S (``_train_step_case``:
+    one warm-up, MAMBA_LONG_REPS timed, gated over TRAIN_FO_FRAC_SSM):
+    the fused scan and its backward once a layer a gradient, 8 chunks of
+    256 steps each, K2 not at all.  Returns (fused scan, fused backward)
+    launches of the timed gradients."""
+    return _train_step_case(
+        "train_step_mamba_long", MAMBA_ARCH, MAMBA_TRAIN_CUT, TRAIN_B,
+        MAMBA_LONG_S, TRAIN_FO_FRAC_SSM, reps=MAMBA_LONG_REPS,
+        why=f"gradients at {TRAIN_B} x {MAMBA_LONG_S} tokens; "
+            "train_path_mamba runs the loop at 8 x 128")[2:]
 
 
 def phase_train_step_families():
@@ -3979,7 +4203,7 @@ def _loop_card_vs_cpu(cfg, params, n_clients: int, tokens: int, loop):
     with Routing() as card_routes:
         card = train(model, card_params, streams, device=DEV, **kw)
     torch.cuda.synchronize()
-    launches = _train_launches() + (_scan_backward_launches(),)
+    launches = _grad_launches()
     t0 = time.perf_counter()
     with Routing(card_routes.ids) as forced:
         cpu = train(model, params, streams, device="cpu", **kw)
@@ -3998,10 +4222,7 @@ def _loop_card_vs_cpu(cfg, params, n_clients: int, tokens: int, loop):
            "weight_err_per_unit": max(leaf_err.values()),
            "weight_err_by_leaf": leaf_err, "tolerance": TRAIN_TOL,
            "card_wall_s": card["wall_s"], "cpu_wall_s": cpu_s,
-           **_routing_record(cfg, forced),
-           "feature_attention_launches": launches[0],
-           "linear_scan_launches": launches[2],
-           "linear_scan_backward_launches": launches[4]}
+           **_routing_record(cfg, forced), **_launch_fields(launches)}
     return rec, launches
 
 
@@ -4032,8 +4253,8 @@ def _grad_card_vs_cpu(cfg, params, B: int, S: int):
     """``cfg``'s loss and gradient on batch B x S (``make_batch``, seed
     0) from ``params`` on the card and from a copy on the CPU, every leaf
     within ``_grad_gaps``; a MoE model's CPU side takes the card's expert
-    ids (``Routing``).  Returns (record, (K2, K2 backward, K1, K3)
-    launches of the card's gradient)."""
+    ids (``Routing``).  Returns (record, GRAD_LAUNCHES of the card's
+    gradient)."""
     from repro_torch.common.pytree import tree_flatten_with_path, tree_map
     from repro_torch.models import build_model, make_batch
 
@@ -4046,8 +4267,7 @@ def _grad_card_vs_cpu(cfg, params, B: int, S: int):
         card_loss, card_g = _grad(model, card_params,
                                   {k: v.to(DEV) for k, v in batch.items()})
     torch.cuda.synchronize()
-    launches = (_launches()[1], _scan_backward_launches(),
-                _launches()[0], _flash_launches())
+    launches = _grad_launches()
     del card_params
     t0 = time.perf_counter()
     with Routing(card_routes.ids) as forced:
@@ -4065,11 +4285,7 @@ def _grad_card_vs_cpu(cfg, params, B: int, S: int):
            "grad_err_per_unit": max(grad_err.values()),
            "grad_err_by_leaf": grad_err, "grad_floor_share": GRAD_FLOOR,
            "tolerance": TRAIN_TOL, "cpu_s": cpu_s,
-           **_routing_record(cfg, forced),
-           "linear_scan_launches": launches[0],
-           "linear_scan_backward_launches": launches[1],
-           "feature_attention_launches": launches[2],
-           "flash_attention_launches": launches[3]}
+           **_routing_record(cfg, forced), **_launch_fields(launches)}
     del card_g, cpu_g, params
     torch.cuda.empty_cache()
     return rec, launches
@@ -4080,17 +4296,19 @@ def phase_train_card_vs_cpu():
     TRAIN_TOL per unit: ``train`` on Qwen2-0.5B at full width, 2 layers
     (attention cooled on both sides; each step's loss and each final
     server leaf), on Falcon-Mamba-7B at full width, 2 layers (as drawn;
-    the same, and first every gradient leaf at the initial weights: a
-    fault in the scan's ``da`` moves the loss along a step by ~1e-5 of
-    its change, past what a loss difference or the weights per unit can
-    show, and the A_log gradient by its own size) and on DeepSeek-V2-Lite
+    the same, and first every gradient leaf at the initial weights, at
+    MAMBA_CMP's batch and at MAMBA_CMP_LONG's, two of the scan's 256-step
+    chunks: a fault in the scan's gradient of A moves the loss along a
+    step by ~1e-5 of its change, past what a loss difference or the
+    weights per unit can show, and the A_log gradient by its own size)
+    and on DeepSeek-V2-Lite
     at full width, 2 layers (its gradient first); the loss and every
     gradient leaf of RecurrentGemma-9B at full width, 3 layers, and of
     FAMILY_CMP's Kimi-K2, Whisper and Qwen2-VL cuts (cooled, the same
     weights on both sides).  The MoE cases' CPU side takes the card's
     expert ids (``Routing``), and their records count the tokens whose
-    own top-k set differed.  Returns {architecture: (K1, K2, K2 backward)
-    launches of its card runs}."""
+    own top-k set differed.  Returns {architecture: (K1, K2, K2 backward,
+    fused scan, fused backward) launches of its card runs}."""
     from repro_torch.common.pytree import tree_map
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
@@ -4105,28 +4323,31 @@ def phase_train_card_vs_cpu():
               "case_wall_s": time.perf_counter() - t0,
               "attention_scaled_leaves": (list(TRAIN_COOL_LEAVES) if cool
                                           else [])})
-        want = _scan_launches(cfg) + (0, 0)
+        k2, k2b, ss, ssb = _scan_launches(cfg)
+        want = (0, 0, k2, 0, k2b, ss, ssb)
         if launches != want or not (
                 rec["loss_err_per_unit"] <= TRAIN_TOL
                 and rec["grad_err_per_unit"] <= TRAIN_TOL):
             raise AssertionError(
-                f"train_card_vs_cpu {cfg.name} gradient: (K2, K2 backward, "
-                f"K1, K3) launches {launches}, expected {want}; loss "
+                f"train_card_vs_cpu {cfg.name} gradient: {GRAD_LAUNCHES} "
+                f"launches {launches}, expected {want}; loss "
                 f"{rec['loss_err_per_unit']}, gradient "
                 f"{rec['grad_err_per_unit']} per unit (tolerance "
                 f"{TRAIN_TOL})")
-        return launches[:2]
+        return np.array((0,) + launches[2:3] + launches[4:])
 
     # the loops' clients and steps before the MoE, audio and VLM cases
     # came (cut for the script's 1000 s)
-    for arch, cut, cool, n, tokens, loop, grad_shape, was in (
+    for arch, cut, cool, n, tokens, loop, grad_shapes, was in (
             (TRAIN_ARCH, TRAIN_CUT, True, TRAIN_CMP_CLIENTS,
-             TRAIN_CMP_TOKENS, TRAIN_CMP, None, (3, 6)),
+             TRAIN_CMP_TOKENS, TRAIN_CMP, (), (3, 6)),
             (MAMBA_ARCH, MAMBA_CMP_CUT, False, MAMBA_CMP_CLIENTS,
-             MAMBA_CMP_TOKENS, MAMBA_CMP, (MAMBA_CMP["batch"],
-                                           MAMBA_CMP["seq"]), (2, 4)),
+             MAMBA_CMP_TOKENS, MAMBA_CMP, ((MAMBA_CMP["batch"],
+                                            MAMBA_CMP["seq"]),
+                                           MAMBA_CMP_LONG), (2, 4)),
             (DEEPSEEK_ARCH, DEEPSEEK_TRAIN_CUT, True, DEEPSEEK_CMP_CLIENTS,
-             DEEPSEEK_CMP_TOKENS, DEEPSEEK_CMP, FAMILY_CMP[0][3:], None)):
+             DEEPSEEK_CMP_TOKENS, DEEPSEEK_CMP, (FAMILY_CMP[0][3:],),
+             None)):
         t0 = time.perf_counter()
         cfg = dataclasses.replace(get_arch(arch), **cut)
         params = build_model(cfg).init(
@@ -4134,14 +4355,14 @@ def phase_train_card_vs_cpu():
         if cool:
             params = _cool_attention(params)
         params = tree_map(lambda t: t.cpu(), params)
-        grad = (0, 0)
-        if grad_shape:
-            grad = grad_case(cfg, params, *grad_shape, cool)
+        grad = sum((grad_case(cfg, params, *shape, cool)
+                    for shape in grad_shapes), np.zeros(5, dtype=int))
         rec, launches = _loop_card_vs_cpu(cfg, params, n, tokens, loop)
         del params
-        fwd, bwd = _scan_launches(cfg)
-        want = (loop["steps"], 0, loop["steps"] * fwd, 0,
-                loop["steps"] * bwd)
+        k2, k2b, ss, ssb = _scan_launches(cfg)
+        steps = loop["steps"]
+        want = (steps, 0, steps * k2, 0, steps * k2b, steps * ss,
+                steps * ssb)
         emit({"phase": "train_card_vs_cpu", **rec,
               **({"reduced": {"clients": [was[0], n],
                               "steps": [was[1], loop["steps"]]}}
@@ -4151,8 +4372,8 @@ def phase_train_card_vs_cpu():
                                           else [])})
         if launches != want:
             raise AssertionError(
-                f"train_card_vs_cpu {arch}: (K1, feature_fold, K2, K3, K2 "
-                f"backward) launches {launches}; expected {want}")
+                f"train_card_vs_cpu {arch}: {GRAD_LAUNCHES} launches "
+                f"{launches}; expected {want}")
         if not (rec["loss_err_per_unit"] <= TRAIN_TOL
                 and rec["weight_err_per_unit"] <= TRAIN_TOL):
             raise AssertionError(
@@ -4160,14 +4381,14 @@ def phase_train_card_vs_cpu():
                 f"{rec['loss_err_per_unit']}, weights "
                 f"{rec['weight_err_per_unit']} per unit (tolerance "
                 f"{TRAIN_TOL})")
-        out[arch] = (launches[0], launches[2] + grad[0],
-                     launches[4] + grad[1])
+        out[arch] = tuple(int(v) for v in grad + np.array(
+            [launches[i] for i in (0, 2, 4, 5, 6)]))
         torch.cuda.empty_cache()
     cfg = dataclasses.replace(get_arch(RGEMMA_ARCH), **RGEMMA_TRAIN_CUT)
     params = _cool_attention(build_model(cfg).init(
         torch.Generator(device=DEV).manual_seed(0), device=DEV))
-    out[RGEMMA_ARCH] = (0,) + grad_case(cfg, params, RGEMMA_CMP_B,
-                                        RGEMMA_CMP_S, True)
+    out[RGEMMA_ARCH] = tuple(int(v) for v in grad_case(
+        cfg, params, RGEMMA_CMP_B, RGEMMA_CMP_S, True))
     del params
     torch.cuda.empty_cache()
     for case, arch, cut, B, S in FAMILY_CMP[1:]:
@@ -4175,9 +4396,9 @@ def phase_train_card_vs_cpu():
         cfg = dataclasses.replace(full, **cut)
         params = _cool_attention(build_model(cfg).init(
             torch.Generator(device=DEV).manual_seed(0), device=DEV))
-        out[arch] = (0,) + grad_case(
+        out[arch] = tuple(int(v) for v in grad_case(
             cfg, params, B, S, True,
-            {k: [getattr(full, k), v] for k, v in cut.items()})
+            {k: [getattr(full, k), v] for k, v in cut.items()}))
         del params
         torch.cuda.empty_cache()
     return out
@@ -4224,8 +4445,8 @@ ONLY_PHASES = ("main_path", "assoc_path", "oracle_path", "sweep_path",
                "paper_rows", "residency_path", "chaos_path",
                "resume_path") + SERVE_PHASES + ("serve_card_vs_cpu",) \
     + ("train_path", "train_path_mamba", "train_path_deepseek",
-       "train_step_rgemma", "train_step_families", "train_card_vs_cpu",
-       "quickstart_path")
+       "train_step_rgemma", "train_step_mamba_long", "train_step_families",
+       "train_card_vs_cpu", "quickstart_path")
 # the serve paths after serve_path: (phase, architecture, weights' dtype,
 # the config's fields cut)
 SERVE_MODEL_PATHS = (
@@ -4309,8 +4530,8 @@ LAUNCH_PATHS = ("main_path", "assoc_path", "oracle_path", "sweep_path",
                 "residency_path", "chaos_path", "resume_path") \
     + SERVE_PHASES[1:] + ("train_path", "train_path_mamba",
                           "train_path_deepseek", "train_step_rgemma",
-                          "train_step_families", "train_card_vs_cpu",
-                          "quickstart_path")
+                          "train_step_mamba_long", "train_step_families",
+                          "train_card_vs_cpu", "quickstart_path")
 
 
 def _by_path(**launches) -> dict:
@@ -4437,6 +4658,8 @@ def main(argv=None) -> int:
             phase_train_path_deepseek()
         if "train_step_rgemma" in only:
             phase_train_step_rgemma()
+        if "train_step_mamba_long" in only:
+            phase_train_step_mamba_long()
         if "train_step_families" in only:
             phase_train_step_families()
         if "train_card_vs_cpu" in only:
@@ -4492,14 +4715,16 @@ def main(argv=None) -> int:
     card_cpu = timed("serve_card_vs_cpu", phase_serve_card_vs_cpu)
     # the training slice last, on a card the serve paths have left empty
     train_k1 = timed("train_path", phase_train_path)
-    mamba_k1, mamba_k2, mamba_k2b = timed("train_path_mamba",
-                                          phase_train_path_mamba)
+    mamba_k1, _, _, mamba_ss, mamba_ssb = timed("train_path_mamba",
+                                                phase_train_path_mamba)
     deepseek_k1 = timed("train_path_deepseek", phase_train_path_deepseek)
     rgemma_k2, rgemma_k2b = timed("train_step_rgemma",
                                   phase_train_step_rgemma)
+    long_ss, long_ssb = timed("train_step_mamba_long",
+                              phase_train_step_mamba_long)
     timed("train_step_families", phase_train_step_families)
     train_cmp = timed("train_card_vs_cpu", phase_train_card_vs_cpu)
-    train_cmp_k1 = sum(k1 for k1, _, _ in train_cmp.values())
+    train_cmp_k1 = sum(v[0] for v in train_cmp.values())
     quick_k1, quick_k3 = timed("quickstart_path", phase_quickstart_path)
     emit({"phase": "timing", "seconds": seconds,
           "total_s": time.perf_counter() - t_start})
@@ -4523,17 +4748,15 @@ def main(argv=None) -> int:
     scan_rec = sv[((1, 64, 16384), torch.float32, "ones")]
     mamba_rec, rglru_rec = sv["mamba"], sv["rglru"]
     fused_rec = sv["mamba_fused"]
+    bwd_rec, bwd_long = sv["mamba_fused_backward"], sv[
+        "mamba_fused_backward_long"]
     # K2 forward and backward on the training paths: the gradients of
-    # train_path_mamba (4 layers: K2 8 a gradient, the forward and the
-    # checkpointed scan's recompute, its backward 4), train_step_rgemma
-    # (2 and 2) and train_card_vs_cpu (Falcon-Mamba 4 and 2 a gradient,
-    # RecurrentGemma 2 and 2)
+    # train_step_rgemma (2 and 2) and train_card_vs_cpu's RecurrentGemma
+    # (2 and 2); the fused scan and its backward, the Mamba layer's, on
+    # train_path_mamba (4 and 4 a gradient), train_step_mamba_long (4 and
+    # 4) and train_card_vs_cpu's Falcon-Mamba (2 and 2 a gradient)
     cmp_mamba, cmp_rgemma = train_cmp[MAMBA_ARCH], train_cmp[RGEMMA_ARCH]
     scan_train_by_path = {
-        "mamba_train": dict(train_path_mamba=mamba_k2,
-                            train_card_vs_cpu=cmp_mamba[1]),
-        "mamba_train_backward": dict(train_path_mamba=mamba_k2b,
-                                     train_card_vs_cpu=cmp_mamba[2]),
         "rglru_train": dict(train_step_rgemma=rgemma_k2,
                             train_card_vs_cpu=cmp_rgemma[1]),
         "rglru_train_backward": dict(train_step_rgemma=rgemma_k2b,
@@ -4631,17 +4854,18 @@ def main(argv=None) -> int:
                      fv[(PHI4_CASE, torch.bfloat16)], flash_launches_phi4,
                      {"serve_path_phi4": flash_launches_phi4},
                      "fa_bf16.cuh"), {
-        # K2 redesigned for the Mamba prefill: the fused selective scan
+        # K2 redesigned for the Mamba layer: the fused selective scan
         # (JAX's _fused_chunk_scan) at Falcon-Mamba-7B's (8, 2016, 8192,
         # 16) with bf16 xh / bc, which serve_path_mamba launches once a
         # layer of the prefill (and serve_card_vs_cpu's fp32 full-width
-        # case once a layer); K2's design at that scan, which it
-        # replaced, beside it
+        # case once a layer; the training paths once a Mamba layer a
+        # gradient, in fp32 with its chunk carries); K2's design at that
+        # scan, which it replaced, beside it
         "name": "selective_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/"
                   "selective_scan.cu",
         "replaces": "src/repro/kernels/linear_scan/kernel.py:56 on the "
-                    "Mamba prefill, as src/repro/models/ssm.py:81 "
+                    "Mamba layer, as src/repro/models/ssm.py:81 "
                     "(_fused_chunk_scan, XLA: no Pallas kernel)",
         "launches": fused_launches_mamba,
         "max_abs_err": fused_rec["max_abs_err"],
@@ -4663,7 +4887,40 @@ def main(argv=None) -> int:
         "launches_by_path": _by_path(
             serve_path_mamba=fused_launches_mamba,
             serve_card_vs_cpu=card_cpu[(MAMBA_ARCH,
-                                        "full_width_2_layers")][2])}, {
+                                        "full_width_2_layers")][2],
+            train_path_mamba=mamba_ss, train_step_mamba_long=long_ss,
+            train_card_vs_cpu=cmp_mamba[3])}, {
+        # its backward (writing each chunk's states to a scratch and
+        # walking them in reverse), fp32, at train_path_mamba's scan (8,
+        # 128, 8192, 16), one chunk, which it launches once a layer a
+        # gradient, and at train_step_mamba_long's (8, 2048, 8192, 16),
+        # eight chunks of 256
+        "name": "selective_scan_backward", "route": "cuda",
+        "source": "src/repro_torch/kernels/linear_scan/csrc/"
+                  "selective_scan.cu",
+        "entry": "selective_scan_backward_launch",
+        "replaces": "src/repro/kernels/linear_scan/kernel.py:56 on the "
+                    "Mamba training path, as the gradient of "
+                    "src/repro/models/ssm.py:81 (_fused_chunk_scan's "
+                    "checkpointed chunk body; XLA's autodiff, no Pallas "
+                    "kernel)",
+        "launches": mamba_ssb, "max_abs_err": bwd_rec["max_abs_err"],
+        "dxh_ddt_dA_bitwise": all(bwd_rec[k] for k in (
+            "dxh_bitwise", "ddt_bitwise", "dA_bitwise")),
+        "dA_err_per_unit": bwd_rec["dA_err_per_unit"],
+        "dbc_err_per_unit": bwd_rec["dbc_err_per_unit"],
+        "ms": bwd_rec["ms"], "call_ms": bwd_rec["call_ms"],
+        "plain_ms": bwd_rec["plain_ms"], "bound_ms": bwd_rec["bound_ms"],
+        "bound_by": bwd_rec["bound_by"],
+        "bound_detail": bwd_rec["bound_detail"],
+        "library_ms": None, "library": bwd_rec["library"],
+        "shape": bwd_rec["shape"], "dtype": "float32",
+        "long": {k: bwd_long[k] for k in (
+            "shape", "n_chunks", "max_abs_err", "ms", "call_ms", "plain_ms",
+            "bound_ms", "bound_by", "bound_share")},
+        "launches_by_path": _by_path(
+            train_path_mamba=mamba_ssb, train_step_mamba_long=long_ssb,
+            train_card_vs_cpu=cmp_mamba[4])}, {
         # K2 at RecurrentGemma-9B's RG-LRU scan, (8, 2016, 4096) fp32:
         # serve_path_rgemma launches it once an RG-LRU layer of the prefill
         "name": "linear_scan_rglru", "route": "cuda",
@@ -4678,15 +4935,13 @@ def main(argv=None) -> int:
         "library": rglru_rec["library"], "shape": rglru_rec["shape"],
         "launches_by_path": _by_path(
             serve_path_rgemma=scan_launches_rgemma)},
-        # K2 forward and its backward kernel at the training paths' scans,
-        # (8, 128, 8192 x 16) and (8, 128, 4096) fp32: once a recurrent
-        # layer a gradient each
+        # K2 forward and its backward kernel at RecurrentGemma-9B's
+        # training scan, (8, 128, 4096) fp32: once an RG-LRU layer a
+        # gradient each
         *(_scan_train_entry(name, sv[key], scan_train_by_path[key])
           for name, key in (
-              ("linear_scan_mamba_train", "mamba_train"),
-              ("linear_scan_backward", "mamba_train_backward"),
               ("linear_scan_rglru_train", "rglru_train"),
-              ("linear_scan_backward_rglru", "rglru_train_backward"))),
+              ("linear_scan_backward", "rglru_train_backward"))),
         # K3's head-dim-256 instances at RecurrentGemma-9B's layer 0 (16
         # heads over 1 KV head, window 2048, which 2016 keys do not bind):
         # bf16 on serve_path_rgemma once a superblock of the prefill, fp32

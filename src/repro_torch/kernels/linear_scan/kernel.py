@@ -6,18 +6,22 @@ with ``nvcc`` at first use (``repro_torch.kernels.build``) and called
 through ``ctypes`` on PyTorch's current stream.
 
 ``selective_scan_kernel`` (``csrc/selective_scan.cu``) is the recurrence
-redesigned for the Mamba prefill: the port of the JAX package's default
+redesigned for the Mamba layer: the port of the JAX package's default
 ``_fused_chunk_scan``, which forms ``exp(dt A)`` and ``dt B x`` in
 registers, runs the recurrence and writes ``y = h . C`` and the last
-state, so no ``(B, S, d_inner, N)`` tensor exists.
+state, so no ``(B, S, d_inner, N)`` tensor exists; under grad it also
+writes the state before each chunk, from which
+``selective_scan_backward_kernel`` recomputes one chunk's states at a
+time and walks them in reverse (the gradients of xh, dt, A and bc).
 
 ``linear_scan_kernel`` launches the forward recurrence and
 ``linear_scan_backward_kernel`` its reverse (fp32, the gradients of a
 and b).  The forward wrapper refuses inputs that require grad under grad
 mode rather than return states with no autograd history: the
 differentiable route is ``ops.linear_scan``, whose autograd Function
-launches both, and through which the SSM and hybrid models train on the
-card.
+launches both, and through which RG-LRU trains on the card; the Mamba
+layer trains through ``ops.selective_scan``'s autograd Function, which
+launches the fused scan and its backward.
 
 Each wrapper's ``launches`` counts the launches this process made; a
 run that resets it to 0 and reads it afterwards can show that its main
@@ -31,7 +35,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.linear_scan.ref import check_selective_args
+from repro_torch.kernels.linear_scan.ref import (check_selective_args,
+                                                 fused_chunk)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -39,7 +44,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # C entry -> (library, pointer arguments, int arguments), then the stream
 _ENTRIES = {"linear_scan_launch": ("linear_scan", 4, 5),
             "linear_scan_backward_launch": ("linear_scan", 6, 3),
-            "selective_scan_launch": ("selective_scan", 6, 5)}
+            "selective_scan_launch": ("selective_scan", 7, 6),
+            "selective_scan_backward_launch": ("selective_scan", 12, 5)}
 
 
 def _entry(name: str = "linear_scan_launch"):
@@ -169,54 +175,134 @@ linear_scan_backward_kernel.launches = 0
 SELECTIVE_N = 16
 
 
+def _selective_checks(name: str, ts, xh, dt, A, bc, types):
+    """The fused kernels' common refusals; returns (B, S, di, N)."""
+    if not all(t.is_cuda for t in ts):
+        raise ValueError(
+            f"{name} needs CUDA tensors, got {[str(t.device) for t in ts]}")
+    if any(t.device != xh.device for t in ts):
+        raise ValueError(f"tensors on {[str(t.device) for t in ts]}")
+    B, S, di, N = check_selective_args(xh, dt, A, bc)
+    if xh.dtype not in types:
+        raise ValueError(f"{name} takes xh and bc in "
+                         f"{' or '.join(str(t) for t in types)}; got "
+                         f"{xh.dtype}")
+    if N != SELECTIVE_N or di % 8:
+        raise ValueError(
+            f"{name} is compiled for N = {SELECTIVE_N} and d_inner a "
+            f"multiple of 8; got N = {N}, d_inner = {di}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"{name} takes contiguous tensors")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError(f"{name} takes 16-byte aligned tensors (its "
+                         "copies move 16 bytes)")
+    if B > 65535 or xh.numel() * N >= 2 ** 62:
+        raise ValueError(f"shape {tuple(xh.shape)} exceeds the kernel's grid")
+    return B, S, di, N
+
+
 def selective_scan_kernel(xh: torch.Tensor, dt: torch.Tensor,
-                          A: torch.Tensor, bc: torch.Tensor
-                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+                          A: torch.Tensor, bc: torch.Tensor,
+                          chunks: bool = False):
     """The fused selective scan from a zero state: ``xh`` (B, S, di) and
     ``bc`` (B, S, 2N) of one dtype (fp32 or bf16; B is bc's first N
     columns, C its last N), ``dt`` (B, S, di) and ``A`` (di, N) fp32, all
     contiguous CUDA tensors on one device, N = 16, di a multiple of 8 ->
-    (y (B, S, di), h_last (B, di, N)), both fp32.  Raises on anything
-    else, and where grad mode is on and an input requires grad."""
+    (y (B, S, di), h_last (B, di, N)), both fp32; with ``chunks`` also
+    ``h_chunks`` (B, S / c, di, N) fp32, the state before each chunk of c
+    = ``fused_chunk(S)`` steps (the backward's carries).  Raises on
+    anything else, and where grad mode is on and an input requires
+    grad."""
     ts = (xh, dt, A, bc)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise RuntimeError(
             "selective_scan_kernel returns outputs with no autograd "
-            "history; the SSM trains through ops.linear_scan (K2 and its "
-            "backward kernel)")
-    if not all(t.is_cuda for t in ts):
-        raise ValueError(
-            "selective_scan_kernel needs CUDA tensors, got "
-            f"{[str(t.device) for t in ts]}")
-    if any(t.device != xh.device for t in ts):
-        raise ValueError(f"tensors on {[str(t.device) for t in ts]}")
-    B, S, di, N = check_selective_args(xh, dt, A, bc)
-    if xh.dtype not in _DTYPES:
-        raise ValueError("selective_scan_kernel takes xh and bc in float32 "
-                         f"or bfloat16; got {xh.dtype}")
-    if N != SELECTIVE_N or di % 8:
-        raise ValueError(
-            f"selective_scan_kernel is compiled for N = {SELECTIVE_N} and "
-            f"d_inner a multiple of 8; got N = {N}, d_inner = {di}")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("selective_scan_kernel takes contiguous tensors")
-    if any(t.data_ptr() % 16 for t in ts):
-        raise ValueError("selective_scan_kernel takes 16-byte aligned "
-                         "tensors (its copies move 16 bytes)")
-    if B > 65535 or xh.numel() * N >= 2 ** 62:
-        raise ValueError(f"shape {tuple(xh.shape)} exceeds the kernel's grid")
+            "history: call repro_torch.kernels.linear_scan.ops."
+            "selective_scan, the differentiable route, which launches this "
+            "kernel and selective_scan_backward_kernel")
+    B, S, di, N = _selective_checks("selective_scan_kernel", ts, *ts,
+                                    tuple(_DTYPES))
     y = torch.empty((B, S, di), dtype=torch.float32, device=xh.device)
     h_last = (torch.empty if S else torch.zeros)(
         (B, di, N), dtype=torch.float32, device=xh.device)
+    c = fused_chunk(S) if S else 1
+    h_chunks = (torch.empty((B, S // c, di, N), dtype=torch.float32,
+                            device=xh.device) if chunks else None)
     err = _launch(_entry("selective_scan_launch"), (
         xh.data_ptr(), dt.data_ptr(), A.data_ptr(), bc.data_ptr(),
-        y.data_ptr(), h_last.data_ptr(), B, S, di, N, _DTYPES[xh.dtype]), xh)
+        y.data_ptr(), h_last.data_ptr(),
+        None if h_chunks is None else h_chunks.data_ptr(), B, S, di, N, c,
+        _DTYPES[xh.dtype]), xh)
     if err != 0:
         raise RuntimeError(
             f"selective_scan kernel launch failed: CUDA error {err} at shape "
             f"{(B, S, di, N)} {xh.dtype}")
     selective_scan_kernel.launches += 1
-    return y, h_last
+    return (y, h_last, h_chunks) if chunks else (y, h_last)
 
 
 selective_scan_kernel.launches = 0
+
+# the fused backward's channels a block: its partial sums of dB and dC
+# come one a block of this many d_inner channels
+SELECTIVE_BLOCK = 128
+
+
+def selective_scan_backward_kernel(xh: torch.Tensor, dt: torch.Tensor,
+                                   A: torch.Tensor, bc: torch.Tensor,
+                                   h_chunks: torch.Tensor, gy: torch.Tensor,
+                                   gh_last: Optional[torch.Tensor] = None):
+    """The fused selective scan's backward: its inputs ``xh``, ``dt``
+    (B, S, di), ``A`` (di, N) and ``bc`` (B, S, 2N), the forward's
+    ``h_chunks`` (B, S / c, di, N), the gradient ``gy`` (B, S, di) of y
+    and ``gh_last`` (B, di, N) of h_last (None: zero), all contiguous fp32
+    CUDA tensors on one device -> (dxh, ddt (B, S, di), dA (di, N), dbc
+    (B, S, 2N)), fp32.  One launch; dA and dbc are its per-block partials
+    summed in a fixed order.  Raises on anything else: bf16, N != 16, a
+    CPU tensor."""
+    ts = (xh, dt, A, bc, h_chunks, gy) + (
+        () if gh_last is None else (gh_last,))
+    if any(t.dtype != torch.float32 for t in ts):
+        raise ValueError(
+            "selective_scan_backward_kernel takes float32 only; got "
+            f"{[str(t.dtype) for t in ts]}")
+    B, S, di, N = _selective_checks("selective_scan_backward_kernel", ts,
+                                    xh, dt, A, bc, (torch.float32,))
+    c = fused_chunk(S) if S else 1
+    if tuple(h_chunks.shape) != (B, S // c, di, N) \
+            or tuple(gy.shape) != (B, S, di) or (
+                gh_last is not None and tuple(gh_last.shape) != (B, di, N)):
+        raise ValueError(
+            "selective_scan_backward_kernel takes h_chunks (B, S / c, di, "
+            f"N) = {(B, S // c, di, N)}, gy (B, S, di) and gh_last (B, di, "
+            f"N); got h_chunks {tuple(h_chunks.shape)}, gy "
+            f"{tuple(gy.shape)}, gh_last "
+            f"{None if gh_last is None else tuple(gh_last.shape)}")
+    dev = xh.device
+    if not S:
+        return (torch.zeros_like(dt), torch.zeros_like(dt),
+                torch.zeros_like(A),
+                torch.zeros((B, 0, 2 * N), dtype=torch.float32, device=dev))
+    dxh = torch.empty((B, S, di), dtype=torch.float32, device=dev)
+    ddt = torch.empty_like(dxh)
+    n_blocks = -(-di // SELECTIVE_BLOCK)
+    dA_part = torch.empty((B, di, N), dtype=torch.float32, device=dev)
+    dbc_part = torch.empty((n_blocks, B, S, 2 * N), dtype=torch.float32,
+                           device=dev)
+    scratch = torch.empty((B, c, N, di), dtype=torch.float32, device=dev)
+    err = _launch(_entry("selective_scan_backward_launch"), (
+        xh.data_ptr(), dt.data_ptr(), A.data_ptr(), bc.data_ptr(),
+        h_chunks.data_ptr(), gy.data_ptr(),
+        None if gh_last is None else gh_last.data_ptr(), dxh.data_ptr(),
+        ddt.data_ptr(), dA_part.data_ptr(), dbc_part.data_ptr(),
+        scratch.data_ptr(), B, S, di, N, c), xh)
+    if err != 0:
+        raise RuntimeError(
+            "selective_scan backward kernel launch failed: CUDA error "
+            f"{err} at shape {(B, S, di, N)}")
+    selective_scan_backward_kernel.launches += 1
+    del scratch
+    return dxh, ddt, dA_part.sum(0), dbc_part.sum(0)
+
+
+selective_scan_backward_kernel.launches = 0

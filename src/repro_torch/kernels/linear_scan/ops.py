@@ -15,7 +15,11 @@ before.
 
 :func:`selective_scan` is the Mamba layer's fused scan (the JAX
 package's default ``_fused_chunk_scan``): the fused kernel on a CUDA
-tensor, its plain version on a CPU tensor, forward only.
+tensor, its plain version on a CPU tensor.  Under grad it goes through
+:class:`SelectiveScan`, which saves the state before each chunk and
+whose backward recomputes one chunk at a time from it, as JAX's
+checkpointed chunk body: the fused backward kernel on a CUDA tensor, its
+plain version on a CPU tensor.
 
 :func:`fold_prefix` maps one tick's affine server-fold stream onto the
 recurrence: B=1, S = the tick's bucket, C = one carrier leaf's size, the
@@ -29,10 +33,11 @@ import torch
 
 from repro_torch.common.pytree import Tree, tree_flatten, tree_unflatten
 from repro_torch.kernels.linear_scan.kernel import (
-    linear_scan_backward_kernel, linear_scan_kernel, selective_scan_kernel)
-from repro_torch.kernels.linear_scan.ref import (linear_scan_backward_ref,
-                                                 linear_scan_ref,
-                                                 selective_scan_ref)
+    linear_scan_backward_kernel, linear_scan_kernel,
+    selective_scan_backward_kernel, selective_scan_kernel)
+from repro_torch.kernels.linear_scan.ref import (
+    check_selective_args, linear_scan_backward_ref, linear_scan_ref,
+    selective_scan_backward_ref, selective_scan_ref)
 
 
 def _on_card(x: torch.Tensor, use_kernel: Optional[bool],
@@ -124,17 +129,77 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor, *,
     return h.reshape(shape), h_last.reshape((B,) + tuple(shape[2:]))
 
 
+def _selective(xh, dt, A, bc, on_card: bool, chunks: bool = False):
+    if on_card:
+        return selective_scan_kernel(xh.contiguous(), dt.contiguous(),
+                                     A.contiguous(), bc.contiguous(),
+                                     chunks=chunks)
+    return selective_scan_ref(xh, dt, A, bc, chunks=chunks)
+
+
+class SelectiveScan(torch.autograd.Function):
+    """The fused selective scan under autograd.  The forward is one
+    :func:`_selective` call that also returns the state before each
+    chunk, ``h_chunks`` (B, S / c, di, N); it saves ``(xh, dt, A, bc,
+    h_chunks)`` and no (B, S, di, N) tensor.  The backward recomputes a
+    chunk's states at a time from those carries (JAX's checkpointed chunk
+    body): the fused backward kernel on a CUDA tensor, its plain version
+    on a CPU tensor.  A gradient of y or h_last that autograd passes as
+    None is taken as zero."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, A, bc, on_card: bool):
+        y, h_last, h_chunks = _selective(xh, dt, A, bc, on_card, chunks=True)
+        ctx.save_for_backward(xh, dt, A, bc, h_chunks)
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, gy, gh_last):
+        xh, dt, A, bc, h_chunks = ctx.saved_tensors
+        if gy is None:
+            gy = torch.zeros_like(dt)
+        if xh.is_cuda:
+            grads = selective_scan_backward_kernel(
+                xh, dt, A, bc, h_chunks, gy.contiguous(),
+                None if gh_last is None else gh_last.contiguous())
+        else:
+            grads = selective_scan_backward_ref(xh, dt, A, bc, h_chunks, gy,
+                                                gh_last)
+        return (*grads, None)
+
+
+def _check_selective_grad(xh: torch.Tensor) -> None:
+    """The types :class:`SelectiveScan` differentiates."""
+    # float32, the backward kernel's type; on the CPU float64 as well,
+    # for gradient checks
+    types = (torch.float32,) if xh.is_cuda else (torch.float32,
+                                                 torch.float64)
+    if xh.dtype not in types:
+        raise TypeError(
+            f"SelectiveScan on {xh.device.type} differentiates xh and bc "
+            f"of one type of {[str(t) for t in types]}; got {xh.dtype} (no "
+            "bfloat16 backward)")
+
+
 def selective_scan(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    bc: torch.Tensor, *, use_kernel: Optional[bool] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A Mamba layer's selective scan from a zero state, forward only:
-    ``xh`` (B, S, di) and ``bc`` (B, S, 2N) in the model's dtype, ``dt``
-    (B, S, di) after the softplus and ``A = -exp(A_log)`` (di, N) in fp32
-    -> (``y = h . C`` (B, S, di), ``h_last`` (B, di, N)), both fp32."""
-    if _on_card(xh, use_kernel, "use_kernel"):
-        return selective_scan_kernel(xh.contiguous(), dt.contiguous(),
-                                     A.contiguous(), bc.contiguous())
-    return selective_scan_ref(xh, dt, A, bc)
+    """A Mamba layer's selective scan from a zero state: ``xh`` (B, S, di)
+    and ``bc`` (B, S, 2N) in the model's dtype, ``dt`` (B, S, di) after
+    the softplus and ``A = -exp(A_log)`` (di, N) in fp32 -> (``y = h . C``
+    (B, S, di), ``h_last`` (B, di, N)), both fp32.  With grad mode on and
+    an input requiring grad it goes through :class:`SelectiveScan` (fp32;
+    fp64 too on the CPU); otherwise the forward alone."""
+    on_card = _on_card(xh, use_kernel, "use_kernel")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xh, dt, A, bc)):
+        check_selective_args(xh, dt, A, bc)
+        _check_selective_grad(xh)
+        if on_card:  # the kernels take contiguous tensors (no copy if so)
+            xh, dt, A, bc = (t.contiguous() for t in (xh, dt, A, bc))
+        return SelectiveScan.apply(xh, dt, A, bc, on_card)
+    return _selective(xh, dt, A, bc, on_card)
 
 
 def fold_prefix(a: torch.Tensor, b: Tree, h0: Optional[Tree] = None, *,

@@ -15,7 +15,10 @@ use).
 ``selective_scan_ref`` is the plain version of the fused selective scan
 (``selective_scan_kernel``): a PyTorch port of the JAX package's
 ``repro.models.ssm._fused_chunk_scan``, chunk by chunk, with the
-recurrence run in order inside each chunk.
+recurrence run in order inside each chunk.  ``selective_scan_backward_ref``
+is the plain version of its backward (``selective_scan_backward_kernel``):
+what autograd derives through the JAX function's checkpointed chunk
+body, one chunk at a time from its carried state, last chunk first.
 """
 from __future__ import annotations
 
@@ -75,8 +78,9 @@ def linear_scan_backward_ref(a: torch.Tensor, h: torch.Tensor,
 def check_selective_args(xh: torch.Tensor, dt: torch.Tensor,
                          A: torch.Tensor, bc: torch.Tensor):
     """The selective scan's shapes and types: xh (B, S, di) and bc (B, S,
-    2N) of one dtype, dt (B, S, di) and A (di, N) float32 -> (B, S, di,
-    N).  Raises ValueError on anything else."""
+    2N) of one dtype, dt (B, S, di) and A (di, N) float32 (float64 where
+    xh is: gradient checks) -> (B, S, di, N).  Raises ValueError on
+    anything else."""
     if xh.dim() != 3 or dt.shape != xh.shape or A.dim() != 2 \
             or A.shape[0] != xh.shape[2] or bc.dim() != 3 \
             or bc.shape[:2] != xh.shape[:2] or bc.shape[2] != 2 * A.shape[1]:
@@ -85,12 +89,12 @@ def check_selective_args(xh: torch.Tensor, dt: torch.Tensor,
             "(di, N) and bc (B, S, 2N); got xh "
             f"{tuple(xh.shape)}, dt {tuple(dt.shape)}, A {tuple(A.shape)}, "
             f"bc {tuple(bc.shape)}")
-    if bc.dtype != xh.dtype or dt.dtype != torch.float32 \
-            or A.dtype != torch.float32:
+    wide = _compute_dtype(xh)
+    if bc.dtype != xh.dtype or dt.dtype != wide or A.dtype != wide:
         raise ValueError(
             "the selective scan takes xh and bc of one dtype and dt and A "
-            f"in float32; got xh {xh.dtype}, bc {bc.dtype}, dt {dt.dtype}, "
-            f"A {A.dtype}")
+            "in float32 (float64 with float64 xh); got xh "
+            f"{xh.dtype}, bc {bc.dtype}, dt {dt.dtype}, A {A.dtype}")
     B, S, di = xh.shape
     return B, S, di, A.shape[1]
 
@@ -104,8 +108,39 @@ def fused_chunk(S: int) -> int:
     return c
 
 
+def _chunk_coeffs(xh, dt, A, bc, s0: int, c: int, N: int):
+    """One chunk's ``dA = exp(dt A)`` and ``dBx = (dt B) x`` (B, c, di,
+    N), formed as ``_ssm_coeffs`` forms them, in dt's type."""
+    dt_c = dt[:, s0:s0 + c]
+    dA = (dt_c[..., None] * A).exp_()
+    dBx = dt_c[..., None] * bc[:, s0:s0 + c, None, :N].to(dt.dtype)
+    dBx.mul_(xh[:, s0:s0 + c, :, None].to(dt.dtype))
+    return dA, dBx
+
+
+def _chunk_states(dA, dBx, h):
+    """(B, c + 1, di, N): the carry ``h``, then the chunk's states in
+    order."""
+    hs = torch.empty((dA.shape[0], dA.shape[1] + 1) + dA.shape[2:],
+                     dtype=dA.dtype, device=dA.device)
+    hs[:, 0] = h
+    for t in range(dA.shape[1]):
+        h = dA[:, t] * h + dBx[:, t]
+        hs[:, t + 1] = h
+    return hs
+
+
+def _sum_over_n(v):
+    """``v[..., 0] + v[..., 1] + ...`` in order, each sum rounded alone
+    (the kernel's order)."""
+    out = v[..., 0]
+    for n in range(1, v.shape[-1]):
+        out = out + v[..., n]
+    return out
+
+
 def selective_scan_ref(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                       bc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+                       bc: torch.Tensor, chunks: bool = False):
     """``_fused_chunk_scan`` from a zero state: per chunk of
     :func:`fused_chunk` steps, the coefficients ``dA = exp(dt A)`` and
     ``dBx = (dt B) x`` (B, c, di, N) formed as ``_ssm_coeffs`` forms
@@ -113,26 +148,77 @@ def selective_scan_ref(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     to chunk, and ``y = einsum(h, C)`` summed over n in order (the
     kernel's order: the two agree bit for bit).  xh (B, S, di), dt (B, S, di)
     fp32, A (di, N) fp32, bc (B, S, 2N) in xh's dtype -> (y (B, S, di),
-    h_last (B, di, N)), both fp32."""
+    h_last (B, di, N)), both fp32 (fp64 for fp64 inputs); with ``chunks``
+    also ``h_chunks`` (B, S / c, di, N), the state before each chunk."""
     B, S, di, N = check_selective_args(xh, dt, A, bc)
+    wide = dt.dtype
     c = fused_chunk(S) if S else 1
-    h = torch.zeros((B, di, N), dtype=torch.float32, device=xh.device)
-    y = torch.empty((B, S, di), dtype=torch.float32, device=xh.device)
-    for s0 in range(0, S, c):
-        dt_c = dt[:, s0:s0 + c]
-        bc_c = bc[:, s0:s0 + c]
-        dA = (dt_c[..., None] * A).exp_()
-        dBx = dt_c[..., None] * bc_c[..., None, :N].to(torch.float32)
-        dBx.mul_(xh[:, s0:s0 + c, :, None].to(torch.float32))
-        hs = torch.empty_like(dBx)
-        for t in range(c):
-            h = dA[:, t] * h + dBx[:, t]
-            hs[:, t] = h
+    h = torch.zeros((B, di, N), dtype=wide, device=xh.device)
+    y = torch.empty((B, S, di), dtype=wide, device=xh.device)
+    h_chunks = torch.empty((B, S // c, di, N), dtype=wide, device=xh.device)
+    for k, s0 in enumerate(range(0, S, c)):
+        h_chunks[:, k] = h
+        hs = _chunk_states(*_chunk_coeffs(xh, dt, A, bc, s0, c, N), h)
+        h = hs[:, -1]
         # JAX's einsum with C, summed over n in order: h_0 C_0, then
         # + h_n C_n, each product and sum rounded alone
-        Cc = bc_c[..., N:].to(torch.float32)
-        yc = hs[..., 0] * Cc[..., 0, None]
-        for n in range(1, N):
-            yc = yc + hs[..., n] * Cc[..., n, None]
-        y[:, s0:s0 + c] = yc
-    return y, h
+        Cc = bc[:, s0:s0 + c, N:].to(wide)
+        y[:, s0:s0 + c] = _sum_over_n(hs[:, 1:] * Cc[:, :, None, :])
+    h = h.clone()
+    return (y, h, h_chunks) if chunks else (y, h)
+
+
+def selective_scan_backward_ref(xh: torch.Tensor, dt: torch.Tensor,
+                                A: torch.Tensor, bc: torch.Tensor,
+                                h_chunks: torch.Tensor, gy: torch.Tensor,
+                                gh_last: Optional[torch.Tensor] = None):
+    """The backward of :func:`selective_scan_ref`: its inputs, the
+    forward's ``h_chunks`` and the gradients ``gy`` (B, S, di) of y and
+    ``gh_last`` (B, di, N) of h_last (None: zero) -> (dxh, ddt (B, S,
+    di), dA (di, N), dbc (B, S, 2N)), in dt's type.  Chunks last to
+    first: the chunk's states recomputed from its carry in the forward's
+    order (the same values bit for bit), then in reverse ``g_t = gy_t C_t
+    + dA_{t+1} g_{t+1}`` (from ``gh_last``), and
+
+    * ``dxh_t = sum_n g (dt B)``,
+    * ``ddt_t = sum_n ((g h_{t-1}) dA) A + (g x) B``,
+    * ``dA_n = sum_{b, t} ((g h_{t-1}) dA) dt``,
+    * ``dB_t,n = sum_d (g x) dt``, ``dC_t,n = sum_d gy h_t``,
+
+    each product rounded alone, the sums over n in order and dA's over t
+    in the walk's order (then over b), as the kernel rounds them: dxh,
+    ddt and dA agree with it bit for bit (dbc is a sum over channels,
+    taken in another order)."""
+    B, S, di, N = check_selective_args(xh, dt, A, bc)
+    wide = dt.dtype
+    c = fused_chunk(S) if S else 1
+    dxh = torch.empty((B, S, di), dtype=wide, device=xh.device)
+    ddt = torch.empty_like(dxh)
+    dbc = torch.empty((B, S, 2 * N), dtype=wide, device=xh.device)
+    dA_b = torch.zeros((B, di, N), dtype=wide, device=xh.device)
+    r = (torch.zeros((B, di, N), dtype=wide, device=xh.device)
+         if gh_last is None else gh_last.to(wide))
+    for k in range(S // c - 1, -1, -1):
+        s0 = k * c
+        dA, dBx = _chunk_coeffs(xh, dt, A, bc, s0, c, N)
+        hs = _chunk_states(dA, dBx, h_chunks[:, k].to(wide))
+        del dBx
+        Bc = bc[:, s0:s0 + c, None, :N].to(wide)
+        Cc = bc[:, s0:s0 + c, None, N:].to(wide)
+        dt_c = dt[:, s0:s0 + c, :, None]
+        gy_c = gy[:, s0:s0 + c, :, None].to(wide)
+        g = gy_c * Cc  # gy C, then + dA_{t+1} g_{t+1} step by step
+        for t in range(c - 1, -1, -1):
+            g[:, t] += r
+            r = dA[:, t] * g[:, t]
+        dxh[:, s0:s0 + c] = _sum_over_n(g * (dt_c * Bc))
+        gx = g * xh[:, s0:s0 + c, :, None].to(wide)
+        q = (g * hs[:, :-1]) * dA
+        del g, dA
+        ddt[:, s0:s0 + c] = _sum_over_n(q * A + gx * Bc)
+        dq = q * dt_c
+        for t in range(c - 1, -1, -1):
+            dA_b += dq[:, t]
+        dbc[:, s0:s0 + c, :N] = (gx * dt_c).sum(2)
+        dbc[:, s0:s0 + c, N:] = (gy_c * hs[:, 1:]).sum(2)
+    return dxh, ddt, dA_b.sum(0), dbc

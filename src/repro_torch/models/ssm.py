@@ -1,32 +1,21 @@
 """Mamba-1 selective-SSM block (Falcon-Mamba architecture).
 
 Mirrors ``repro.models.ssm`` on one card, in the JAX package's order of
-every fp32 operation.  The prefill's selective scan takes both of that
-package's branches:
-
-* without grad (serving, the prefill) its default, ``scan_impl="xla"``'s
-  ``_fused_chunk_scan``: ``kernels/linear_scan/ops.py::selective_scan``
-  gets ``xh``, ``dt`` (after the softplus), ``A = -exp(A_log)`` and the
-  B/C projection ``bc`` and returns ``y = h . C`` and the last state.  On
-  a CUDA tensor that is the fused selective-scan kernel (one launch a
-  layer), which forms ``exp(dt A)`` and ``dt B x`` in registers, runs the
-  recurrence and writes ``y``, so no ``(B, S, d_inner, N)`` tensor
-  exists; on a CPU tensor its plain version, JAX's chunk loop in
-  PyTorch.
-* under grad, the ``scan_impl="pallas"`` branch: ``_ssm_coeffs``
-  materializes the discretized coefficients ``dA`` and ``dBx`` as ``(B,
-  S, d_inner, N)`` fp32 tensors and ``ops.py::linear_scan`` solves the
-  recurrence over them through its autograd Function: K2's CUDA kernel
-  and K2's backward kernel on the card (one launch each a layer), their
-  plain versions on the CPU.  The coefficients, the scan and the
-  C-projection of a layer are checkpointed, as the JAX chunk body is:
-  the forward keeps no ``(B, S, d_inner, N)`` tensor, and the backward
-  recomputes them from ``xh`` and the weights (K2 runs twice a layer a
-  gradient, its backward kernel once) and holds the layer's three,
-  ``dA``, ``dt * B`` and the states ``h`` (537 MB each at 8 x 128
-  tokens), while it runs.  JAX recomputes per 256-step chunk from the
-  chunk's carried state; the port recomputes the whole sequence from a
-  zero state, which is the same at S <= 256.
+every fp32 operation.  The prefill's selective scan takes that package's
+default branch, ``scan_impl="xla"``'s ``_fused_chunk_scan``, with and
+without grad: ``kernels/linear_scan/ops.py::selective_scan`` gets ``xh``,
+``dt`` (after the softplus), ``A = -exp(A_log)`` and the B/C projection
+``bc`` and returns ``y = h . C`` and the last state.  On a CUDA tensor
+that is the fused selective-scan kernel (one launch a layer), which forms
+``exp(dt A)`` and ``dt B x`` in registers, runs the recurrence and writes
+``y``, so no ``(B, S, d_inner, N)`` tensor exists; on a CPU tensor its
+plain version, JAX's chunk loop in PyTorch.  Under grad the forward also
+keeps the state before each chunk of JAX's rule (256 steps, fewer where
+S is short or not a multiple: the ``lax.scan`` carries), and the
+backward (the fused backward kernel on the card, one launch a layer)
+recomputes one chunk's states at a time from them, as JAX's
+checkpointed chunk body: no tensor larger than one chunk's states is
+held.
 
 Decode is one plain fp32 recurrence step (``linear_scan_step``) and
 launches no kernel.
@@ -35,10 +24,9 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.linear_scan.ops import linear_scan, selective_scan
+from repro_torch.kernels.linear_scan.ops import selective_scan
 from repro_torch.models.scan_utils import linear_scan_step
 from repro_torch.models.spec import ParamDef
 
@@ -105,24 +93,10 @@ def _ssm_coeffs(params, xh: torch.Tensor):
     dt, A, bc = _scan_inputs(params, xh)
     Bc, Cc = bc[..., :N], bc[..., N:]
     dA = (dt[..., None] * A).exp_()
-    # (dt * B) * x, the JAX order.  The second product in place where
-    # autograd does not track it (serving); out of place under grad, where
-    # in place autograd would clone dt * B for its backward: the same
-    # values, one copy pass fewer
+    # (dt * B) * x, the JAX order
     dBx = dt[..., None] * Bc[..., None, :].to(torch.float32)
-    x32 = xh[..., None].to(torch.float32)
-    dBx = dBx * x32 if dBx.requires_grad else dBx.mul_(x32)
+    dBx.mul_(xh[..., None].to(torch.float32))
     return dA, dBx, Cc
-
-
-def _selective_scan(params, xh: torch.Tensor):
-    """xh (B, S, di) -> (y = h . C (B, S, di) fp32, h_last (B, di, N)):
-    the coefficients, the recurrence from a zero state (K2 on a CUDA
-    tensor) and the C-projection: the route under grad."""
-    dA, dBx, Cc = _ssm_coeffs(params, xh)
-    h, h_last = linear_scan(dA, dBx)  # K2 on a CUDA tensor
-    del dA, dBx
-    return torch.einsum("bsdn,bsn->bsd", h, Cc.to(torch.float32)), h_last
 
 
 def _gate_out(params, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
@@ -142,17 +116,10 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
     xc = _causal_conv(xa, params["conv_w"], params["conv_b"])
     xh = F.silu(xc.to(torch.float32)).to(x.dtype)
     del xc
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (xh, *params.values())):
-        # the JAX chunk body's jax.checkpoint, one chunk a layer: the
-        # backward recomputes the coefficients, the scan and the
-        # C-projection from xh and the weights
-        y, h_last = checkpoint(_selective_scan, params, xh,
-                               use_reentrant=False, preserve_rng_state=False)
-    else:  # JAX's default _fused_chunk_scan: the fused kernel on the card
-        dt, A, bc = _scan_inputs(params, xh)
-        y, h_last = selective_scan(xh, dt, A, bc)
-        del dt
+    # JAX's default _fused_chunk_scan: the fused kernel on the card
+    dt, A, bc = _scan_inputs(params, xh)
+    y, h_last = selective_scan(xh, dt, A, bc)
+    del dt
     out = _gate_out(params, y, xh, z, x.dtype)
     if return_state:
         K = cfg.ssm_conv

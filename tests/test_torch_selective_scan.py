@@ -7,10 +7,14 @@ JAX package's default Mamba scan (``scan_impl="xla"``).  On the CPU it
 is held against that function across its chunk boundaries (S = 48, 384
 and 512 cross one, three and two chunks of JAX's rule), against the
 port's own K2 route (``_ssm_coeffs``, ``linear_scan_ref``, the einsum
-with C), and ``mamba_forward`` is checked to take the new dispatcher
-without grad and ``LinearScan`` with it.  The dispatcher's and the
-wrapper's refusals are checked on CPU tensors; the kernel itself is held
-against its plain version on the card in
+with C), and ``mamba_forward`` is checked to take the fused dispatcher
+with and without grad (under grad through ``SelectiveScan``, whose CPU
+backward is ``selective_scan_backward_ref``).  That plain backward is
+held against ``torch.autograd`` through ``selective_scan_ref`` at S = 1,
+24, 256, 512 (two chunks of 256) and 520 (65 chunks of 8), with and
+without a gradient of h_last, in fp64 and fp32.  The dispatcher's and the
+wrappers' refusals are checked on CPU tensors; the kernels themselves are
+held against their plain versions on the card in
 ``tests/test_torch_selective_scan_card.py``.  Inputs come from numpy
 with a seed; the weights are a Mamba layer's as the JAX spec draws them.
 
@@ -23,7 +27,9 @@ framework; measured at most 2.5e-5 on y, 2.6e-7 on h_last); against the
 K2 route h_last bit for bit and y within ``ROUTE_TOL`` = 1e-6 (the
 einsum's order against the ordered sum over n; measured at most
 1.4e-7); the layer against the JAX layer at ``tests/test_torch_ssm.py``'s
-``TOL``, 5e-4.
+``TOL``, 5e-4.  The plain backward against autograd of the plain
+forward: in fp64 within ``GRAD64_TOL`` = 1e-12 (measured at most 4.4e-16:
+the sums over n, d and t in other orders), in fp32 within ``TOL``.
 """
 import numpy as np
 import pytest
@@ -41,10 +47,11 @@ from repro.models import ssm as jssm  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels.linear_scan import ops as scan_ops  # noqa: E402
 from repro_torch.kernels.linear_scan.kernel import (  # noqa: E402
-    selective_scan_kernel)
+    selective_scan_backward_kernel, selective_scan_kernel)
 from repro_torch.kernels.linear_scan.ops import selective_scan  # noqa: E402
 from repro_torch.kernels.linear_scan.ref import (  # noqa: E402
-    fused_chunk, linear_scan_ref, selective_scan_ref)
+    fused_chunk, linear_scan_ref, selective_scan_backward_ref,
+    selective_scan_ref)
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.models.transformer import layer  # noqa: E402
@@ -54,6 +61,10 @@ TOL = 1e-5
 BF16_TOL = 5e-4
 ROUTE_TOL = 1e-6
 LAYER_TOL = 5e-4
+GRAD64_TOL = 1e-12
+# the backward's sequence lengths: one step, one chunk of 24, one of 256,
+# two of 256, 65 of 8
+BWD_S = [1, 24, 256, 512, 520]
 # (S, d_inner): one, three and two chunks of JAX's rule (48; 384 -> 128;
 # 512 -> 256)
 CASES = [(48, 64), (384, 128), (512, 512)]
@@ -162,7 +173,7 @@ def test_mamba_forward_without_grad_takes_the_fused_dispatcher(monkeypatch):
         return scan_ops.selective_scan(*args, **kw)
 
     monkeypatch.setattr(ssm, "selective_scan", spy)
-    monkeypatch.setattr(ssm, "linear_scan",
+    monkeypatch.setattr(scan_ops, "linear_scan_ref",
                         lambda *a, **k: pytest.fail("K2 route without grad"))
     x = np.random.default_rng(4).standard_normal(
         (2, 40, cfg.d_model)).astype(np.float32)
@@ -176,29 +187,105 @@ def test_mamba_forward_without_grad_takes_the_fused_dispatcher(monkeypatch):
     assert _rel(st["h"], jst["h"]) < LAYER_TOL
 
 
-def test_mamba_forward_with_grad_stays_on_linear_scan(monkeypatch):
-    """Under grad the scan is the checkpointed K2 route through
-    ``LinearScan`` (its plain forward twice, its plain backward once on
-    the CPU) and never the fused dispatcher."""
+def test_mamba_forward_with_grad_takes_the_fused_scan(monkeypatch):
+    """Under grad the scan is JAX's default branch too: one
+    ``selective_scan`` call through ``SelectiveScan`` (its plain forward
+    once, saving the chunk carries, and its plain backward once on the
+    CPU), never the K2 route."""
     _, _, tp = _mamba_layer()
     cfg = get_arch("falcon-mamba-7b").reduced()
-    monkeypatch.setattr(ssm, "selective_scan",
-                        lambda *a, **k: pytest.fail("fused scan under grad"))
-    applied = []
-    apply = scan_ops.LinearScan.apply
+    monkeypatch.setattr(scan_ops, "linear_scan_ref",
+                        lambda *a, **k: pytest.fail("K2 route under grad"))
+    calls = []
+    for name in ("selective_scan_ref", "selective_scan_backward_ref"):
+        ref = getattr(scan_ops, name)
 
-    def spy(*args):
+        def spy(*args, _ref=ref, _name=name, **kw):
+            calls.append((_name, kw.get("chunks", False)))
+            return _ref(*args, **kw)
+
+        monkeypatch.setattr(scan_ops, name, spy)
+    applied = []
+    apply = scan_ops.SelectiveScan.apply
+
+    def spy_apply(*args):
         applied.append(1)
         return apply(*args)
 
-    monkeypatch.setattr(scan_ops.LinearScan, "apply", spy)
+    monkeypatch.setattr(scan_ops.SelectiveScan, "apply", spy_apply)
     leaves = {k: v.detach().clone().requires_grad_() for k, v in tp.items()}
     x = torch.tensor(np.random.default_rng(5).standard_normal(
         (2, 24, cfg.d_model)).astype(np.float32))
     out = ssm.mamba_forward(leaves, x, cfg)
     out.sum().backward()
-    assert len(applied) == 2  # the forward and the recompute
+    assert applied == [1]
+    assert calls == [("selective_scan_ref", True),
+                     ("selective_scan_backward_ref", False)]
     assert all(v.grad is not None for v in leaves.values())
+
+
+def _bwd_inputs(S, dtype, B=2, di=24, seed=0):
+    """A Mamba scan's inputs (xh silu-like, dt after a softplus, A < 0)
+    and the gradients of y and h_last, from numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, S, di))
+    xh = x / (1.0 + np.exp(-x))
+    dt = np.log1p(np.exp(0.5 * rng.standard_normal((B, S, di))
+                         + rng.uniform(-4.0, 4.0, di)))
+    A = -np.exp(rng.uniform(-1.0, 1.0, (di, N)))
+    bc = rng.standard_normal((B, S, 2 * N))
+    gy = rng.standard_normal((B, S, di))
+    gl = rng.standard_normal((B, di, N))
+    return [torch.tensor(v, dtype=dtype) for v in (xh, dt, A, bc, gy, gl)]
+
+
+def _per_unit(got, want) -> float:
+    return float((got - want).abs().max()) / max(
+        float(want.abs().max()), 1e-30)
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("with_last", [False, True])
+@pytest.mark.parametrize("S", BWD_S)
+def test_backward_ref_matches_autograd(S, with_last, dtype):
+    """``selective_scan_backward_ref`` from the forward's chunk carries
+    against ``torch.autograd`` through ``selective_scan_ref``: every
+    gradient (xh, dt, A, bc) per unit of its largest magnitude; and
+    ``ops.selective_scan`` under grad gives the plain backward's
+    gradients bit for bit."""
+    xh, dt, A, bc, gy, gl = _bwd_inputs(S, getattr(torch, dtype))
+    gl = gl if with_last else None
+    leaves = [t.clone().requires_grad_() for t in (xh, dt, A, bc)]
+    y, h_last = selective_scan_ref(*leaves)
+    loss = (y * gy).sum() + ((h_last * gl).sum() if with_last else 0)
+    want = torch.autograd.grad(loss, leaves)
+    _, _, chunks = selective_scan_ref(xh, dt, A, bc, chunks=True)
+    c = fused_chunk(S)
+    assert tuple(chunks.shape) == (2, S // c, 24, N)
+    got = selective_scan_backward_ref(xh, dt, A, bc, chunks, gy, gl)
+    tol = GRAD64_TOL if dtype == "float64" else TOL
+    for name, g, w in zip(("xh", "dt", "A", "bc"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert _per_unit(g, w) <= tol, (name, _per_unit(g, w))
+    y2, h2 = selective_scan(*leaves)
+    loss2 = (y2 * gy).sum() + ((h2 * gl).sum() if with_last else 0)
+    for g, f in zip(got, torch.autograd.grad(loss2, leaves)):
+        assert torch.equal(g, f)
+
+
+def test_chunk_carries_are_the_states_before_each_chunk():
+    """``h_chunks[:, k]`` is the state after k c steps: zero, then the
+    h_last of the scan cut after each chunk (65 chunks of 8 at S = 520)."""
+    xh, dt, A, bc, _, _ = _bwd_inputs(520, torch.float32)
+    y, h_last, chunks = selective_scan_ref(xh, dt, A, bc, chunks=True)
+    assert torch.equal(selective_scan_ref(xh, dt, A, bc)[1], h_last)
+    assert not chunks[:, 0].any()
+    for k in (1, 2, 64):
+        cut = [t[:, :8 * k] for t in (xh, dt, bc)]
+        want = selective_scan_ref(cut[0], cut[1], A, cut[2])[1]
+        # a shorter scan has another chunk (8 k steps in chunks of
+        # fused_chunk(8 k)): the same recurrence in order, bit for bit
+        assert torch.equal(chunks[:, k], want), k
 
 
 def _small(dtype=torch.float32, B=2, S=8, di=16):
@@ -221,9 +308,26 @@ def test_wrapper_refuses_cpu_tensors_and_grad():
     xh, dt, A, bc = _small()
     with pytest.raises(ValueError, match="CUDA tensors"):
         selective_scan_kernel(xh, dt, A, bc)
-    with pytest.raises(RuntimeError, match="no autograd history"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        selective_scan_backward_kernel(xh, dt, A, bc,
+                                       torch.zeros((2, 1, 16, N)), dt)
+    with pytest.raises(RuntimeError, match="no autograd history.*"
+                       "ops.selective_scan"):
         selective_scan_kernel(xh, dt.requires_grad_(), A, bc)
     assert selective_scan_kernel.launches == 0
+    assert selective_scan_backward_kernel.launches == 0
+
+
+def test_dispatcher_refuses_bf16_under_grad():
+    """No bfloat16 backward, as ``LinearScan``: under grad xh and bc must
+    be fp32 (fp64 on the CPU); without grad bf16 goes through."""
+    xh, dt, A, bc = _small(torch.bfloat16)
+    with pytest.raises(TypeError, match="SelectiveScan.*no bfloat16 "
+                       "backward"):
+        selective_scan(xh, dt.requires_grad_(), A, bc)
+    with torch.no_grad():
+        y, _ = selective_scan(xh, dt, A, bc)
+    assert y.dtype == torch.float32
 
 
 @pytest.mark.parametrize("case", ["bc_dtype", "dt_dtype", "A_dtype"])

@@ -11,7 +11,20 @@ it runs where the port runs).
 * reduced Falcon-Mamba-7B's prefill launches it once a layer and K2 not
   at all, its decode neither, and the prefill matches the CPU's;
 * the wrapper's refusals on the card (grad, N, d_inner, contiguity, a
-  CPU tensor among CUDA ones).
+  CPU tensor among CUDA ones);
+* the backward kernel (``selective_scan_backward_kernel``) against its
+  plain version (``selective_scan_backward_ref``) at two chunks of 256
+  steps, at 65 chunks of 8 with a d_inner that is not a multiple of its
+  128-channel block, and at one step, with and without a gradient of
+  h_last: dxh, ddt and dA bit for bit (both round every product and sum
+  alone, sum over n in order and dA over the steps in the walk's order),
+  dbc (a sum over channels, in another order) within ``BWD_TOL`` per
+  unit of its largest magnitude; the forward's chunk states bit for bit;
+  then through
+  ``ops.selective_scan``'s autograd Function, one forward and one
+  backward launch and the same gradients;
+* the backward's refusals: bf16 under grad, N other than 16, a CPU
+  tensor.
 """
 import pytest
 
@@ -20,15 +33,23 @@ torch = pytest.importorskip("torch")
 from repro_torch.common.pytree import tree_map  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels.linear_scan.kernel import (  # noqa: E402
-    linear_scan_kernel, selective_scan_kernel)
+    linear_scan_kernel, selective_scan_backward_kernel,
+    selective_scan_kernel)
+from repro_torch.kernels.linear_scan.ops import selective_scan  # noqa: E402
 from repro_torch.kernels.linear_scan.ref import (  # noqa: E402
-    selective_scan_ref)
+    selective_scan_backward_ref, selective_scan_ref)
 from repro_torch.models import build_model  # noqa: E402
 
 # (B, S, d_inner, N)
 SHAPES = [(2, 64, 8192, 16), (2, 13, 256, 16), (3, 37, 136, 16),
           (2, 1, 128, 16), (1, 40, 200, 16)]
 TOL = 5e-4  # the prefill's logits card vs CPU, tests/test_torch_ssm.py's
+# the backward's cases (B, S, d_inner, N): two chunks of 256, 65 chunks of
+# 8 at a ragged d_inner, one step
+BWD_SHAPES = [(2, 512, 256, 16), (2, 520, 200, 16), (1, 1, 128, 16)]
+# dbc against the plain version: sums over channels in another order;
+# max abs error per unit of the largest magnitude
+BWD_TOL = 1e-6
 
 
 def _card():
@@ -106,3 +127,71 @@ def test_wrapper_refusals_on_the_card():
                               bc.transpose(0, 1))
     with pytest.raises(ValueError, match="CUDA tensors"):
         selective_scan_kernel(xh, dt, A, bc.cpu())
+
+
+def _per_unit(got, want) -> float:
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_last", [False, True])
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_backward_kernel_matches_its_plain_version(shape, with_last):
+    _card()
+    B, S, di, N = shape
+    ins = _inputs(shape, torch.float32, seed=3)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    gy = torch.randn((B, S, di), generator=g, device="cuda")
+    gl = (torch.randn((B, di, N), generator=g, device="cuda") if with_last
+          else None)
+    y, h_last, chunks = selective_scan_kernel(*ins, chunks=True)
+    want_y, want_last, want_chunks = selective_scan_ref(*ins, chunks=True)
+    assert torch.equal(chunks, want_chunks)
+    assert torch.equal(y, want_y) and torch.equal(h_last, want_last)
+    before = selective_scan_backward_kernel.launches
+    got = selective_scan_backward_kernel(*ins, chunks, gy, gl)
+    want = selective_scan_backward_ref(*ins, chunks, gy, gl)
+    torch.cuda.synchronize()
+    assert selective_scan_backward_kernel.launches == before + 1
+    assert torch.equal(got[0], want[0])  # dxh
+    assert torch.equal(got[1], want[1])  # ddt
+    assert torch.equal(got[2], want[2])  # dA
+    if S == 1:  # at one step the gradient of A is 0 (h_{-1} = 0)
+        assert not got[2].any()
+    assert _per_unit(got[3], want[3]) <= BWD_TOL
+    # through ops.selective_scan's autograd Function
+    leaves = [t.clone().requires_grad_() for t in ins]
+    fwd, k2 = selective_scan_kernel.launches, linear_scan_kernel.launches
+    y2, h2 = selective_scan(*leaves)
+    loss = (y2 * gy).sum() + ((h2 * gl).sum() if with_last else 0)
+    fn = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    assert selective_scan_kernel.launches == fwd + 1
+    assert selective_scan_backward_kernel.launches == before + 2
+    assert linear_scan_kernel.launches == k2
+    assert torch.equal(y2, y) and torch.equal(h2, h_last)
+    for f, w in zip(fn, got):
+        assert torch.equal(f, w)
+
+
+@pytest.mark.cuda
+def test_backward_refusals_on_the_card():
+    _card()
+    xh, dt, A, bc = _inputs((2, 8, 64, 16), torch.float32)
+    _, _, chunks = selective_scan_kernel(xh, dt, A, bc, chunks=True)
+    gy = torch.ones_like(dt)
+    with pytest.raises(TypeError, match="no bfloat16 backward"):
+        selective_scan(xh.to(torch.bfloat16).requires_grad_(), dt, A,
+                       bc.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="float32 only"):
+        selective_scan_backward_kernel(xh.to(torch.bfloat16), dt, A,
+                                       bc.to(torch.bfloat16), chunks, gy)
+    with pytest.raises(ValueError, match="N = 16"):
+        selective_scan_backward_kernel(
+            xh, dt, A[:, :8].contiguous(), bc[..., :16].contiguous(),
+            chunks[..., :8].contiguous(), gy)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        selective_scan_backward_kernel(xh, dt, A, bc, chunks, gy.cpu())
+    with pytest.raises(ValueError, match="h_chunks"):
+        selective_scan_backward_kernel(xh, dt, A, bc, chunks[:, :0], gy)

@@ -7,7 +7,8 @@ dt rank 16, vocab 512), from the JAX package's own weights
 its scan branches, ``scan_impl="xla"`` (``_fused_chunk_scan``) and
 ``scan_impl="pallas_interpret"`` (the K2 Pallas kernel in interpret
 mode), set through ``dataclasses.replace(LOCAL, scan_impl=...)``; the
-port runs on the CPU, where the selective scan takes K2's plain version.
+port runs on the CPU, where the selective scan takes the fused scan's
+plain version.
 Checked: each function of ``models/ssm.py`` and ``linear_scan_step``,
 ``predict``, ``prefill`` logits and the recurrent-state cache, four
 teacher-forced decode steps, ``serve`` against the JAX serve loop, bf16,
@@ -44,6 +45,7 @@ from repro_torch.common.pytree import tree_map  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels.linear_scan.kernel import (  # noqa: E402
     linear_scan_kernel, selective_scan_kernel)
+from repro_torch.kernels.linear_scan.ref import fused_chunk  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import build_model, make_batch  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
@@ -234,33 +236,38 @@ def test_ssm_coeffs_matches_jax():
     assert float(dA.min()) > 0.0 and float(dA.max()) < 1.0
 
 
-def test_mamba_layer_keeps_three_scan_tensors_for_backward():
+@pytest.mark.parametrize("S", [9, 512])
+def test_mamba_layer_keeps_only_the_chunk_carries_for_backward(S):
     """Under grad a Mamba layer's forward keeps no (B, S, d_inner, N)
-    fp32 tensor for its backward (it kept three, dA, dt * B and the
-    states h, before the scan was checkpointed as the JAX chunk body is):
-    the backward recomputes those three from xh, which the forward keeps.
-    ``_ssm_coeffs`` gives the same values bit for bit with and without
-    grad (its second product runs in place only where autograd does not
-    track it)."""
+    tensor for its backward (it kept three, dA, dt * B and the states h,
+    on the K2 route; the checkpointed K2 route kept none but held them
+    all again in its backward): the fused scan's autograd Function saves
+    xh, dt, A, bc and exactly one (B, n_chunks, d_inner, N) tensor, the
+    state before each chunk (one chunk of 9 steps; two of 256 at S =
+    512), from which its backward recomputes one chunk at a time.
+    ``_ssm_coeffs``, which decode still takes, gives the same values bit
+    for bit with and without grad."""
     _, _, tm, p = _pair()
     tp = tree_map(lambda t: t.detach().requires_grad_(),
                   layer(p["blocks"], 0)["mamba"])
-    x = torch.tensor(_normal((B, 9, tm.cfg.d_model), 4))
-    numel = B * 9 * tm.cfg.d_inner * tm.cfg.ssm_state
-    storages, xh_saved = set(), []
+    x = torch.tensor(_normal((B, S, tm.cfg.d_model), 4))
+    di, N = tm.cfg.d_inner, tm.cfg.ssm_state
+    chunks = (B, S // fused_chunk(S), di, N)
+    shapes, xh_saved = [], []
 
     def pack(t):
-        if t.numel() == numel:
-            storages.add(t.untyped_storage().data_ptr())
-        if tuple(t.shape) == (B, 9, tm.cfg.d_inner):
+        shapes.append(tuple(t.shape))
+        if tuple(t.shape) == (B, S, di):
             xh_saved.append(t)
         return t
 
     with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
         ssm.mamba_forward(tp, x, tm.cfg)
-    assert len(storages) == 0
+    assert (B, S, di, N) not in shapes
+    assert not [sh for sh in shapes if len(sh) == 4 and sh != chunks]
+    assert shapes.count(chunks) == 1
     assert xh_saved
-    xh = torch.tensor(_normal((B, 9, tm.cfg.d_inner), 3))
+    xh = torch.tensor(_normal((B, 9, di), 3))
     with torch.no_grad():
         want = ssm._ssm_coeffs(tp, xh)
     got = ssm._ssm_coeffs(tp, xh.requires_grad_())

@@ -23,15 +23,16 @@ Checked, with the tolerance stated at each:
   written here from the JAX package's functions (reduced Qwen2-0.5B,
   Falcon-Mamba-7B, RecurrentGemma-9B, DeepSeek-V2-Lite and Kimi-K2, 3
   clients, 8 steps: every client holds a server snapshot that later
-  folds must leave as it was; the recurrent layers' gradients go through
-  ``LinearScan``);
+  folds must leave as it was; the RG-LRU layers' gradients go through
+  ``LinearScan``, the Mamba layers' through ``SelectiveScan``);
 * (f) the quickstart path's per-round losses and final prefill logits
   against the JAX example's loop;
 * (g) ``--checkpoint`` written by the port, read by
   ``repro.checkpoint.load_checkpoint``;
 * (h) the refusals: K3's and K2's wrappers under grad, then the SSM and
-  hybrid gradients through ``LinearScan``, ``first_layer_path`` of every
-  family and the feature pass on a tied embedding;
+  hybrid gradients through ``SelectiveScan`` and ``LinearScan``,
+  ``first_layer_path`` of every family and the feature pass on a tied
+  embedding;
 * ``chip_smoke.py``'s first-step gate, gradient gap, forced routing
   (``Routing``) and ``train_witness.py``'s fp64 gradient.
 
@@ -476,7 +477,7 @@ def _assert_tree_close(got, want, tol):
 
 
 def _recurrent_layers(cfg) -> int:
-    """Mamba or RG-LRU layers of ``cfg``: K2 launches a gradient."""
+    """Mamba or RG-LRU layers of ``cfg``: scan backwards a gradient."""
     if cfg.family == "ssm":
         return cfg.n_layers
     if cfg.family == "hybrid":
@@ -485,16 +486,25 @@ def _recurrent_layers(cfg) -> int:
     return 0
 
 
+# the plain backward a recurrent layer's gradient takes on the CPU: the
+# fused selective scan's (Mamba), LinearScan's (RG-LRU)
+SCAN_BACKWARD = {"ssm": "selective_scan_backward_ref",
+                 "hybrid": "linear_scan_backward_ref"}
+
+
 def _count_scan_backwards(monkeypatch):
-    """A list that gets one entry per LinearScan backward on the CPU."""
+    """A list that gets one entry per scan backward on the CPU
+    (``SelectiveScan``'s or ``LinearScan``'s): (its plain version's name,
+    the shape of its first argument)."""
     calls = []
-    ref = scan_ops.linear_scan_backward_ref
+    for name in SCAN_BACKWARD.values():
+        ref = getattr(scan_ops, name)
 
-    def spy(*args):
-        calls.append(tuple(args[0].shape))
-        return ref(*args)
+        def spy(*args, _ref=ref, _name=name):
+            calls.append((_name, tuple(args[0].shape)))
+            return _ref(*args)
 
-    monkeypatch.setattr(scan_ops, "linear_scan_backward_ref", spy)
+        monkeypatch.setattr(scan_ops, name, spy)
     return calls
 
 
@@ -510,8 +520,8 @@ def test_train_loop_matches_the_jax_loop(feature_learning, arch,
     steps.  Each client's prox term reads the server as of its
     last pull; a fold or feature pass written in place would rewrite
     those snapshots and part the trajectories.  The Mamba and RG-LRU
-    layers' gradients go through LinearScan, one backward a layer a
-    step."""
+    layers' gradients go through SelectiveScan and LinearScan, one
+    backward a layer a step."""
     jm, w, tm, p = _pair(arch, cool=True)
     calls = _count_scan_backwards(monkeypatch)
     streams = lm.federated_token_clients(3, tm.cfg.vocab_size, 4_000)
@@ -519,6 +529,7 @@ def test_train_loop_matches_the_jax_loop(feature_learning, arch,
     res = tr.train(tm, p, streams, device="cpu", log=None,
                    feature_learning=feature_learning, **LOOP)
     assert len(calls) == LOOP["steps"] * _recurrent_layers(tm.cfg)
+    assert {n for n, _ in calls} <= {SCAN_BACKWARD.get(tm.cfg.family)}
     want_losses, want_w = _jax_train_loop(
         jm, jm.cfg, jax.tree.map(jnp.asarray, w), jstreams,
         feature_learning=feature_learning, **LOOP)
@@ -602,6 +613,31 @@ def _scaled_scan_backward(da_scale, db_scale):
     return wrong
 
 
+def _scaled_selective_backward(dA_scale, db_scale):
+    """``SelectiveScan``'s CPU backward with its gradient of A scaled by
+    ``dA_scale``, and the gradients that flow through ``dt B x`` to x and
+    to B (dxh and the B half of dbc) by ``db_scale``: LinearScan's ``da``
+    and ``db`` faults on the fused route."""
+    plain = scan_ops.selective_scan_backward_ref
+
+    def wrong(*args, **kw):
+        dxh, ddt, dA, dbc = plain(*args, **kw)
+        N = dA.shape[1]
+        dbc = torch.cat([dbc[..., :N] * db_scale, dbc[..., N:]], dim=-1)
+        return dxh * db_scale, ddt, dA * dA_scale, dbc
+
+    return wrong
+
+
+def _scaled_backward(cfg, da_scale, db_scale):
+    """(the name in ops, the wrong plain backward) of ``cfg``'s scan."""
+    if cfg.family == "ssm":
+        return ("selective_scan_backward_ref",
+                _scaled_selective_backward(da_scale, db_scale))
+    return "linear_scan_backward_ref", _scaled_scan_backward(da_scale,
+                                                             db_scale)
+
+
 @pytest.mark.parametrize("arch,n_layers,vocab,frac", [
     pytest.param("qwen2-0.5b", 2, 512, "TRAIN_FO_FRAC", id="2-512"),
     pytest.param("qwen2-0.5b", 4, 8192, "TRAIN_FO_FRAC", id="4-8192"),
@@ -615,8 +651,9 @@ def test_chip_smoke_first_step_gate(arch, n_layers, vocab, frac,
     first local step lowers its batch's loss, and its central difference
     is the first-order prediction <g, u> within ``TRAIN_FO_TOL``; a wrong
     gradient fails it (RMSNorm's variance left out of it; on Falcon-Mamba
-    the scan's ``db`` scaled by 0.9 in ``LinearScan``'s backward), and so
-    does a step of the wrong sign.  Printed (``-s``): the ratios."""
+    the gradients through the scan's ``dt B x`` to x and B scaled by 0.9
+    in ``SelectiveScan``'s backward), and so does a step of the wrong
+    sign.  Printed (``-s``): the ratios."""
     monkeypatch.syspath_prepend(ROOT)
     import chip_smoke as cs
 
@@ -634,8 +671,7 @@ def test_chip_smoke_first_step_gate(arch, n_layers, vocab, frac,
     assert passes(right), right
     with monkeypatch.context() as m:
         if cfg.family == "ssm":
-            m.setattr(scan_ops, "linear_scan_backward_ref",
-                      _scaled_scan_backward(1.0, 0.9))
+            m.setattr(scan_ops, *_scaled_backward(cfg, 1.0, 0.9))
         else:
             m.setattr(layers, "rmsnorm", _wrong_rmsnorm)
         wrong = cs._first_step_check(model, params, streams, frac)
@@ -655,9 +691,10 @@ def test_chip_smoke_first_step_gate(arch, n_layers, vocab, frac,
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
 def test_chip_smoke_gradient_gap_sees_the_scan_da(arch, monkeypatch):
     """``train_card_vs_cpu``'s gradient check (``_grad_gaps`` within
-    ``TRAIN_TOL``) at reduced width, 2 x 32 tokens: a ``da`` of the scan
-    scaled by 1.001 in ``LinearScan``'s backward lies past the tolerance
-    on the recurrence's leaves, which the first-step gate cannot see."""
+    ``TRAIN_TOL``) at reduced width, 2 x 32 tokens: the scan's gradient
+    of its decay scaled by 1.001 in its CPU backward (``SelectiveScan``'s
+    dA, ``LinearScan``'s da) lies past the tolerance on the recurrence's
+    leaves, which the first-step gate cannot see."""
     monkeypatch.syspath_prepend(ROOT)
     import chip_smoke as cs
 
@@ -670,8 +707,7 @@ def test_chip_smoke_gradient_gap_sees_the_scan_da(arch, monkeypatch):
     _, right = cs._grad(model, params, batch)
     assert max(cs._grad_gaps(paths, right, right).values()) == 0.0
     with monkeypatch.context() as m:
-        m.setattr(scan_ops, "linear_scan_backward_ref",
-                  _scaled_scan_backward(1.001, 1.0))
+        m.setattr(scan_ops, *_scaled_backward(cfg, 1.001, 1.0))
         _, wrong = cs._grad(model, params, batch)
     gaps = cs._grad_gaps(paths, wrong, right)
     worst = max(gaps, key=gaps.get)
@@ -875,16 +911,17 @@ def test_k2_wrapper_refuses_inputs_that_require_grad():
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
 def test_ssm_and_hybrid_train_on_the_cpu(arch, monkeypatch):
-    """Their gradients come through LinearScan, whose CPU backward is the
-    plain reverse loop: one backward a recurrent layer, at the layer's
-    (B, S, C) shape, and every leaf gets a finite gradient."""
+    """Their gradients come through SelectiveScan (Mamba) and LinearScan
+    (RG-LRU), whose CPU backwards are the plain versions: one backward a
+    recurrent layer, at the layer's (B, S, C) shape (xh's, d_inner wide,
+    for the fused scan), and every leaf gets a finite gradient."""
     _, _, tm, p = _pair(arch)
     calls = _count_scan_backwards(monkeypatch)
     _, _, g = _port_grad(tm, p, make_batch(tm.cfg, B, S, seed=1,
                                            device="cpu"))
-    C = (tm.cfg.d_inner * tm.cfg.ssm_state if tm.cfg.family == "ssm"
-         else tm.cfg.lru_width)
-    assert calls == [(B, S, C)] * _recurrent_layers(tm.cfg)
+    C = (tm.cfg.d_inner if tm.cfg.family == "ssm" else tm.cfg.lru_width)
+    assert calls == [(SCAN_BACKWARD[tm.cfg.family], (B, S, C))] * \
+        _recurrent_layers(tm.cfg)
     assert all(torch.isfinite(t).all() for t in tree_leaves(g))
 
 

@@ -8,12 +8,13 @@ where the port runs).
   multiple of its unroll or not, alone and under ``ops.linear_scan``'s
   autograd Function;
 * reduced Falcon-Mamba-7B's and RecurrentGemma-9B's loss and gradient on
-  the card, through K2 and its backward kernel (the backward once a
-  recurrent layer, K2 once an RG-LRU layer and twice a Mamba layer,
-  whose scan is checkpointed), track the CPU's from the same weights and
-  batch within ``RUN_TOL`` per unit (the test keeps the name it had when
-  SSM and hybrid training raised on the card); a Mamba layer's gradient
-  on the card, K2 twice and its backward once, tracks the CPU's;
+  the card track the CPU's from the same weights and batch within
+  ``RUN_TOL`` per unit (the test keeps the name it had when SSM and
+  hybrid training raised on the card): an RG-LRU layer through K2 and its
+  backward kernel once each, a Mamba layer through the fused selective
+  scan and its backward kernel once each and K2 not at all; a Mamba
+  layer's gradient on the card (the fused scan's backward recomputing
+  its chunk's states, JAX's checkpointed chunk body) tracks the CPU's;
 * reduced Qwen2-0.5B trains through ``repro_torch.launch.train.train``
   on the card with one per-row K1 launch a fold and no K3 (the loss
   takes the plain attention), and tracks the CPU run from the same
@@ -35,7 +36,8 @@ from repro_torch.kernels.feature_attention.kernel import (  # noqa: E402
 from repro_torch.kernels.flash_attention.kernel import (  # noqa: E402
     flash_attention_kernel)
 from repro_torch.kernels.linear_scan.kernel import (  # noqa: E402
-    linear_scan_backward_kernel, linear_scan_kernel)
+    linear_scan_backward_kernel, linear_scan_kernel,
+    selective_scan_backward_kernel, selective_scan_kernel)
 from repro_torch.kernels.linear_scan.ops import linear_scan  # noqa: E402
 from repro_torch.kernels.linear_scan.ref import (  # noqa: E402
     linear_scan_backward_ref)
@@ -76,6 +78,13 @@ def test_k3_and_k2_refuse_card_inputs_that_require_grad():
         linear_scan_kernel(b.detach(), b)
 
 
+def _counts():
+    """(K2, K2 backward, fused scan, fused backward) launches so far."""
+    return (linear_scan_kernel.launches, linear_scan_backward_kernel.launches,
+            selective_scan_kernel.launches,
+            selective_scan_backward_kernel.launches)
+
+
 def _loss_and_grads(model, params, batch):
     q = tree_map(lambda t: t.detach().requires_grad_(), params)
     loss, _ = model.loss(q, batch)
@@ -87,24 +96,24 @@ def _loss_and_grads(model, params, batch):
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b"])
 def test_ssm_and_hybrid_loss_on_the_card_raises(arch):
-    """No longer raises: the gradient on the card, K2 forward and backward
-    once a recurrent layer, tracks the CPU's (the attention cooled)."""
+    """No longer raises: the gradient on the card tracks the CPU's (the
+    attention cooled): once a recurrent layer K2 and its backward
+    (RG-LRU), or the fused scan and its backward (Mamba)."""
     _card()
     torch.backends.cuda.matmul.allow_tf32 = False
     tm = build_model(get_arch(arch).reduced())
     p = _cooled(tm.init(torch.Generator().manual_seed(0), device="cpu"))
     batch = make_batch(tm.cfg, 2, 24, seed=1, device="cpu")
-    k2, k2b = linear_scan_kernel.launches, linear_scan_backward_kernel.launches
+    before = _counts()
     card_loss, card = _loss_and_grads(
         tm, tree_map(lambda t: t.to("cuda"), p),
         {k: v.to("cuda") for k, v in batch.items()})
     torch.cuda.synchronize()
     layers = (tm.cfg.n_layers if tm.cfg.family == "ssm"
               else 2 * (tm.cfg.n_layers // 3) + tm.cfg.n_layers % 3)
-    # a Mamba layer's checkpointed scan runs K2 again in the backward
-    forward = 2 * layers if tm.cfg.family == "ssm" else layers
-    assert linear_scan_kernel.launches - k2 == forward
-    assert linear_scan_backward_kernel.launches - k2b == layers
+    want = ((0, 0, layers, layers) if tm.cfg.family == "ssm"
+            else (layers, layers, 0, 0))
+    assert tuple(a - b for a, b in zip(_counts(), before)) == want
     cpu_loss, cpu = _loss_and_grads(tm, p, batch)
     assert abs(card_loss - cpu_loss) <= RUN_TOL * max(abs(cpu_loss), 1.0)
     for (path, _), g, w in zip(tree_flatten_with_path(p), card, cpu):
@@ -114,11 +123,11 @@ def test_ssm_and_hybrid_loss_on_the_card_raises(arch):
 
 @pytest.mark.cuda
 def test_mamba_layer_recompute_on_the_card():
-    """A reduced Falcon-Mamba layer's gradient on the card, its scan
-    checkpointed: K2 forward twice (the forward, the recompute in the
-    backward) and its backward kernel once, and every gradient within
-    ``RUN_TOL`` per unit of the plain version's on the CPU from the same
-    weights and input."""
+    """A reduced Falcon-Mamba layer's gradient on the card at 2 x 40
+    tokens: the fused scan once (saving its chunk carries) and its
+    backward kernel once (recomputing the chunk's states), K2 not at all,
+    and every gradient within ``RUN_TOL`` per unit of the plain version's
+    on the CPU from the same weights and input."""
     _card()
     torch.backends.cuda.matmul.allow_tf32 = False
     tm = build_model(get_arch("falcon-mamba-7b").reduced())
@@ -134,11 +143,10 @@ def test_mamba_layer_recompute_on_the_card():
         g = torch.autograd.grad(out.square().sum(), [*leaves.values(), xd])
         return [t.cpu() for t in g]
 
-    k2, k2b = linear_scan_kernel.launches, linear_scan_backward_kernel.launches
+    before = _counts()
     card = grads("cuda")
     torch.cuda.synchronize()
-    assert linear_scan_kernel.launches - k2 == 2
-    assert linear_scan_backward_kernel.launches - k2b == 1
+    assert tuple(a - b for a, b in zip(_counts(), before)) == (0, 0, 1, 1)
     for g, w in zip(card, grads("cpu")):
         err = float((g - w).abs().max())
         assert err <= RUN_TOL * max(float(w.abs().max()), 1.0)

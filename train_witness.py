@@ -77,24 +77,25 @@ def grad_fp64(model, params, batch):
     """(loss, [gradient of each leaf], float32 tensors seen) of the
     model on the CPU in fp64: ``params`` (CPU tensors) widened, the
     forward and backward under :class:`Promote64` with float64 as the
-    default type.  The model's checkpointed bodies (attention blocks, the
-    Mamba scan) run without the checkpoint: autograd recomputes a body
-    outside the mode, and the checkpoint changes no value."""
+    default type.  The attention's checkpointed blocks run without the
+    checkpoint: autograd recomputes a body outside the mode, and the
+    checkpoint changes no value.  (The Mamba scan's autograd Function
+    recomputes its chunks inside its own backward, in the inputs' fp64.)"""
     from repro_torch.common.pytree import tree_map
-    from repro_torch.models import attention, ssm
+    from repro_torch.models import attention
 
     wide = tree_map(lambda t: t.to(torch.float64), params)
     mode = Promote64()
     default = torch.get_default_dtype()
-    kept = attention.checkpoint, ssm.checkpoint
+    kept = attention.checkpoint
     torch.set_default_dtype(torch.float64)
-    attention.checkpoint = ssm.checkpoint = _no_checkpoint
+    attention.checkpoint = _no_checkpoint
     try:
         with mode:
             loss, g = cs._grad(model, wide, batch)
     finally:
         torch.set_default_dtype(default)
-        attention.checkpoint, ssm.checkpoint = kept
+        attention.checkpoint = kept
     return loss, g, mode.fp32_outputs
 
 
