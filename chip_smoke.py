@@ -159,9 +159,10 @@ selective scan at the Mamba prefill's (``mamba_fused``, bf16 as served,
 bounded by its own SASS instruction count) and at its edges bit for bit
 against its plain version (JAX's chunk loop in PyTorch), and its
 backward at the Mamba training paths' scans (``mamba_fused_backward``
-at 8 x 128 and ``_long`` at 8 x 2048, timed and bounded from its SASS)
-and at two edges against its plain version (dxh, ddt and dA bit for
-bit), before any model's weights are on the card.  Prints one JSON
+at 8 x 128 and ``_long`` at 8 x 2048, timed, bounded by the function's
+own work, its SASS counts, registers, shared memory and waves recorded
+beside) and at five edges against its plain version (dxh, ddt and dA bit
+for bit), before any model's weights are on the card.  Prints one JSON
 line per phase, then a ``{"kernels": [...]}`` line, the card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``.
 Any failure exits non-zero before that line; without a CUDA card it
@@ -175,6 +176,7 @@ import importlib.util
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -572,13 +574,10 @@ def _sass(lib: str) -> str:
                           text=True, check=True, timeout=120).stdout
 
 
-def _sass_loop_counts(lib: str, kernel: str) -> list:
-    """The innermost loops of ``kernel`` that hold a MUFU.EX2, from
-    ``cuobjdump -sass`` of the built library, in address order: each
-    loop is a backward branch's range around MUFU.EX2s that holds no
-    other such range, and an element is one MUFU.EX2 (one exp a state
-    element).  Each loop's {"fp32", "ex2", "all", and a count for each
-    opcode} an element, its length and its MUFU.EX2 count."""
+def _sass_instructions(lib: str, kernel: str) -> list:
+    """(address, opcode, operands) of each instruction of the function
+    whose name holds ``kernel``, from ``cuobjdump -sass`` of the built
+    library."""
     out = _sass(lib)
     funcs, cur = {}, None
     for ln in out.splitlines():
@@ -600,7 +599,28 @@ def _sass_loop_counts(lib: str, kernel: str) -> list:
         if toks[0].startswith("@"):
             toks = toks[1:]
         funcs[cur].append((addr, toks[0], toks[1:]))
-    insts = next(v for k, v in funcs.items() if kernel in k)
+    return next(v for k, v in funcs.items() if kernel in k)
+
+
+def _sass_function_counts(lib: str, kernel: str) -> dict:
+    """The count of each opcode (its name before the first dot) in
+    ``kernel``'s SASS, "all" and "ex2" (the MUFU.EX2s)."""
+    ops = {"all": 0, "ex2": 0}
+    for _, op, _ in _sass_instructions(lib, kernel):
+        ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
+        ops["all"] += 1
+        ops["ex2"] += op.startswith("MUFU.EX2")
+    return ops
+
+
+def _sass_loop_counts(lib: str, kernel: str) -> list:
+    """The innermost loops of ``kernel`` that hold a MUFU.EX2, from
+    ``cuobjdump -sass`` of the built library, in address order: each
+    loop is a backward branch's range around MUFU.EX2s that holds no
+    other such range, and an element is one MUFU.EX2 (one exp a state
+    element).  Each loop's {"fp32", "ex2", "all", and a count for each
+    opcode} an element, its length and its MUFU.EX2 count."""
+    insts = _sass_instructions(lib, kernel)
     ranges = []
     for addr, op, args in insts:
         if op.startswith("BRA") and args:
@@ -718,38 +738,109 @@ def _selective_case(name: str, shape, dtype):
     return rec
 
 
-def selective_backward_bound(B: int, S: int, di: int, N: int, c: int,
-                             loops):
+# the fused backward's own work an element (b, s, d, n), whatever the
+# design: the 23 products and sums its plain version rounds (the chunk's
+# states recomputed once: dt A, dt B, (dt B) x, dA h, + dBx; the reverse
+# walk: gy C, + r, g (dt B), + over n, g x, (g h) dA, q A, (g x) B, +, +
+# over n, q dt, + over t, (g x) dt, + over d, gy h, + over d, dA g) and
+# one expf, 6 FP32-pipe instructions and one MUFU.EX2 on sm_90a
+SELECTIVE_BWD_FP32_PER_ELEM = 23 + 6
+SELECTIVE_BWD_EX2_PER_ELEM = 1
+
+
+def selective_backward_bound(B: int, S: int, di: int, N: int, c: int):
     """(bound_ms, bound_by, detail) of the fused backward on these
-    shapes: its inputs xh, dt, gy (B, S, di), bc (B, S, 2N), A, the chunk
-    carries (B, S / c, di, N) and gh_last read once, dxh, ddt, dA and dbc
-    written once, over HBM bandwidth; against the B S di N elements times
-    the kernel's own instructions an element over its two exp loops
-    (``loops``: the chunk's recompute and the reverse walk, from
-    ``_sass_loop_counts``), the FP32-pipe ones at 128 a clock an SM and the
-    MUFU.EX2s at 16, as ``selective_bound``.  ``detail`` also gives the
-    issue limit and the bytes of the design's own chunk scratch (the
-    recomputed states written and read once each), which are not the
-    function's and which the bound does not take."""
+    shapes, the function's own work and no design's: its inputs xh, dt,
+    gy (B, S, di), bc (B, S, 2N), A, the chunk carries (B, S / c, di, N)
+    and gh_last read once, dxh, ddt, dA and dbc written once, over HBM
+    bandwidth; against the B S di N elements times
+    SELECTIVE_BWD_FP32_PER_ELEM FP32-pipe instructions at 128 a clock an
+    SM and SELECTIVE_BWD_EX2_PER_ELEM MUFU.EX2 at 16, at the clock
+    FP32_OPS_PER_S implies (1.98 GHz on 132 SMs)."""
     elems = B * S * di * N
-    per = {k: sum(lp[k] for lp in loops) for k in ("fp32", "ex2", "all")}
     nbytes = 4 * (5 * B * S * di + 2 * B * S * 2 * N + 2 * di * N
                   + B * (S // c) * di * N + B * di * N)
     fp32_rate = FP32_OPS_PER_S / 2  # FP32-pipe instructions a second
     times = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "fp32_pipe": elems * per["fp32"] / fp32_rate * 1e3,
-             "sfu": elems * per["ex2"] / (fp32_rate / 8) * 1e3}
+             "fp32_pipe": elems * SELECTIVE_BWD_FP32_PER_ELEM / fp32_rate
+             * 1e3,
+             "sfu": elems * SELECTIVE_BWD_EX2_PER_ELEM / (fp32_rate / 8)
+             * 1e3}
     limit = max(times, key=times.get)
-    scratch = 2 * 4 * elems
     detail = {**{f"{k}_ms": v for k, v in times.items()},
-              "issue_ms": elems * per["all"] / fp32_rate * 1e3,
               "bytes": nbytes, "elements": elems, "binds": limit,
-              "scratch_bytes": scratch,
-              "with_scratch_bytes_ms": (nbytes + scratch)
-              / HBM_BYTES_PER_S * 1e3,
-              "per_element": per, "loops": loops}
+              "per_element": {"fp32": SELECTIVE_BWD_FP32_PER_ELEM,
+                              "ex2": SELECTIVE_BWD_EX2_PER_ELEM}}
     return times[limit], ("bytes" if limit == "bytes" else "operations"), \
         detail
+
+
+def _selective_backward_design(B: int, S: int, di: int, N: int, c: int):
+    """The running backward's own costs, beside its bound and not in it:
+    its instructions from the SASS of ``selective_scan_bwd`` (the whole
+    function; each element runs expf twice, on the chunk's first walk and
+    in its stage's record, so the function's instructions over half its
+    MUFU.EX2s are what an element issues, the prologue included), the
+    issue limit they set (one warp instruction a clock per scheduler),
+    the scratch in device memory (none), and its launch: ptxas's
+    registers, spills and static shared memory, the dynamic shared memory
+    and blocks an SM at this chunk (the library's occupancy entry), and
+    the waves of blocks on this card.  An earlier design's library, which
+    has no occupancy entry, gives its SASS counts alone."""
+    import ctypes
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.linear_scan import kernel
+
+    lib_path = build.library_path("selective_scan")
+    ops = _sass_function_counts(lib_path, "selective_scan_bwd")
+    per = {k: v * 2 / ops["ex2"] for k, v in ops.items()}
+    fp32 = sum(v for k, v in per.items() if k in _SASS_FP32)
+    elems = B * S * di * N
+    out = {"sass_per_element": {"all": per["all"], "fp32": fp32,
+                                "opcodes": per},
+           "issue_ms": elems * per["all"] / (FP32_OPS_PER_S / 2) * 1e3,
+           "ptxas": _ptxas_function(build.BUILD_LOG.get(
+               "selective_scan", (0.0, ""))[1], "selective_scan_bwd")}
+    fn = getattr(build.load("selective_scan"),
+                 "selective_scan_backward_occupancy", None)
+    if fn is None:
+        return {**out, "design": "earlier (no occupancy entry)"}
+    smem, blocks_sm = ctypes.c_int(0), ctypes.c_int(0)
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                   ctypes.POINTER(ctypes.c_int)]
+    err = fn(c, ctypes.byref(smem), ctypes.byref(blocks_sm))
+    if err:
+        raise RuntimeError(f"selective_scan_backward_occupancy: CUDA error "
+                           f"{err}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks = -(-di // kernel.SELECTIVE_BLOCK) * B
+    return {**out, "scratch_bytes": 0, "dynamic_smem_bytes": smem.value,
+            "blocks_per_sm": blocks_sm.value, "sms": sms, "blocks": blocks,
+            "waves": blocks / (blocks_sm.value * sms)}
+
+
+def _ptxas_function(log: str, name: str) -> dict:
+    """ptxas's -v report of the entry function whose name holds ``name``:
+    registers, spill stores and loads and static shared memory in bytes
+    (empty where the log has no such entry)."""
+    rec, inside = {}, False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            inside = name in ln
+            continue
+        if not inside:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            rec["spill_stores"], rec["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            rec["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            rec["static_smem_bytes"] = int(m.group(1)) if m else 0
+    return rec
 
 
 def _selective_backward_case(name: str, shape, reps: int):
@@ -761,9 +852,10 @@ def _selective_backward_case(name: str, shape, reps: int):
     dxh, ddt and dA bit for bit and dbc within SELECTIVE_BWD_TOL per unit
     of its largest magnitude.  With ``reps`` the kernel is timed
     (``reps`` launches a graph, with gh_last), its plain version once a
-    graph, and bounded by its own SASS instruction count; no PyTorch
-    call computes the function, so ``library_ms`` is None."""
-    from repro_torch.kernels import build
+    graph, bounded by the function's own work
+    (``selective_backward_bound``) and its design's costs recorded beside
+    (``_selective_backward_design``); no PyTorch call computes the
+    function, so ``library_ms`` is None."""
     from repro_torch.kernels.linear_scan.kernel import (
         selective_scan_backward_kernel, selective_scan_kernel)
     from repro_torch.kernels.linear_scan.ref import (
@@ -809,10 +901,8 @@ def _selective_backward_case(name: str, shape, reps: int):
         raise AssertionError(
             f"selective_scan backward at {name} {tuple(shape)}: {rec}")
     if reps:
-        lib = build.library_path("selective_scan")
-        loops = _sass_loop_counts(lib, "selective_scan_bwd")
         bound_ms, bound_by, detail = selective_backward_bound(
-            B, S, di, N, fused_chunk(S), loops)
+            B, S, di, N, fused_chunk(S))
         kern = lambda: selective_scan_backward_kernel(  # noqa: E731
             xh, dt, A, bc, chunks, gy, gl)
         ms = device_ms(kern, reps=reps)
@@ -824,9 +914,7 @@ def _selective_backward_case(name: str, shape, reps: int):
             bound_ms=bound_ms, bound_by=bound_by, bound_detail=detail,
             bound_share=bound_ms / ms, library_ms=None,
             library="none: no single PyTorch call computes the function",
-            ptxas=[ln.strip() for ln in build.BUILD_LOG.get(
-                "selective_scan", (0.0, ""))[1].splitlines()
-                if "registers" in ln or "spill" in ln or "smem" in ln])
+            design=_selective_backward_design(B, S, di, N, fused_chunk(S)))
     emit(rec)
     del xh, dt, A, bc, gy, gl, chunks
     torch.cuda.empty_cache()
@@ -3506,13 +3594,18 @@ MAMBA_LONG_REPS = 2
 # the fused backward against its plain version: (case, (B, S, d_inner, N),
 # launches a graph when timed, 0 untimed).  train_path_mamba's scan (8 x
 # 128: one chunk), train_step_mamba_long's (8 x 2048: 8 chunks of 256, the
-# carry between chunks on the path), then the edges: 65 chunks of 8 at a
-# d_inner that is not a multiple of the kernel's 128-channel block, one
-# step
+# carry between chunks on the path), then the edges of the kernel's
+# 8-step stages and 32-channel blocks: 65 chunks of 8 (one stage each) at
+# a d_inner that is not a multiple of the block, 65 chunks of 4 (shorter
+# than a stage), one chunk of 100 (its last stage 4 steps), 3 blocks (far
+# below one wave), one step
 SELECTIVE_BWD_CASES = [
     ("mamba_fused_backward", (TRAIN_B, TRAIN_S, 8192, 16), 20),
     ("mamba_fused_backward_long", (TRAIN_B, MAMBA_LONG_S, 8192, 16), 3),
     ("ragged_chunks", (2, 520, 200, 16), 0),
+    ("short_chunks", (2, 260, 136, 16), 0),
+    ("ragged_stage", (3, 100, 200, 16), 0),
+    ("three_blocks", (1, 24, 72, 16), 0),
     ("one_step", (1, 1, 128, 16), 0)]
 # dbc of the backward against its plain version: sums over d in another
 # order, max abs error per unit of the largest magnitude (dA's too,
@@ -4441,8 +4534,8 @@ SERVE_PHASES = ("flash_vs_plain", "serve_path", "serve_path_bf16",
                 "serve_path_deepseek", "serve_path_kimi",
                 "serve_path_whisper", "serve_path_qwen2vl")
 # the phases --only can run alone (after the build), in this order
-ONLY_PHASES = ("main_path", "assoc_path", "oracle_path", "sweep_path",
-               "paper_rows", "residency_path", "chaos_path",
+ONLY_PHASES = ("scan_vs_plain", "main_path", "assoc_path", "oracle_path",
+               "sweep_path", "paper_rows", "residency_path", "chaos_path",
                "resume_path") + SERVE_PHASES + ("serve_card_vs_cpu",) \
     + ("train_path", "train_path_mamba", "train_path_deepseek",
        "train_step_rgemma", "train_step_mamba_long", "train_step_families",
@@ -4631,6 +4724,8 @@ def main(argv=None) -> int:
     if only:  # the same phases against another checkout's package (copy
         # this script into its root) read two versions on one card
         phase_build()
+        if "scan_vs_plain" in only:
+            phase_scan_vs_plain()
         if "main_path" in only:
             phase_main_path()
         if "assoc_path" in only:
@@ -4890,11 +4985,11 @@ def main(argv=None) -> int:
                                         "full_width_2_layers")][2],
             train_path_mamba=mamba_ss, train_step_mamba_long=long_ss,
             train_card_vs_cpu=cmp_mamba[3])}, {
-        # its backward (writing each chunk's states to a scratch and
-        # walking them in reverse), fp32, at train_path_mamba's scan (8,
-        # 128, 8192, 16), one chunk, which it launches once a layer a
-        # gradient, and at train_step_mamba_long's (8, 2048, 8192, 16),
-        # eight chunks of 256
+        # its backward (recomputing a chunk's states on the SM a stage at
+        # a time and walking them in reverse), fp32, at train_path_mamba's
+        # scan (8, 128, 8192, 16), one chunk, which it launches once a
+        # layer a gradient, and at train_step_mamba_long's (8, 2048, 8192,
+        # 16), eight chunks of 256
         "name": "selective_scan_backward", "route": "cuda",
         "source": "src/repro_torch/kernels/linear_scan/csrc/"
                   "selective_scan.cu",
@@ -4913,11 +5008,12 @@ def main(argv=None) -> int:
         "plain_ms": bwd_rec["plain_ms"], "bound_ms": bwd_rec["bound_ms"],
         "bound_by": bwd_rec["bound_by"],
         "bound_detail": bwd_rec["bound_detail"],
+        "design": bwd_rec["design"],
         "library_ms": None, "library": bwd_rec["library"],
         "shape": bwd_rec["shape"], "dtype": "float32",
         "long": {k: bwd_long[k] for k in (
             "shape", "n_chunks", "max_abs_err", "ms", "call_ms", "plain_ms",
-            "bound_ms", "bound_by", "bound_share")},
+            "bound_ms", "bound_by", "bound_share", "design")},
         "launches_by_path": _by_path(
             train_path_mamba=mamba_ssb, train_step_mamba_long=long_ssb,
             train_card_vs_cpu=cmp_mamba[4])}, {

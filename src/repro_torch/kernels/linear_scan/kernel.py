@@ -11,8 +11,9 @@ redesigned for the Mamba layer: the port of the JAX package's default
 registers, runs the recurrence and writes ``y = h . C`` and the last
 state, so no ``(B, S, d_inner, N)`` tensor exists; under grad it also
 writes the state before each chunk, from which
-``selective_scan_backward_kernel`` recomputes one chunk's states at a
-time and walks them in reverse (the gradients of xh, dt, A and bc).
+``selective_scan_backward_kernel`` recomputes a chunk's states on the SM,
+a stage of steps at a time, and walks them in reverse (the gradients of
+xh, dt, A and bc).
 
 ``linear_scan_kernel`` launches the forward recurrence and
 ``linear_scan_backward_kernel`` its reverse (fp32, the gradients of a
@@ -45,7 +46,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ENTRIES = {"linear_scan_launch": ("linear_scan", 4, 5),
             "linear_scan_backward_launch": ("linear_scan", 6, 3),
             "selective_scan_launch": ("selective_scan", 7, 6),
-            "selective_scan_backward_launch": ("selective_scan", 12, 5)}
+            "selective_scan_backward_launch": ("selective_scan", 11, 5)}
 
 
 def _entry(name: str = "linear_scan_launch"):
@@ -245,7 +246,7 @@ selective_scan_kernel.launches = 0
 
 # the fused backward's channels a block: its partial sums of dB and dC
 # come one a block of this many d_inner channels
-SELECTIVE_BLOCK = 128
+SELECTIVE_BLOCK = 32
 
 
 def selective_scan_backward_kernel(xh: torch.Tensor, dt: torch.Tensor,
@@ -289,19 +290,17 @@ def selective_scan_backward_kernel(xh: torch.Tensor, dt: torch.Tensor,
     dA_part = torch.empty((B, di, N), dtype=torch.float32, device=dev)
     dbc_part = torch.empty((n_blocks, B, S, 2 * N), dtype=torch.float32,
                            device=dev)
-    scratch = torch.empty((B, c, N, di), dtype=torch.float32, device=dev)
     err = _launch(_entry("selective_scan_backward_launch"), (
         xh.data_ptr(), dt.data_ptr(), A.data_ptr(), bc.data_ptr(),
         h_chunks.data_ptr(), gy.data_ptr(),
         None if gh_last is None else gh_last.data_ptr(), dxh.data_ptr(),
-        ddt.data_ptr(), dA_part.data_ptr(), dbc_part.data_ptr(),
-        scratch.data_ptr(), B, S, di, N, c), xh)
+        ddt.data_ptr(), dA_part.data_ptr(), dbc_part.data_ptr(), B, S, di,
+        N, c), xh)
     if err != 0:
         raise RuntimeError(
             "selective_scan backward kernel launch failed: CUDA error "
             f"{err} at shape {(B, S, di, N)}")
     selective_scan_backward_kernel.launches += 1
-    del scratch
     return dxh, ddt, dA_part.sum(0), dbc_part.sum(0)
 
 

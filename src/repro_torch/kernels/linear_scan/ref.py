@@ -132,11 +132,22 @@ def _chunk_states(dA, dBx, h):
 
 def _sum_over_n(v):
     """``v[..., 0] + v[..., 1] + ...`` in order, each sum rounded alone
-    (the kernel's order)."""
+    (the forward kernel's order)."""
     out = v[..., 0]
     for n in range(1, v.shape[-1]):
         out = out + v[..., n]
     return out
+
+
+def _sum_over_n_lanes(v):
+    """The sum over n in the backward kernel's order: n cut into four
+    consecutive quarters (a channel's four threads), each summed in
+    order, then ``(p0 + p2) + (p1 + p3)``; each sum rounded alone."""
+    p = [_sum_over_n(q) for q in torch.tensor_split(v, 4, dim=-1)
+         if q.shape[-1]]
+    if len(p) < 4:  # N < 4: no kernel runs it; the quarters in order
+        return _sum_over_n(torch.stack(p, -1))
+    return (p[0] + p[2]) + (p[1] + p[3])
 
 
 def selective_scan_ref(xh: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -185,10 +196,10 @@ def selective_scan_backward_ref(xh: torch.Tensor, dt: torch.Tensor,
     * ``dA_n = sum_{b, t} ((g h_{t-1}) dA) dt``,
     * ``dB_t,n = sum_d (g x) dt``, ``dC_t,n = sum_d gy h_t``,
 
-    each product rounded alone, the sums over n in order and dA's over t
-    in the walk's order (then over b), as the kernel rounds them: dxh,
-    ddt and dA agree with it bit for bit (dbc is a sum over channels,
-    taken in another order)."""
+    each product rounded alone, the sums over n in the kernel's lane
+    order (:func:`_sum_over_n_lanes`) and dA's over t in the walk's order
+    (then over b), as the kernel rounds them: dxh, ddt and dA agree with
+    it bit for bit (dbc is a sum over channels, taken in another order)."""
     B, S, di, N = check_selective_args(xh, dt, A, bc)
     wide = dt.dtype
     c = fused_chunk(S) if S else 1
@@ -211,11 +222,11 @@ def selective_scan_backward_ref(xh: torch.Tensor, dt: torch.Tensor,
         for t in range(c - 1, -1, -1):
             g[:, t] += r
             r = dA[:, t] * g[:, t]
-        dxh[:, s0:s0 + c] = _sum_over_n(g * (dt_c * Bc))
+        dxh[:, s0:s0 + c] = _sum_over_n_lanes(g * (dt_c * Bc))
         gx = g * xh[:, s0:s0 + c, :, None].to(wide)
         q = (g * hs[:, :-1]) * dA
         del g, dA
-        ddt[:, s0:s0 + c] = _sum_over_n(q * A + gx * Bc)
+        ddt[:, s0:s0 + c] = _sum_over_n_lanes(q * A + gx * Bc)
         dq = q * dt_c
         for t in range(c - 1, -1, -1):
             dA_b += dq[:, t]

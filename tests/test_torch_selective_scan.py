@@ -31,6 +31,8 @@ einsum's order against the ordered sum over n; measured at most
 forward: in fp64 within ``GRAD64_TOL`` = 1e-12 (measured at most 4.4e-16:
 the sums over n, d and t in other orders), in fp32 within ``TOL``.
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -271,6 +273,76 @@ def test_backward_ref_matches_autograd(S, with_last, dtype):
     loss2 = (y2 * gy).sum() + ((h2 * gl).sum() if with_last else 0)
     for g, f in zip(got, torch.autograd.grad(loss2, leaves)):
         assert torch.equal(g, f)
+
+
+def test_backward_sums_over_n_in_the_kernels_lane_order():
+    """The plain backward sums dxh's and ddt's terms over n as the
+    backward kernel's four threads a channel do: each thread a quarter of
+    n in order, then ``(p0 + p2) + (p1 + p3)``, each sum rounded alone;
+    on these fp32 rows that order and the in-order sum part.  Below 4
+    states (no kernel runs those) it sums them in order."""
+    from repro_torch.kernels.linear_scan import ref as scan_ref
+
+    v = torch.tensor(np.random.default_rng(5).standard_normal((4096, N)),
+                     dtype=torch.float32)
+    p = [v[:, 4 * j] + v[:, 4 * j + 1] + v[:, 4 * j + 2] + v[:, 4 * j + 3]
+         for j in range(4)]
+    got = scan_ref._sum_over_n_lanes(v)
+    assert torch.equal(got, (p[0] + p[2]) + (p[1] + p[3]))
+    assert not torch.equal(got, scan_ref._sum_over_n(v))
+    assert torch.equal(scan_ref._sum_over_n_lanes(v[:, :3]),
+                       scan_ref._sum_over_n(v[:, :3]))
+
+
+@pytest.mark.parametrize("S", [24, 520])
+def test_backward_ref_in_lane_order_matches_fp64_autograd(S):
+    """The fp32 plain backward, its sums over n in the kernel's lane
+    order, against ``torch.autograd`` through ``selective_scan_ref`` in
+    fp64 on the same inputs: every gradient within ``TOL`` per unit of
+    its largest magnitude."""
+    ins = _bwd_inputs(S, torch.float64)
+    leaves = [t.clone().requires_grad_() for t in ins[:4]]
+    y, h_last = selective_scan_ref(*leaves)
+    want = torch.autograd.grad(
+        (y * ins[4]).sum() + (h_last * ins[5]).sum(), leaves)
+    xh, dt, A, bc, gy, gl = (t.float() for t in ins)
+    _, _, chunks = selective_scan_ref(xh, dt, A, bc, chunks=True)
+    got = selective_scan_backward_ref(xh, dt, A, bc, chunks, gy, gl)
+    for name, g, w in zip(("xh", "dt", "A", "bc"), got, want):
+        assert g.dtype == torch.float32, name
+        assert _per_unit(g.double(), w) <= TOL, (name, _per_unit(g.double(),
+                                                                w))
+
+
+def test_chip_smoke_backward_bound_is_the_functions_own_work(monkeypatch):
+    """``chip_smoke.selective_backward_bound`` counts the function's own
+    work, not a design's: at train_step_mamba_long's scan (8, 2048, 8192,
+    16) 29 FP32-pipe instructions an element bind, 1.8590 ms (the SFU
+    0.5128, the bytes 0.8141); and ``_ptxas_function`` reads the
+    backward's registers, spills and static shared memory from a ptxas
+    report."""
+    monkeypatch.syspath_prepend(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as cs
+
+    ms, by, detail = cs.selective_backward_bound(8, 2048, 8192, 16, 256)
+    assert by == "operations" and detail["binds"] == "fp32_pipe"
+    assert detail["per_element"] == {"fp32": 29, "ex2": 1}
+    assert abs(ms - 1.8590) < 1e-3
+    assert abs(detail["sfu_ms"] - 0.5128) < 1e-3
+    assert abs(detail["bytes_ms"] - 0.8141) < 1e-3
+    log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118selective_scan_fwdIfLb0EEEvPKT_' for 'sm_90a'
+ptxas info    : Used 72 registers, 12288 bytes smem, 420 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118selective_scan_bwdEPKfS1_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118selective_scan_bwdEPKfS1_
+    0 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 120 registers, 432 bytes cmem[0]
+"""
+    assert cs._ptxas_function(log, "selective_scan_bwd") == {
+        "spill_stores": 4, "spill_loads": 8, "registers": 120,
+        "static_smem_bytes": 0}
+    assert cs._ptxas_function(log, "selective_scan_fwdIfLb0E") == {
+        "registers": 72, "static_smem_bytes": 12288}
 
 
 def test_chunk_carries_are_the_states_before_each_chunk():

@@ -14,10 +14,13 @@ it runs where the port runs).
   CPU tensor among CUDA ones);
 * the backward kernel (``selective_scan_backward_kernel``) against its
   plain version (``selective_scan_backward_ref``) at two chunks of 256
-  steps, at 65 chunks of 8 with a d_inner that is not a multiple of its
-  128-channel block, and at one step, with and without a gradient of
-  h_last: dxh, ddt and dA bit for bit (both round every product and sum
-  alone, sum over n in order and dA over the steps in the walk's order),
+  steps, and at the edges of its 8-step stages and 32-channel blocks: 65
+  chunks of 8 (one stage) and one chunk of 100 (its last stage 4 steps)
+  at a d_inner that is not a multiple of the block, 65 chunks of 4
+  (shorter than a stage), 3 blocks (far below one wave of them) and one
+  step, with and without a gradient of h_last: dxh, ddt and dA bit for
+  bit (both round every product and sum alone, sum over n in the
+  kernel's lane order and dA over the steps in the walk's order),
   dbc (a sum over channels, in another order) within ``BWD_TOL`` per
   unit of its largest magnitude; the forward's chunk states bit for bit;
   then through
@@ -45,8 +48,10 @@ SHAPES = [(2, 64, 8192, 16), (2, 13, 256, 16), (3, 37, 136, 16),
           (2, 1, 128, 16), (1, 40, 200, 16)]
 TOL = 5e-4  # the prefill's logits card vs CPU, tests/test_torch_ssm.py's
 # the backward's cases (B, S, d_inner, N): two chunks of 256, 65 chunks of
-# 8 at a ragged d_inner, one step
-BWD_SHAPES = [(2, 512, 256, 16), (2, 520, 200, 16), (1, 1, 128, 16)]
+# 8 at a ragged d_inner, 65 chunks of 4, one chunk of 100 at a ragged
+# d_inner, 3 blocks of 32 channels, one step
+BWD_SHAPES = [(2, 512, 256, 16), (2, 520, 200, 16), (2, 260, 136, 16),
+              (3, 100, 200, 16), (1, 24, 72, 16), (1, 1, 128, 16)]
 # dbc against the plain version: sums over channels in another order;
 # max abs error per unit of the largest magnitude
 BWD_TOL = 1e-6
