@@ -213,6 +213,26 @@ EMBED_TABLES = {"embed_table": (151936, 896),
                 "embed_table_mamba": (65024, 4096),
                 "embed_table_deepseek": (102400, 2048)}
 EMBED_REPS = 20
+# K1's edge cases, untimed: {case: (rows, cols, dtype, storage offset in
+# elements, edge rows)} -> the route and warps a row they must take.  Edge
+# rows: a zero row, a tiny row (|w| ~ 1e-20: ||e w|| takes the 1e-12
+# clamp), a one-hot row at |w| = 80, a row holding an inf and one holding
+# a NaN (NaN where the plain version has NaN)
+K1_EDGE_CASES = {
+    "edge_rows_896": ((64, 896, torch.float32, 0, True), ("vector", 1)),
+    "edge_rows_896_bf16": ((64, 896, torch.bfloat16, 0, True),
+                           ("vector", 1)),
+    "edge_rows_4096": ((16, 4096, torch.float32, 0, True), ("vector", 4)),
+    "group_8192": ((8, 8192, torch.float32, 0, False), ("vector", 8)),
+    "cols_1": ((40, 1, torch.float32, 0, False), ("scalar", 1)),
+    "cols_3": ((40, 3, torch.float32, 0, False), ("scalar", 1)),
+    "cols_33": ((40, 33, torch.float32, 0, True), ("scalar", 1)),
+    "cols_1025": ((20, 1025, torch.float32, 0, True), ("scalar", 4)),
+    "bf16_odd_cols": ((37, 129, torch.bfloat16, 0, True), ("scalar", 1)),
+    "unaligned": ((64, 896, torch.float32, 1, True), ("scalar", 2)),
+    "too_wide": ((6, 8193, torch.float32, 0, True), ("wide", 8)),
+}
+K1_TINY = 1e-20
 # linear recurrence (K2) cases: (shape, a broadcast over C).  The main
 # path's carrier leaves at its S=64 bucket (paper LSTM at hidden 64:
 # w_x, w_h, b, fc_w, fc_b), tests/test_kernels.py's grid, S=1 and a
@@ -369,6 +389,101 @@ def phase_build():
           "ptxas": ptxas})
 
 
+def _k1_design(w) -> dict:
+    """The per-row K1's layout of ``w`` (``feature_attention_plan``): its
+    route (``k1_route``: vector, scalar or wide; the kernels line's
+    ``route`` is the contract's cuda / triton), warps a row, vectors a
+    lane, registers, spills, resident warps an SM, and the loads those
+    warps hold in flight an SM (each its share of a row)."""
+    from repro_torch.kernels.feature_attention import kernel
+
+    if not hasattr(kernel, "feature_attention_plan"):  # an earlier design:
+        # --only against another checkout's package
+        return {"k1_route": None, "warps_per_row": None, "design": None}
+    p = kernel.feature_attention_plan(w)
+    warps = p["blocks_per_sm"] * p["threads_per_block"] // 32
+    row_share = (32 * p["vectors_per_lane"] * p["vector_elems"]
+                 * w.element_size())
+    return {"k1_route": p["route"], "warps_per_row": p["warps_per_row"],
+            "design": {**p, "resident_warps_per_sm": warps,
+                       "bytes_in_flight_per_sm": (warps * row_share
+                                                  if p["route"] != "wide"
+                                                  else None)}}
+
+
+def _k1_edge_matrix(rows, cols, dtype, offset, edges):
+    """(rows, cols) on the card from seed 0, ``offset`` elements into its
+    storage, with K1_EDGE_CASES's edge rows first if ``edges``."""
+    x = np.random.default_rng(0).standard_normal((rows, cols)).astype(
+        np.float32)
+    if edges:
+        x[0] = 0.0
+        x[1] *= K1_TINY
+        x[2] *= 0.01
+        x[2, cols // 2] = -80.0
+        x[3, cols - 1] = np.inf
+        x[4, 0] = np.nan
+    flat = torch.empty(offset + rows * cols, dtype=dtype, device="cuda")
+    w = flat[offset:].view(rows, cols)
+    w.copy_(torch.from_numpy(x))
+    return w
+
+
+def _k1_edge_case(case, spec, want_route):
+    """K1 against its plain version on an edge case: NaN exactly where the
+    plain version has NaN, elsewhere within TOL per unit of the largest
+    magnitude, and the zero, tiny and one-hot rows within TOL of their own
+    largest magnitude; on the route and warps a row it must take."""
+    from repro_torch.kernels.feature_attention.kernel import (
+        feature_attention_kernel)
+    from repro_torch.kernels.feature_attention.ref import (
+        feature_attention_ref)
+
+    rows, cols, dtype, offset, edges = spec
+    w = _k1_edge_matrix(rows, cols, dtype, offset, edges)
+    design = _k1_design(w)
+    if design["k1_route"] is not None and (
+            design["k1_route"], design["warps_per_row"]) != want_route:
+        raise AssertionError(f"feature_attention {case}: route "
+                             f"{design['k1_route']} with "
+                             f"{design['warps_per_row']} warps a row, "
+                             f"expected {want_route}")
+    errs = {}
+    for normalize in (True, False):
+        got = feature_attention_kernel(w, normalize).float()
+        want = feature_attention_ref(w, normalize).float()
+        torch.cuda.synchronize()
+        nan = torch.isnan(want)
+        fin = ~nan
+        err = float((got - want)[fin].abs().max())
+        tol = TOL[dtype] * max(1.0, float(want[fin].abs().max()))
+        row_errs = [float((got[r] - want[r]).abs().max()) /
+                    max(float(want[r].abs().max()), 1e-300)
+                    for r in (range(3) if edges else ())]
+        ok = (torch.equal(torch.isnan(got), nan) and err < tol
+              and all(e <= TOL[dtype] for e in row_errs))
+        if edges:  # the zero row stays 0, the inf and NaN rows are NaN
+            ok = ok and float(want[0].abs().max()) == 0.0 and bool(
+                nan[3].all() and nan[4].all())
+        if not ok:
+            raise AssertionError(
+                f"feature_attention kernel disagrees with its plain version "
+                f"on {case} {tuple(w.shape)} {dtype} normalize={normalize}: "
+                f"max abs err {err} (tolerance {tol}), edge rows' errors "
+                f"per unit of their own magnitude {row_errs}")
+        errs[normalize] = (err, tol, row_errs)
+    rec = {"phase": "kernel_vs_plain", "kernel": "feature_attention",
+           "case": case, "shape": [rows, cols], "dtype": str(dtype),
+           "storage_offset": offset, "edge_rows": edges,
+           "max_abs_err": max(e[0] for e in errs.values()),
+           "tolerance": min(e[1] for e in errs.values()),
+           "edge_row_err_per_unit": [max(e[2][r] for e in errs.values())
+                                     for r in range(3 if edges else 0)],
+           "nan_rows_match": True if edges else None, **design}
+    emit(rec)
+    return rec
+
+
 def phase_kernel_vs_plain():
     from repro_torch.kernels.feature_attention.kernel import (
         feature_attention_kernel)
@@ -407,13 +522,16 @@ def phase_kernel_vs_plain():
                        "plain_ms": device_ms(plain),
                        "call_ms": call_ms(kern),
                        "plain_call_ms": call_ms(plain),
-                       "bound_ms": bound_ms, "bound_by": bound_by}
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       **_k1_design(w2)}
                 emit(rec)
                 rows_out[(tuple(shape), dtype, normalize)] = rec
     # the training paths' feature pass on the (vocab, d) fp32 token
     # embedding, drawn as its init (N(0, 0.02)), once a fold
     for case, table in EMBED_TABLES.items():
         rows_out[case] = _embed_table_case(case, table)
+    for case, (spec, route) in K1_EDGE_CASES.items():
+        rows_out[case] = _k1_edge_case(case, spec, route)
     return rows_out
 
 
@@ -438,6 +556,7 @@ def _embed_table_case(case: str, table):
             f"the embedding table {table}: max abs err {err} "
             f"(tolerance {tol})")
     bound_ms, bound_by = feature_bound(*table, 4)
+    out = torch.empty_like(w)
     rec = {"phase": "kernel_vs_plain", "kernel": "feature_attention",
            "case": case, "shape": list(table),
            "dtype": str(torch.float32), "normalize": True,
@@ -448,7 +567,12 @@ def _embed_table_case(case: str, table):
                                  EMBED_REPS),
            "call_ms": call_ms(lambda: feature_attention_kernel(w, True),
                               EMBED_REPS),
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+           # a yardstick beside the bound, not the same function: the
+           # card's own device-to-device copy of the same bytes
+           "copy_ms": device_ms(lambda: out.copy_(w), EMBED_REPS),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           **_k1_design(w)}
+    del out
     emit(rec)
     del w
     torch.cuda.empty_cache()
@@ -4534,9 +4658,10 @@ SERVE_PHASES = ("flash_vs_plain", "serve_path", "serve_path_bf16",
                 "serve_path_deepseek", "serve_path_kimi",
                 "serve_path_whisper", "serve_path_qwen2vl")
 # the phases --only can run alone (after the build), in this order
-ONLY_PHASES = ("scan_vs_plain", "main_path", "assoc_path", "oracle_path",
-               "sweep_path", "paper_rows", "residency_path", "chaos_path",
-               "resume_path") + SERVE_PHASES + ("serve_card_vs_cpu",) \
+ONLY_PHASES = ("kernel_vs_plain", "scan_vs_plain", "main_path",
+               "assoc_path", "oracle_path", "sweep_path", "paper_rows",
+               "residency_path", "chaos_path", "resume_path") \
+    + SERVE_PHASES + ("serve_card_vs_cpu",) \
     + ("train_path", "train_path_mamba", "train_path_deepseek",
        "train_step_rgemma", "train_step_mamba_long", "train_step_families",
        "train_card_vs_cpu", "quickstart_path")
@@ -4664,7 +4789,9 @@ def _embed_entry(name, rec, path, launches, cmp_launches):
         "ms": rec["ms"], "plain_ms": rec["plain_ms"],
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
         "library_ms": None, "call_ms": rec["call_ms"],
-        "shape": rec["shape"],
+        "copy_ms": rec["copy_ms"], "shape": rec["shape"],
+        "k1_route": rec["k1_route"], "warps_per_row": rec["warps_per_row"],
+        "design": rec["design"],
         "launches_by_path": _by_path(**{
             path: launches, "train_card_vs_cpu": cmp_launches})}
 
@@ -4724,6 +4851,8 @@ def main(argv=None) -> int:
     if only:  # the same phases against another checkout's package (copy
         # this script into its root) read two versions on one card
         phase_build()
+        if "kernel_vs_plain" in only:
+            phase_kernel_vs_plain()
         if "scan_vs_plain" in only:
             phase_scan_vs_plain()
         if "main_path" in only:
@@ -4901,7 +5030,10 @@ def main(argv=None) -> int:
         "launches": k1_oracle, "max_abs_err": main_rec["max_abs_err"],
         "ms": main_rec["ms"], "plain_ms": main_rec["plain_ms"],
         "bound_ms": main_rec["bound_ms"], "bound_by": main_rec["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "k1_route": main_rec["k1_route"],
+        "warps_per_row": main_rec["warps_per_row"],
+        # the untimed edge cases, each held against the plain version
+        "edge_cases": {c: kv[c]["max_abs_err"] for c in K1_EDGE_CASES},
         "launches_by_path": _by_path(
             oracle_path=k1_oracle, residency_path=res_k1,
             chaos_path=chaos_k1, train_path=train_k1,

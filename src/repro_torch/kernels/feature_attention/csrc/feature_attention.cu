@@ -8,24 +8,75 @@
 //   out = softmax(|w|) * w
 // and with normalize != 0 rescales the row to its input L2 norm:
 //   out *= ||w|| / max(||out||, 1e-12)
-// then stores in the input dtype (fp32 or bf16).
+// then stores in the input dtype (fp32 or bf16, rounded to nearest even).
 //
 // Bound: bytes.  Each element is read once and written once (2 * rows *
-// cols * sizeof(T) bytes) for about a dozen fp32 operations, far below
-// the card's operations-per-byte balance.  On the engine's main path the
-// matrix is tiny (LSTM w_x, 8 x 256 at hidden 64: 16 KB), so one launch
-// costs more than its bytes: the kernel is launch-bound there.
+// cols * sizeof(T) bytes) for about a dozen fp32 operations, far below the
+// card's operations-per-byte balance: Qwen2-0.5B's (151936, 896) fp32
+// embedding moves 1.089 GB, 0.325 ms at 3.35 TB/s.  The oracle path's
+// (8, 256) moves 16 KB: there a launch costs more than its bytes.
 //
-// Design: one thread block per row, threads striding over the columns
-// (neighbouring threads on neighbouring addresses).  Three block
-// reductions (warp shuffles, then shared memory): max|w|; then
-// sum exp(|w| - max) together with sum w^2; then sum out^2.  The row is
-// re-read from global memory (L1/L2 resident) instead of being staged in
-// shared memory, which keeps the kernel valid for any column count.
+// Design: every byte crosses device memory once.  A row stays on chip, in
+// registers, from its load to its store; nothing is read twice.
+//  * A warp a row while a lane holds at most 32 values (1024 columns on
+//    the vector route), else a group of 2, 4 or 8 warps of one block a row
+//    (up to 8192 columns), each lane holding NV vectors of V elements;
+//    lane l of the group's warp g holds vectors (j * group + g) * 32 + l,
+//    so each load and store instruction of a warp covers 32 * V contiguous
+//    elements.  DeepSeek-V2-Lite's 2048 fp32 columns take 2 warps,
+//    Falcon-Mamba's 4096 take 4: the same registers a lane as a warp a
+//    row, two shared-memory exchanges a row more, and the same share of
+//    the bound as the one-warp rows.  The other form tried for wide rows,
+//    a warp a row fed by TMA bulk copies into a shared-memory ring, was
+//    about as fast at its best ring (one stage a warp) and slower with
+//    deeper ones; this form needs no mbarriers, proxy fences or shared-
+//    memory budget per width, and one code path serves every route.
+//  * Routes.  Vector: 16-byte loads and stores (V = 4 fp32, 8 bf16) when a
+//    row is a whole number of 16 bytes and both pointers are 16-byte
+//    aligned, checked at launch (a contiguous view with a storage offset
+//    need not be); the masks compile away when a row is a whole number of
+//    the group's 512-byte pieces (Qwen2-0.5B's 896 fp32 columns: 7 float4
+//    a lane, one warp).  Scalar: any other row (ragged cols, odd bf16
+//    cols, an offset pointer), V = 1 with masked 4- or 2-byte accesses, at
+//    most 16 values a lane (each access takes its own address and
+//    predicate: at 32 they spill), the same pass.  Wide: rows no group
+//    holds (above 8192 columns on the vector route, 4096 on the scalar)
+//    take a block a row that reads its row three times (the max; the
+//    sums; the scaled write), the one route that re-reads; no model of the
+//    repo has such a row (the widest is Falcon-Mamba's 4096, vector).
+//  * The plain version's arithmetic, element by element: e = exp(|w| -
+//    max), out = (e / sum e) w, then out * (||w|| / max(||out||, 1e-12)),
+//    each product and quotient rounded as PyTorch rounds it; only its three
+//    sums (sum e, sum w^2, sum out^2) are formed otherwise, their fp32
+//    terms added in fp64 and rounded once.  Three reduction rounds a row:
+//    the exact max of |w| as one redux.sync on its bits (non-negative
+//    floats order as their bit patterns); one fp64 butterfly of sum e and
+//    sum w^2; one of sum out^2 (normalize = 0 stops at (e / sum e) w).  A
+//    group crosses warps through shared memory after each round (three
+//    named barriers a row).  Why not fewer roundings: out = e w ||w|| /
+//    max(||e w||, 1e-12 sum e), the 1 / sum e cancelled as
+//    feature_fold_tick takes it, with fp32 sums in this layout's order,
+//    left each pass an ulp or two from the plain version, and the
+//    sequential fold's chain of passes magnifies that where two entries of
+//    a row compete for its softmax: chip_smoke.py's fold_vs_plain
+//    (`multilabel`, K1 once an arrival) failed its n_real x 1e-6 gate.
+//    With its sums rounded once the pass meets the plain version bit for
+//    bit wherever PyTorch's fp32 sums round to the same values; e is
+//    computed twice (the registers hold one value an element).
+//  * Bytes in flight: a persistent grid (SMs x resident blocks) strides
+//    over rows, each warp loading its next row as soon as it has stored
+//    the last.  At a lane's full share (28-32 values) an instance takes
+//    123-124 registers, no spill: 2 blocks, 16 warps an SM, 56-64 KB of
+//    loads in flight an SM against the ~25 KB that 3.35 TB/s times ~1 us
+//    of latency asks for.  Capped at 64 or 80 registers (32 or 24 warps)
+//    it spilled and was slower.  Loading the next row before this row's
+//    reductions and cache-streaming hints did not pay; both are out.
 // expf (not __expf) and no fast-math flags keep fp32 within 1e-6 of the
 // plain PyTorch version.
 
+#include <atomic>
 #include <cooperative_groups.h>
+#include <cstdint>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
@@ -33,29 +84,19 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);  // round to nearest even, as torch's cast
-}
+constexpr unsigned kFull = 0xffffffffu;
+// values a lane holds of its row, in registers: 32 on the vector route;
+// 16 on the scalar route, whose masked element accesses each take an
+// address and a predicate (at 32 they spill)
+constexpr int lane_values(int vec) { return vec == 1 ? 16 : 32; }
 
 __device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
   return v;
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Block-wide sum / max; every thread gets the result.  `sh` holds one
-// slot per warp and is reused, hence the trailing barrier.
+// Block-wide sum; every thread gets the result.  `sh` holds one slot per
+// warp and is reused, hence the trailing barrier.
 __device__ float block_sum(float v, float* sh) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   v = warp_sum(v);
@@ -70,62 +111,423 @@ __device__ float block_sum(float v, float* sh) {
   return v;
 }
 
-__device__ float block_max(float v, float* sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  v = warp_max(v);
-  if (lane == 0) sh[warp] = v;
-  __syncthreads();
-  v = (threadIdx.x < kWarps) ? sh[threadIdx.x] : 0.0f;
-  if (warp == 0) v = warp_max(v);
-  if (threadIdx.x == 0) sh[0] = v;
-  __syncthreads();
-  v = sh[0];
-  __syncthreads();
-  return v;
+// V elements at p as fp32, and back (bf16 rounded to nearest even, as
+// torch's cast).
+template <typename T, int V>
+struct Io;
+
+// One element as fp32, and back
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch's cast
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-feature_attention_rows(const T* __restrict__ w, T* __restrict__ out,
-                       int cols, int normalize) {
-  __shared__ float sh[kWarps];
-  const size_t base = static_cast<size_t>(blockIdx.x) * cols;
-  const T* wr = w + base;
-  T* orow = out + base;
+struct Io<T, 1> {
+  static __device__ __forceinline__ void load(float* v, const T* p) {
+    v[0] = to_float(__ldg(p));
+  }
+  static __device__ __forceinline__ void store(T* p, const float* v) {
+    *p = from_float<T>(v[0]);
+  }
+};
 
-  // |w| >= 0, so 0 is a valid identity for the max
+template <>
+struct Io<float, 4> {
+  static __device__ __forceinline__ void load(float* v, const float* p) {
+    const float4 u = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = u.x;
+    v[1] = u.y;
+    v[2] = u.z;
+    v[3] = u.w;
+  }
+  static __device__ __forceinline__ void store(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+
+template <>
+struct Io<__nv_bfloat16, 8> {
+  static __device__ __forceinline__ void load(float* v,
+                                              const __nv_bfloat16* p) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 f = __bfloat1622float2(h[k]);
+      v[2 * k] = f.x;
+      v[2 * k + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p,
+                                               const float* v) {
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      h[k] = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+    *reinterpret_cast<uint4*>(p) = u;
+  }
+};
+
+// A lane's share of a row: its vector j is first + j * step; vectors past
+// the row (nvec) read as 0.
+template <typename T, int V, int NV, bool kAll>
+__device__ __forceinline__ void load_lane(float (&v)[NV][V], const T* row,
+                                          int first, int step, int nvec) {
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int k = first + j * step;
+    if (kAll || k < nvec) {
+      Io<T, V>::load(v[j], row + static_cast<size_t>(k) * V);
+    } else {
+#pragma unroll
+      for (int c = 0; c < V; ++c) v[j][c] = 0.0f;
+    }
+  }
+}
+
+// Blocks an SM the registers must leave room for: at a lane's full share
+// of a row (e computed twice, fp64 sums) ~124 registers a thread, 2 blocks
+// (16 warps) an SM; at half of it or less 64, 4 blocks.  A lower cap
+// spills, and the spills cost more than the warps gain.
+constexpr int row_min_blocks(int share) { return share <= 16 ? 4 : 2; }
+
+// Named barrier `id` over the `n` threads of one row's warps.
+__device__ __forceinline__ void group_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// A warp's sum, every lane ending with the same value (a butterfly: the
+// partners add the same two values).
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int k = 16; k > 0; k >>= 1) v += __shfl_xor_sync(kFull, v, k);
+  return v;
+}
+
+// A lane's terms of one sum: fp32 terms, formed as the plain version forms
+// them, added in fp64, so that the row's sum rounds once, to the fp32 sum
+// of the exact terms (see the note at the top).
+template <typename T, int V, int NV, bool kAll, typename F>
+__device__ __forceinline__ double lane_sum(const float (&v)[NV][V],
+                                           int first, int step, int nvec,
+                                           F term) {
+  double s = 0.0;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const bool in = kAll || first + j * step < nvec;
+#pragma unroll
+    for (int c = 0; c < V; ++c)
+      if (in) s += static_cast<double>(term(v[j][c]));
+  }
+  return s;
+}
+
+// The sums of a row's group of warps: each warp's in the warp's slot, then
+// every warp adds the group's slots in order (the same sums in each).
+template <int K>
+__device__ __forceinline__ void group_sums(double (&s)[K],
+                                           double (*red)[kWarps], int lane,
+                                           int warp, int base, int grp,
+                                           int group) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) s[k] = warp_sum(s[k]);
+  if (group > 1) {
+    if (lane == 0)
+#pragma unroll
+      for (int k = 0; k < K; ++k) red[k][warp] = s[k];
+    group_sync(1 + grp, 32 * group);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      s[k] = 0.0;
+      for (int g = 0; g < group; ++g) s[k] += red[k][base + g];
+    }
+  }
+}
+
+template <typename T, int V, int NV, bool kAll>
+__global__ void __launch_bounds__(
+    kThreads, row_min_blocks(NV * V * 32 / lane_values(V)))
+feature_attention_rows(const T* __restrict__ w, T* __restrict__ out,
+                       int rows, int cols, int group, int normalize) {
+  // a group's partials, one slot a warp: the max (as bits), then the three
+  // sums, each in its own slots (a warp may write a row's next partial
+  // while the group's last warp still reads the one before)
+  __shared__ unsigned red_max[kWarps];
+  __shared__ double red_sum[3][kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per_block = kWarps / group;  // rows a block holds at once
+  const int grp = warp / group, gw = warp % group;
+  const int base = grp * group;  // the group's first warp
+  const int nvec = cols / V;
+  const int first = gw * 32 + lane, step = group * 32;
+  const long long stride = static_cast<long long>(gridDim.x) * per_block;
+  for (long long row = static_cast<long long>(blockIdx.x) * per_block + grp;
+       row < rows; row += stride) {
+    float v[NV][V];
+    load_lane<T, V, NV, kAll>(v, w + row * cols, first, step, nvec);
+    // round 1: the exact max of |w| (|w| >= 0: 0 is its identity)
+    float m = 0.0f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int c = 0; c < V; ++c) m = fmaxf(m, fabsf(v[j][c]));
+    unsigned mb = __reduce_max_sync(kFull, __float_as_uint(m));
+    if (group > 1) {
+      if (lane == 0) red_max[warp] = mb;
+      group_sync(1 + grp, 32 * group);
+      mb = 0u;
+      for (int k = 0; k < group; ++k) mb = max(mb, red_max[base + k]);
+    }
+    m = __uint_as_float(mb);
+    // e = exp(|w| - max), bit for bit the plain version's
+    const auto ex = [m](float x) { return expf(fabsf(x) - m); };
+    // round 2: sum e and sum w^2
+    double s[2] = {
+        lane_sum<T, V, NV, kAll>(v, first, step, nvec, ex),
+        lane_sum<T, V, NV, kAll>(v, first, step, nvec,
+                                 [](float x) { return __fmul_rn(x, x); })};
+    group_sums(s, red_sum, lane, warp, base, grp, group);
+    const float se = static_cast<float>(s[0]);
+    // the row becomes (e / sum e) w, the plain version's sequence (e again
+    // from w: the registers hold one value an element)
+#pragma unroll
+    for (int j = 0; j < NV; ++j)
+#pragma unroll
+      for (int c = 0; c < V; ++c)
+        v[j][c] = __fmul_rn(ex(v[j][c]) / se, v[j][c]);
+    float scale = 1.0f;
+    if (normalize) {  // round 3: sum out^2; out * ||w|| / max(||out||, 1e-12)
+      double so[1] = {lane_sum<T, V, NV, kAll>(
+          v, first, step, nvec, [](float o) { return __fmul_rn(o, o); })};
+      group_sums(so, red_sum + 2, lane, warp, base, grp, group);
+      scale = sqrtf(static_cast<float>(s[1])) /
+              fmaxf(sqrtf(static_cast<float>(so[0])), 1e-12f);
+    }
+    T* dst = out + row * cols;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int k = first + j * step;
+      if (kAll || k < nvec) {
+        if (normalize)
+#pragma unroll
+          for (int c = 0; c < V; ++c) v[j][c] = __fmul_rn(v[j][c], scale);
+        Io<T, V>::store(dst + static_cast<size_t>(k) * V, v[j]);
+      }
+    }
+  }
+}
+
+// Rows wider than kWarps warps can hold: a block a row, four reads of it
+// (the max; sum e and sum w^2; sum out^2; the write), the same arithmetic.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+feature_attention_rows_wide(const T* __restrict__ w, T* __restrict__ out,
+                            int cols, int normalize) {
+  __shared__ unsigned red_max[kWarps];
+  __shared__ double red_sum[3][kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t off = static_cast<size_t>(blockIdx.x) * cols;
+  const T* src = w + off;
+  T* dst = out + off;
   float m = 0.0f;
   for (int j = threadIdx.x; j < cols; j += kThreads)
-    m = fmaxf(m, fabsf(load_f32(wr + j)));
-  m = block_max(m, sh);
-
-  float se = 0.0f, sw = 0.0f;
+    m = fmaxf(m, fabsf(to_float(src[j])));
+  const unsigned mw = __reduce_max_sync(kFull, __float_as_uint(m));
+  if (lane == 0) red_max[warp] = mw;
+  __syncthreads();
+  unsigned mb = 0u;
+  for (int k = 0; k < kWarps; ++k) mb = max(mb, red_max[k]);
+  m = __uint_as_float(mb);
+  double s[2] = {0.0, 0.0};
   for (int j = threadIdx.x; j < cols; j += kThreads) {
-    const float v = load_f32(wr + j);
-    se += expf(fabsf(v) - m);
-    sw += v * v;
+    const float x = to_float(src[j]);
+    s[0] += static_cast<double>(expf(fabsf(x) - m));
+    s[1] += static_cast<double>(__fmul_rn(x, x));
   }
-  se = block_sum(se, sh);
-
+  group_sums(s, red_sum, lane, warp, 0, -1, kWarps);  // bar.sync 0
+  const float se = static_cast<float>(s[0]);
   float scale = 1.0f;
   if (normalize) {
-    sw = block_sum(sw, sh);
-    float so = 0.0f;
+    double so[1] = {0.0};
     for (int j = threadIdx.x; j < cols; j += kThreads) {
-      const float v = load_f32(wr + j);
-      const float o = expf(fabsf(v) - m) / se * v;
-      so += o * o;
+      const float x = to_float(src[j]);
+      const float o = __fmul_rn(expf(fabsf(x) - m) / se, x);
+      so[0] += static_cast<double>(__fmul_rn(o, o));
     }
-    so = block_sum(so, sh);
-    scale = sqrtf(sw) / fmaxf(sqrtf(so), 1e-12f);
+    group_sums(so, red_sum + 2, lane, warp, 0, -1, kWarps);
+    scale = sqrtf(static_cast<float>(s[1])) /
+            fmaxf(sqrtf(static_cast<float>(so[0])), 1e-12f);
   }
-
   for (int j = threadIdx.x; j < cols; j += kThreads) {
-    const float v = load_f32(wr + j);
-    float o = expf(fabsf(v) - m) / se * v;
-    if (normalize) o = o * scale;
-    store(orow + j, o);
+    const float x = to_float(src[j]);
+    const float o = __fmul_rn(expf(fabsf(x) - m) / se, x);
+    dst[j] = from_float<T>(normalize ? __fmul_rn(o, scale) : o);
   }
+}
+
+enum Route { kVector = 0, kScalar = 1, kWide = 2 };
+
+// How a launch lays a row out (see the note at the top).
+struct RowPlan {
+  int route;
+  int vec;    // elements a vector (V)
+  int nv;     // vectors a lane (NV)
+  int group;  // warps a row
+  bool all;   // every lane's vectors lie in the row: no masks
+};
+
+RowPlan plan_rows(const void* w, const void* out, int cols, int itemsize) {
+  RowPlan p{};
+  const bool aligned = reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                       static_cast<long long>(cols) * itemsize % 16 == 0;
+  p.route = aligned ? kVector : kScalar;
+  p.vec = aligned ? 16 / itemsize : 1;
+  const int nvec = cols / p.vec;
+  const int lane_max = lane_values(p.vec) / p.vec;  // vectors a lane
+  if (nvec > kWarps * 32 * lane_max) {
+    p.route = kWide;
+    p.vec = 1;
+    p.nv = 0;
+    p.group = kWarps;
+    return p;
+  }
+  p.group = 1;  // the fewest warps that hold the row
+  while (p.group * 32 * lane_max < nvec) p.group *= 2;
+  const int per = 32 * p.group;
+  p.nv = (nvec + per - 1) / per;
+  if (p.vec == 1)  // the scalar route's instances: powers of two
+    while (p.nv & (p.nv - 1)) ++p.nv;
+  p.all = nvec == per * p.nv;
+  return p;
+}
+
+template <typename T>
+using RowFn = void (*)(const T*, T*, int, int, int, int);
+
+// A row kernel's instance and its resident blocks an SM (asked once).
+template <typename T>
+struct RowKernel {
+  RowFn<T> fn;
+  int (*blocks)();
+};
+
+template <typename T, int V, int NV, bool kAll>
+int resident_blocks() {
+  static std::atomic<int> n{0};
+  int b = n.load(std::memory_order_relaxed);
+  if (b == 0) {
+    if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &b, feature_attention_rows<T, V, NV, kAll>, kThreads, 0) !=
+        cudaSuccess)
+      return 0;
+    n.store(b, std::memory_order_relaxed);
+  }
+  return b;
+}
+
+// The instance for nv vectors a lane: NV = 1 .. 32 / V, powers of two to
+// 16 at V = 1.
+template <typename T, int V, int NV>
+RowKernel<T> row_kernel(int nv, bool all) {
+  if constexpr (NV * V > lane_values(V)) {
+    return RowKernel<T>{nullptr, nullptr};
+  } else {
+    if (nv == NV)
+      return all ? RowKernel<T>{feature_attention_rows<T, V, NV, true>,
+                                resident_blocks<T, V, NV, true>}
+                 : RowKernel<T>{feature_attention_rows<T, V, NV, false>,
+                                resident_blocks<T, V, NV, false>};
+    return row_kernel<T, V, V == 1 ? 2 * NV : NV + 1>(nv, all);
+  }
+}
+
+template <typename T>
+RowKernel<T> row_kernel_for(const RowPlan& p) {
+  constexpr int kVec = 16 / sizeof(T);
+  return p.vec == 1 ? row_kernel<T, 1, 1>(p.nv, p.all)
+                    : row_kernel<T, kVec, 1>(p.nv, p.all);
+}
+
+int sm_count() {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return sms;
+}
+
+// The persistent grid: no more blocks than the rows need, nor than the
+// card holds at once.
+long long row_grid(const RowPlan& p, int rows, int blocks_per_sm) {
+  const int per_block = kWarps / p.group;
+  const long long need = (rows + per_block - 1LL) / per_block;
+  const long long fit = static_cast<long long>(sm_count()) * blocks_per_sm;
+  return fit > 0 && fit < need ? fit : need;
+}
+
+template <typename T>
+int launch_rows(const void* w, void* out, int rows, int cols, int normalize,
+                cudaStream_t s) {
+  const RowPlan p = plan_rows(w, out, cols, sizeof(T));
+  const T* wt = static_cast<const T*>(w);
+  T* ot = static_cast<T*>(out);
+  if (p.route == kWide) {
+    feature_attention_rows_wide<T><<<static_cast<unsigned>(rows), kThreads,
+                                     0, s>>>(wt, ot, cols, normalize);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const RowKernel<T> k = row_kernel_for<T>(p);
+  if (k.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const long long grid = row_grid(p, rows, k.blocks());
+  k.fn<<<static_cast<unsigned>(grid), kThreads, 0, s>>>(wt, ot, rows, cols,
+                                                         p.group, normalize);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int plan_info(const void* w, const void* out, int rows, int cols, int* info) {
+  const RowPlan p = plan_rows(w, out, cols, sizeof(T));
+  cudaFuncAttributes attr{};
+  cudaError_t err;
+  int blocks = 0;
+  long long grid = rows;
+  if (p.route == kWide) {
+    err = cudaFuncGetAttributes(&attr, feature_attention_rows_wide<T>);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, feature_attention_rows_wide<T>, kThreads, 0);
+  } else {
+    const RowKernel<T> k = row_kernel_for<T>(p);
+    if (k.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaFuncGetAttributes(&attr, k.fn);
+    blocks = k.blocks();
+    grid = row_grid(p, rows, blocks);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  info[0] = p.route;
+  info[1] = p.vec;
+  info[2] = p.nv;
+  info[3] = p.group;
+  info[4] = p.all ? 1 : 0;
+  info[5] = kThreads;
+  info[6] = static_cast<int>(grid);
+  info[7] = blocks;
+  info[8] = attr.numRegs;
+  info[9] = static_cast<int>(attr.localSizeBytes);
+  info[10] = sm_count();
+  return 0;
 }
 
 }  // namespace
@@ -137,21 +539,27 @@ extern "C" int feature_attention_launch(const void* w, void* out, int rows,
                                         int cols, int dtype, int normalize,
                                         void* stream) {
   if (rows <= 0 || cols <= 0) return 0;
-  const dim3 grid(static_cast<unsigned>(rows));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    feature_attention_rows<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(w), static_cast<float*>(out), cols,
-        normalize);
-  } else if (dtype == 1) {
-    feature_attention_rows<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(w),
-        static_cast<__nv_bfloat16*>(out), cols, normalize);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (dtype == 0) return launch_rows<float>(w, out, rows, cols, normalize, s);
+  if (dtype == 1)
+    return launch_rows<__nv_bfloat16>(w, out, rows, cols, normalize, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// How feature_attention_launch would run these arguments, for the record:
+// info[0..10] = route (0 vector, 1 scalar, 2 wide), elements a vector,
+// vectors a lane, warps a row, masks compiled away (0 / 1), threads a
+// block, grid, resident blocks an SM, registers a thread, local (spill)
+// bytes a thread, SMs.  Launches nothing.
+extern "C" int feature_attention_plan(const void* w, const void* out,
+                                      int rows, int cols, int dtype,
+                                      int* info) {
+  if (rows <= 0 || cols <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) return plan_info<float>(w, out, rows, cols, info);
+  if (dtype == 1) return plan_info<__nv_bfloat16>(w, out, rows, cols, info);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 
 // ---------------------------------------------------------------------------
 // feature_fold: ASO-Fed's whole sequential server fold for one tick, in one
@@ -227,7 +635,6 @@ namespace {
 constexpr int kCluster = 8;         // blocks a cluster sharing sum(n)
 constexpr int kMaxLeaves = 16;
 constexpr int kBatch = 8;           // delta loads in flight a thread
-constexpr unsigned kFull = 0xffffffffu;
 
 // Passed by value: the leaves' pointers and sizes, the tick's arrays.
 struct FoldParams {

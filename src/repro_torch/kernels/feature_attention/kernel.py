@@ -6,9 +6,10 @@ feature_attention_kernel``: :func:`feature_attention_kernel` is the
 per-row pass alone, :func:`feature_fold_kernel` ASO-Fed's whole
 sequential server fold of a tick (the Eq. 4 axpy on every leaf and the
 pass on the first layer after each arrival), which is how the engine's
-main path reaches the pass.  They are built with ``nvcc`` at first use
-(``repro_torch.kernels.build``) and called through ``ctypes`` on
-PyTorch's current stream.
+main path reaches the pass; :func:`feature_attention_plan` reports how
+the per-row pass lays out a given matrix.  They are built with ``nvcc``
+at first use (``repro_torch.kernels.build``) and called through
+``ctypes`` on PyTorch's current stream.
 
 Each wrapper's ``launches`` counts the launches this process made; a run
 that resets it to 0 and reads it afterwards can show that its main path
@@ -75,6 +76,42 @@ def feature_attention_kernel(w: torch.Tensor, normalize: bool = True
 
 
 feature_attention_kernel.launches = 0
+
+# feature_attention_plan's fields, in the C entry's order
+_PLAN_FIELDS = ("route", "vector_elems", "vectors_per_lane", "warps_per_row",
+                "unmasked", "threads_per_block", "grid", "blocks_per_sm",
+                "registers", "local_bytes", "sms")
+_ROUTES = ("vector", "scalar", "wide")
+
+
+def feature_attention_plan(w: torch.Tensor) -> dict:
+    """How :func:`feature_attention_kernel` lays out and launches ``w``
+    (a contiguous 2-D fp32 or bf16 CUDA tensor), for the record: its
+    route (``vector``: 16-byte accesses; ``scalar``: masked element
+    accesses; ``wide``: a block a row), the vector width, vectors a lane,
+    warps a row, whether the masks compile away, threads a block, grid,
+    resident blocks an SM, the instance's registers and local (spill)
+    bytes a thread, and the SMs.  Launches nothing and counts nothing."""
+    if not w.is_cuda or w.dtype not in _DTYPES or w.dim() != 2:
+        raise ValueError("feature_attention_plan takes a 2-D float32 or "
+                         "bfloat16 CUDA tensor")
+    lib = build.load("feature_attention")
+    fn = lib.feature_attention_plan
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    info = (ctypes.c_int * len(_PLAN_FIELDS))()
+    # the output is allocated 16-byte aligned, as the wrapper's empty_like
+    with torch.cuda.device(w.device):
+        err = fn(w.data_ptr(), 0, w.shape[0], w.shape[1], _DTYPES[w.dtype],
+                 info)
+    if err != 0:
+        raise RuntimeError(f"feature_attention_plan failed: CUDA error {err}")
+    plan = dict(zip(_PLAN_FIELDS, info))
+    plan["route"] = _ROUTES[plan["route"]]
+    plan["unmasked"] = bool(plan["unmasked"])
+    return plan
 
 
 # the kernel's by-value parameter block holds this many leaves

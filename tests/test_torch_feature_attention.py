@@ -3,8 +3,10 @@
 On the CPU the port's dispatcher runs its plain PyTorch version; it is
 held against the JAX plain version and against the JAX Pallas kernel in
 interpret mode, on the shape x dtype x normalize grid of
-``tests/test_kernels.py``.  The CUDA kernel itself is checked on the
-card (``cuda`` marker; skipped where there is none).
+``tests/test_kernels.py`` and on edge rows (a zero row, tiny rows whose
+output norm takes the 1e-12 clamp, one-hot rows at |w| ~ 80, cols 1 and
+1025).  The CUDA kernel itself is checked on the card, against this plain
+version, in ``tests/test_torch_feature_attention_card.py`` (no JAX).
 """
 import numpy as np
 import pytest
@@ -101,23 +103,48 @@ def test_kernel_wrapper_refuses_cpu_tensor():
     assert feature_attention_kernel.launches == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES + [(8, 256), (4096, 1024)])
+# edge rows: cols of the grid; each matrix's rows 0-2 are a zero row, a
+# tiny row and a one-hot row at 80 (the rest N(0, 1))
+EDGE_COLS = [1, 3, 33, 64, 1025]
+# tiny rows: ||out|| ~ 1e-16 takes the 1e-12 clamp.  At |w| ~ 1e-20 the
+# squares are subnormal, which JAX's CPU backend flushes to zero (its
+# output there is 0): the card's test holds that scale against the plain
+# version on the card
+EDGE_TINY = 1e-15
+
+
+def _edge_inputs(cols, seed=3):
+    x = _inputs((6, cols), seed)
+    x[0] = 0.0
+    x[1] *= EDGE_TINY
+    x[2] *= 0.01
+    x[2, cols // 2] = -80.0
+    return x
+
+
+@pytest.mark.parametrize("cols", EDGE_COLS)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("normalize", [True, False])
-def test_cuda_kernel_matches_plain_version(shape, dtype, normalize):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    from repro_torch.kernels.feature_attention.kernel import (
-        feature_attention_kernel)
-
-    _, tdt, tol = DTYPES[dtype]
-    w = torch.tensor(_inputs(shape)).to(tdt).cuda()
-    before = feature_attention_kernel.launches
-    got = feature_attention(w, normalize=normalize)
-    torch.cuda.synchronize()
-    assert feature_attention_kernel.launches == before + 1
-    want = feature_attention_ref(w.reshape(-1, shape[-1]),
-                                 normalize).reshape(shape)
-    err = float((got.float() - want.float()).abs().max())
-    assert got.dtype == tdt and err < tol
+def test_edge_rows_match_jax_ref_and_pallas_interpret(cols, dtype,
+                                                      normalize):
+    jdt, tdt, tol = DTYPES[dtype]
+    x = _edge_inputs(cols)
+    w_t = torch.tensor(x).to(tdt)
+    w_j = jnp.asarray(x).astype(jdt)
+    got = _to_np32(feature_attention(w_t, normalize=normalize))
+    if normalize:  # the tiny row's output norm took the clamp
+        a = np.abs(x[1]) - np.abs(x[1]).max()
+        e = np.exp(a)
+        assert np.linalg.norm(e / e.sum() * x[1]) < 1e-12
+    for want in (jax_feature_attention_ref(w_j, normalize=normalize),
+                 jax_feature_attention(w_j, use_kernel=True, interpret=True,
+                                       normalize=normalize)):
+        want = _to_np32(want)
+        err = np.max(np.abs(got - want))
+        bound = tol * max(1.0, float(np.max(np.abs(want))))
+        assert err < bound, f"max abs err {err} >= {bound}"
+        # the zero, tiny and one-hot rows each against their own magnitude
+        for r in range(3):
+            err = np.max(np.abs(got[r] - want[r]))
+            assert err <= tol * np.max(np.abs(want[r])), (r, err)
+        assert np.max(np.abs(want[1])) > 0.0
