@@ -25,7 +25,8 @@ PyTorch as in the JAX package.  Decode launches no kernel, and the
 stats count all three.  Computes in
 the weights' dtype (``Model.init(..., dtype=torch.bfloat16)`` serves in
 bf16, K3's tensor-core design); ``main`` serves fp32 with full-fp32
-matrix products (TF32 off).
+matrix products (TF32 off).  Under ``torch.profiler`` each call is a
+``serve.call`` span (``repro_torch.common.trace``).
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.common import trace
 from repro_torch.common.device import resolve_device
 from repro_torch.configs import get_arch
 from repro_torch.kernels import build
@@ -88,64 +90,67 @@ def serve(model: Model, params, tokens, gen: int, *,
     launches in the prefill), ``k3_decode_launches``, ``k2_launches``
     and ``k2_decode_launches`` (K2's, the same way) and
     ``finite_logits`` (every step's logits were finite)."""
-    dev = resolve_device(device)
-    if temperature > 0 and generator is None:
-        raise ValueError("temperature sampling needs an explicit generator")
-    tokens = torch.as_tensor(tokens, dtype=torch.int32).to(dev)
-    wdt = params["embed"]["table"].dtype
-    batch = {"tokens": tokens, **{name: t.to(dev, wdt)
-                                  for name, t in (stubs or {}).items()}}
-    B, S = tokens.shape
-    on_card = dev.type == "cuda"
-    if on_card:  # build the family's kernels outside the timed region
-        for name in family_kernels(model.cfg):
-            build.load(name)
+    with trace.span("serve.call", root=True):
+        dev = resolve_device(device)
+        if temperature > 0 and generator is None:
+            raise ValueError(
+                "temperature sampling needs an explicit generator")
+        tokens = torch.as_tensor(tokens, dtype=torch.int32).to(dev)
+        wdt = params["embed"]["table"].dtype
+        batch = {"tokens": tokens, **{name: t.to(dev, wdt)
+                                      for name, t in (stubs or {}).items()}}
+        B, S = tokens.shape
+        on_card = dev.type == "cuda"
+        if on_card:  # build the family's kernels outside the timed region
+            for name in family_kernels(model.cfg):
+                build.load(name)
 
-    def sync():
-        if on_card:
-            torch.cuda.synchronize(dev)
+        def sync():
+            if on_card:
+                torch.cuda.synchronize(dev)
 
-    sync()
-    k3_0 = flash_attention_kernel.launches
-    k2_0 = linear_scan_kernel.launches
-    ss_0 = selective_scan_kernel.launches
-    t0 = time.perf_counter()
-    logits, cache = model.prefill(params, batch, max_len=S + gen)
-    sync()
-    t_prefill = time.perf_counter() - t0
-    finite = torch.isfinite(logits).all()
-    nxt = _sample(logits, 0.0, None)  # the first token is greedy, as in JAX
-    sync()
-    ttft = time.perf_counter() - t0
-    k3_prefill = flash_attention_kernel.launches - k3_0
-    k2_prefill = linear_scan_kernel.launches - k2_0
-    ss_prefill = selective_scan_kernel.launches - ss_0
+        sync()
+        k3_0 = flash_attention_kernel.launches
+        k2_0 = linear_scan_kernel.launches
+        ss_0 = selective_scan_kernel.launches
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, max_len=S + gen)
+        sync()
+        t_prefill = time.perf_counter() - t0
+        finite = torch.isfinite(logits).all()
+        # the first token is greedy, as in JAX
+        nxt = _sample(logits, 0.0, None)
+        sync()
+        ttft = time.perf_counter() - t0
+        k3_prefill = flash_attention_kernel.launches - k3_0
+        k2_prefill = linear_scan_kernel.launches - k2_0
+        ss_prefill = selective_scan_kernel.launches - ss_0
 
-    out = [nxt]
-    t1 = time.perf_counter()
-    for i in range(gen):
-        idx = torch.full((B,), S + i, dtype=torch.int32, device=dev)
-        logits, cache = model.decode_step(params, cache, nxt, idx)
-        finite &= torch.isfinite(logits).all()
-        nxt = _sample(logits, temperature, generator)
-        out.append(nxt)
-    sync()
-    t_decode = time.perf_counter() - t1
-    stats = {
-        "prefill_s": t_prefill, "decode_s": t_decode,
-        "tokens_per_s": gen * B / max(t_decode, 1e-9), "ttft_s": ttft,
-        "k3_launches": k3_prefill,
-        "k3_decode_launches": (flash_attention_kernel.launches - k3_0
-                               - k3_prefill),
-        "k2_launches": k2_prefill,
-        "k2_decode_launches": (linear_scan_kernel.launches - k2_0
-                               - k2_prefill),
-        "selective_scan_launches": ss_prefill,
-        "selective_scan_decode_launches": (selective_scan_kernel.launches
-                                           - ss_0 - ss_prefill),
-        "finite_logits": bool(finite),
-    }
-    return torch.cat(out, dim=1).cpu(), stats
+        out = [nxt]
+        t1 = time.perf_counter()
+        for i in range(gen):
+            idx = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+            logits, cache = model.decode_step(params, cache, nxt, idx)
+            finite &= torch.isfinite(logits).all()
+            nxt = _sample(logits, temperature, generator)
+            out.append(nxt)
+        sync()
+        t_decode = time.perf_counter() - t1
+        stats = {
+            "prefill_s": t_prefill, "decode_s": t_decode,
+            "tokens_per_s": gen * B / max(t_decode, 1e-9), "ttft_s": ttft,
+            "k3_launches": k3_prefill,
+            "k3_decode_launches": (flash_attention_kernel.launches - k3_0
+                                   - k3_prefill),
+            "k2_launches": k2_prefill,
+            "k2_decode_launches": (linear_scan_kernel.launches - k2_0
+                                   - k2_prefill),
+            "selective_scan_launches": ss_prefill,
+            "selective_scan_decode_launches": (selective_scan_kernel.launches
+                                               - ss_0 - ss_prefill),
+            "finite_logits": bool(finite),
+        }
+        return torch.cat(out, dim=1).cpu(), stats
 
 
 def main(argv=None) -> Dict:

@@ -15,13 +15,20 @@ the samples seen, and the Eq. (5)-(6) feature pass on the first layer
 model.  ``main`` prints the JAX training script's lines and final JSON.
 
 On the card the loss runs the plain ``blocked_attention`` under
-autograd, a Mamba or RG-LRU layer's scan one launch of the recurrence
-kernel (K2) and one of its backward a gradient, and the feature pass
-is one launch of the per-row feature kernel (K1) over the (vocab, d)
-embedding a fold; ``main`` computes in
+autograd, a Mamba layer's scan one launch of the fused selective scan
+and one of its backward kernel a gradient, an RG-LRU layer's one launch
+of the recurrence kernel (K2) and one of its backward, and the feature
+pass is one launch of the per-row feature kernel (K1) over the (vocab,
+d) embedding a fold; ``main`` computes in
 fp32 with full-fp32 matrix products (TF32 off).  Every update is out of
 place, so a client's parameters and the server snapshot its prox term
 reads are the server's tensors of that pull, shared, never written.
+
+Under ``torch.profiler`` each arrival is a ``train.arrival`` span
+(``repro_torch.common.trace``) whose children cover it in program
+order: ``train.draw_batch``, ``train.local_step`` (``train.grad``,
+``train.transform``, ``train.apply``), ``train.fold``,
+``train.feature_pass`` and ``train.read_loss``.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import save_checkpoint
+from repro_torch.common import trace
 from repro_torch.common.device import resolve_device
 from repro_torch.common.pytree import (tree_leaves, tree_map, tree_sub,
                                        tree_unflatten)
@@ -53,16 +61,21 @@ def local_step(model: Model, params, server_params, slots: AsoFedSlots,
     each leaf's dtype."""
     with torch.enable_grad():
         p = tree_map(lambda t: t.detach().requires_grad_(), params)
-        loss, _ = model.loss(p, batch)
-        grads = torch.autograd.grad(loss, tree_leaves(p), allow_unused=True,
-                                    materialize_grads=True)
+        with trace.span("train.grad"):
+            loss, _ = model.loss(p, batch)
+            grads = torch.autograd.grad(loss, tree_leaves(p),
+                                        allow_unused=True,
+                                        materialize_grads=True)
     grads = tree_unflatten(params, list(grads))
     with torch.no_grad():
-        updates, slots = asofed_transform(
-            grads, slots, params, server_params, lam=lam, beta=beta,
-            eta=eta, delay=delay)
-        new = tree_map(lambda w, u: (w.to(torch.float32) + u).to(w.dtype),
-                       params, updates)
+        with trace.span("train.transform"):
+            updates, slots = asofed_transform(
+                grads, slots, params, server_params, lam=lam, beta=beta,
+                eta=eta, delay=delay)
+        with trace.span("train.apply"):
+            new = tree_map(
+                lambda w, u: (w.to(torch.float32) + u).to(w.dtype),
+                params, updates)
     return new, slots, loss.detach()
 
 
@@ -110,28 +123,38 @@ def train(model: Model, init_params, streams: Sequence[np.ndarray], *,
                             "step_s": []}
     t0 = time.perf_counter()
     for it in range(1, steps + 1):
-        ts = time.perf_counter()
-        now, k = heapq.heappop(heap)
-        b = {name: torch.from_numpy(v).to(dev)
-             for name, v in next(iters[k]).items()}
-        before = client_params[k]
-        new_p, slots[k], loss = local_step(
-            model, before, client_server_copy[k], slots[k], b,
-            float(np.float32(delays[k])), lam=lam, beta=beta, eta=eta)
-        with torch.no_grad():
-            delta = tree_sub(before, new_p)
-            del new_p
-            n_k[k] += batch * seq
-            w_server = server_fold(w_server, delta, fold_weight(n_k, k))
-            del delta
-            if feature_learning:
-                w_server = apply_feature_learning(w_server, model.cfg)
-        # the client pulls the fresh central model
-        client_params[k] = w_server
-        client_server_copy[k] = w_server
-        heapq.heappush(heap, (now + float(delays[k]), k))
-        out["losses"].append(float(loss))
-        out["step_s"].append(time.perf_counter() - ts)
+        with trace.span("train.arrival", root=True):
+            ts = time.perf_counter()
+            with trace.span("train.draw_batch"):
+                now, k = heapq.heappop(heap)
+                b = {name: torch.from_numpy(v).to(dev)
+                     for name, v in next(iters[k]).items()}
+            before = client_params[k]
+            # the span holds the call, so the step's frame is freed in it
+            with trace.span("train.local_step"):
+                new_p, slots[k], loss = local_step(
+                    model, before, client_server_copy[k], slots[k], b,
+                    float(np.float32(delays[k])), lam=lam, beta=beta,
+                    eta=eta)
+            with torch.no_grad():
+                with trace.span("train.fold"):
+                    delta = tree_sub(before, new_p)
+                    del new_p
+                    n_k[k] += batch * seq
+                    w_server = server_fold(w_server, delta,
+                                           fold_weight(n_k, k))
+                    del delta
+                if feature_learning:
+                    with trace.span("train.feature_pass"):
+                        w_server = apply_feature_learning(w_server,
+                                                          model.cfg)
+            with trace.span("train.read_loss"):
+                # the client pulls the fresh central model
+                client_params[k] = w_server
+                client_server_copy[k] = w_server
+                heapq.heappush(heap, (now + float(delays[k]), k))
+                out["losses"].append(float(loss))
+                out["step_s"].append(time.perf_counter() - ts)
         out["clients"].append(k)
         out["sim_t"].append(now)
         if log is not None and (it % 10 == 0 or it == 1):

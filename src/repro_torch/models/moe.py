@@ -16,7 +16,8 @@ count:
   expert id, each expert runs its products on its contiguous slice of
   gathered rows, and the outputs go back to (token, slot) order.  The
   per-expert counts are read on the host once per call, one
-  synchronisation a MoE layer;
+  synchronisation a MoE layer (the ``moe.read_counts`` span under
+  ``torch.profiler``, ``repro_torch.common.trace``);
 * ``_all_experts`` (decode, a handful of tokens): one batched product over
   every expert and every token, which streams every expert's weights once
   and reads nothing on the host; the k routed outputs of each token are
@@ -33,6 +34,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.spec import ParamDef
 
@@ -76,7 +78,8 @@ def _gathered(params, xt, ids):
     E = params["w_gate"].shape[0]
     flat = ids.reshape(-1)
     order = torch.argsort(flat, stable=True)  # assignments by expert id
-    counts = torch.bincount(flat, minlength=E).tolist()  # one host read
+    with trace.span("moe.read_counts"):
+        counts = torch.bincount(flat, minlength=E).tolist()
     rows = xt.index_select(0, order // k)
     out = torch.empty_like(rows)
     start = 0

@@ -19,12 +19,18 @@ held.
 
 Decode is one plain fp32 recurrence step (``linear_scan_step``) and
 launches no kernel.
+
+Under ``torch.profiler`` the forward's elementwise passes and its scan
+are spans (``repro_torch.common.trace``): ``mamba.conv`` (the causal conv
+and its SiLU), ``mamba.scan`` and ``mamba.gate`` (``y + D xh`` and the
+SiLU gate, without the out-projection).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common import trace
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.linear_scan.ops import selective_scan
 from repro_torch.models.scan_utils import linear_scan_step
@@ -99,12 +105,17 @@ def _ssm_coeffs(params, xh: torch.Tensor):
     return dA, dBx, Cc
 
 
+def _gate(params, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
+          dtype) -> torch.Tensor:
+    """y + D * xh, gated by silu(z) in fp32, cast."""
+    y = y + params["D"].to(torch.float32) * xh.to(torch.float32)
+    return (y * F.silu(z.to(torch.float32))).to(dtype)
+
+
 def _gate_out(params, y: torch.Tensor, xh: torch.Tensor, z: torch.Tensor,
               dtype) -> torch.Tensor:
-    """y + D * xh, gated by silu(z) in fp32, cast, then the out-projection."""
-    y = y + params["D"].to(torch.float32) * xh.to(torch.float32)
-    y = (y * F.silu(z.to(torch.float32))).to(dtype)
-    return y @ params["w_out"]
+    """``_gate``, then the out-projection."""
+    return _gate(params, y, xh, z, dtype) @ params["w_out"]
 
 
 def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
@@ -113,14 +124,18 @@ def mamba_forward(params, x: torch.Tensor, cfg: ModelConfig,
     state ``{"h": (B, di, N) fp32, "conv": (B, K-1, di) in x's dtype}``."""
     xa = x @ params["w_in_x"]  # (B, S, di)
     z = x @ params["w_in_z"]
-    xc = _causal_conv(xa, params["conv_w"], params["conv_b"])
-    xh = F.silu(xc.to(torch.float32)).to(x.dtype)
-    del xc
+    with trace.span("mamba.conv"):
+        xc = _causal_conv(xa, params["conv_w"], params["conv_b"])
+        xh = F.silu(xc.to(torch.float32)).to(x.dtype)
+        del xc
     # JAX's default _fused_chunk_scan: the fused kernel on the card
     dt, A, bc = _scan_inputs(params, xh)
-    y, h_last = selective_scan(xh, dt, A, bc)
+    with trace.span("mamba.scan"):
+        y, h_last = selective_scan(xh, dt, A, bc)
     del dt
-    out = _gate_out(params, y, xh, z, x.dtype)
+    with trace.span("mamba.gate"):
+        g = _gate(params, y, xh, z, x.dtype)
+    out = g @ params["w_out"]
     if return_state:
         K = cfg.ssm_conv
         return out, {"h": h_last.to(torch.float32),
